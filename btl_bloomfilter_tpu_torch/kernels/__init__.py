@@ -4,17 +4,21 @@ PyTorch version.
   * ``nthash_scan``  - canonical ntHash positions / hash planes
   * ``scatter_or``   - Bloom insert (atomicOr)
   * ``gather_words`` - Bloom query (gather + AND over h)
+  * ``gather_counters`` - counting-filter read (packed lanes, min over h)
+  * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane)
 
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
 
-from . import gather_words, nthash_scan, scatter_or
+from . import gather_counters, gather_words, nthash_scan, scatter_add, scatter_or
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
     "scatter_or": scatter_or.KERNEL,
     "gather_words": gather_words.KERNEL,
+    "gather_counters": gather_counters.KERNEL,
+    "scatter_add": scatter_add.KERNEL,
 }
 
 

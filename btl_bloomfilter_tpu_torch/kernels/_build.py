@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels.
 
-All sources under ``csrc/`` compile with one ``nvcc`` call into a shared
+Each source under ``csrc/`` compiles with its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into a shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), loaded with ctypes. The build runs at first use, into
 ``btl_bloomfilter_tpu_torch/build/``, under a name that carries a digest of
@@ -28,7 +29,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu", "errors.cu")
+SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
+           "gather_counters.cu", "scatter_add.cu", "errors.cu")
 HEADERS = ("common.cuh",)
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it
@@ -36,7 +38,7 @@ HEADERS = ("common.cuh",)
 SENTINEL = 0xFFFFFFFF
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -66,6 +68,20 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libbloom_kernels_{_digest()}.so")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise if any fails. Returns their
+    joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> str:
     """Compile the kernels if the library for these sources is missing;
     returns its path. With ``verbose`` nvcc also prints -Xptxas -v
@@ -74,21 +90,17 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s + ".o") for s in SOURCES]
+        log = _run_all([
+            [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmpdir, "lib.so")
+        log += _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         if verbose:
-            print(res.stdout + res.stderr, end="")
-        os.replace(tmp, out)   # atomic: concurrent builds race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            print(log, end="")
+        os.replace(lib, out)   # atomic: concurrent builds race harmlessly
     return out
 
 

@@ -46,6 +46,28 @@ def lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a ^ _SIGN) < (b ^ _SIGN)
 
 
+def ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned a >= b."""
+    return (a ^ _SIGN) >= (b ^ _SIGN)
+
+
+def min_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise unsigned minimum."""
+    return torch.minimum(a ^ _SIGN, b ^ _SIGN) ^ _SIGN
+
+
+def amin(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Unsigned minimum along ``dim``."""
+    return torch.amin(x ^ _SIGN, dim=dim) ^ _SIGN
+
+
+def add_sat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned a + b, saturating at 2**64-1 (all bits set, -1 as int64)
+    instead of wrapping."""
+    s = a + b
+    return torch.where(lt(s, a), -1, s)
+
+
 def mul_const(a: torch.Tensor, c: int) -> torch.Tensor:
     """Low 64 bits of a * c for a uint64 python int c."""
     return a * as_signed(c)

@@ -4,9 +4,11 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from csrc/ and drives the k-mer Bloom
+Builds the port's CUDA kernels from csrc/ and drives the k-mer Bloom
 build/query path at the bench configuration (k=31, h=4, 2**30-bit filter,
-batches of 512 reads x 2048 bases):
+batches of 512 reads x 2048 bases), then the counting Bloom filter's
+build/query path at its bench configuration (k=31, h=4, 2**30 one-byte
+counters, batches of 3072 reads x 2048 bases):
 
   1. device: card name and power limit, kernel build time;
   2. each kernel against its plain PyTorch version on the card, bitwise, at
@@ -17,7 +19,25 @@ batches of 512 reads x 2048 bases):
      golden .bf of the reference's README example, and the launch counts of
      all three kernels;
   4. the write_bloom / test_bloom CLIs on a small multi-FASTA;
-  5. insert and query k-mers/s, kernel path against plain path.
+  5. insert and query k-mers/s, kernel path against plain path;
+  6. the counting filter:
+     a. gather_counters and scatter_add (unit and weighted) against their
+        plain versions at the full shape for counter widths 1, 2 and 4, and
+        the whole conservative insert (two batches, the second repeating
+        half of the first's reads; group_duplicates True and False)
+        against the plain path, bitwise;
+     b. a dense small stream with a chain of more than 32 frames and a
+        frame repeated past the u8 freeze, at widths 1 and 8, against a
+        numpy stream-order incrementMin loop;
+     c. the main path through counting.insert_seq / min_count_seq /
+        contains_seq: 4 batches inserted (every valid window reads >= 1
+        and hits), one inserted again (its windows read >= 2), 2 fresh
+        batches queried (hit fraction under 3 * fpr + 1e-5), and the
+        launch counts of the kernels it runs;
+     d. a counting .bf store/load round trip and the three golden counting
+        .bf files rebuilt on the card;
+     e. counting insert and query k-mers/s and per-kernel times, kernel
+        path against plain path.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -38,6 +58,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K, H = 31, 4
 B, L = 512, 2048
+CB = 3072                # counting batch (bench.py:158)
+C_BYTES = 1 << 30        # counting filter: 2**30 one-byte counters
+C_WIDTHS = (1, 2, 4)
+N_C_INSERT, N_C_FRESH = 4, 2
+C_REPS, C_INNER = 3, 3
 W = L - K + 1
 MAIN_SIZE = 1 << 30
 CHECK_SIZES = (1 << 30, (1 << 32) - 64)
@@ -45,7 +70,9 @@ N_INSERT, N_FRESH = 16, 4
 N_FRAC = 0.02
 REPS, INNER = 7, 20
 SEED = 0
-GOLDEN_README = os.path.join(ROOT, "tests", "golden", "bf_readme.bf")
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+GOLDEN_README = os.path.join(GOLDEN_DIR, "bf_readme.bf")
+CBF_SEQ = "ACGTACACTGGACTGAGTCT"
 
 
 def log(msg: str) -> None:
@@ -60,10 +87,40 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_codes(rng, nfrac=N_FRAC) -> np.ndarray:
-    codes = rng.integers(0, 4, size=(B, L), dtype=np.uint8)
-    codes[rng.random((B, L)) < nfrac] = 4
+def make_codes(rng, nfrac=N_FRAC, rows=B) -> np.ndarray:
+    codes = rng.integers(0, 4, size=(rows, L), dtype=np.uint8)
+    codes[rng.random((rows, L)) < nfrac] = 4
     return codes
+
+
+def golden_long_seq(n: int) -> str:
+    """The deterministic LCG sequence of tests/golden/gen_golden.cpp (as
+    tests/util.py makes it; a top-level ``tests`` package may shadow that
+    module on the GPU machine)."""
+    s, out = 0x9E3779B97F4A7C15, []
+    for _ in range(n):
+        s = (s * 6364136223846793005 + 1442695040888963407) & ((1 << 64) - 1)
+        out.append("ACGT"[(s >> 33) & 3])
+    return "".join(out)
+
+
+def np_increment_min(pos: np.ndarray, valid: np.ndarray, size: int,
+                     dtype) -> np.ndarray:
+    """Stream-order oracle: the reference's incrementMin, one frame at a
+    time, in numpy."""
+    ref = np.zeros(size, dtype)
+    top = np.iinfo(dtype).max
+    for p, ok in zip(pos, valid):
+        if not ok:
+            continue
+        cur = ref[p]
+        m = cur.min()
+        if m == top:
+            continue
+        upd = cur.copy()
+        upd[cur == m] = m + 1
+        ref[p] = upd
+    return ref
 
 
 def unsigned(t: torch.Tensor) -> torch.Tensor:
@@ -112,6 +169,252 @@ def median_ms(fn, reps: int = REPS, inner: int = INNER) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return float(np.median(times))
+
+
+def counting_phases(dev: torch.device, card_line: str):
+    """Phase 6: the counting filter on the card. Returns (err, ms,
+    launches) for gather_counters and scatter_add."""
+    from btl_bloomfilter_tpu_torch import kernels
+    from btl_bloomfilter_tpu_torch.io import bf_format
+    from btl_bloomfilter_tpu_torch.kernels import (_build, gather_counters,
+                                                   nthash_scan, scatter_add)
+    from btl_bloomfilter_tpu_torch.models import counting
+    from btl_bloomfilter_tpu_torch.ops import nthash_tables, u64
+
+    plain = dict(gather=gather_counters.gather_counters_plain,
+                 scatter=scatter_add.scatter_add_plain)
+    err = {"gather_counters": 0, "scatter_add": 0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def frames(pos):
+        """Plane-major positions [h, B, W] -> frame-major [n, h] and valid
+        [n], as insert_positions takes them."""
+        return pos.reshape(H, -1).T, pos[0].reshape(-1) != -1
+
+    # ---- 6a. kernels against their plain versions, full shape ----------
+    rng = np.random.default_rng(SEED + 3)
+    first = make_codes(rng, rows=CB)
+    second = np.concatenate([first[: CB // 2],
+                             make_codes(rng, rows=CB - CB // 2)])
+    codes = torch.from_numpy(first).to(dev)
+    for width in C_WIDTHS:
+        cbf = counting.create(C_BYTES, H, K, 1, counter_width=width,
+                              device=dev)
+        shift = {1: 2, 2: 1, 4: 0}[width]
+        cmax, size = cbf.counter_max, cbf.size
+        pos, _s, _v = nthash_scan.positions_planes(codes, K, H, size)
+        words = torch.randint(-(1 << 31), 1 << 31, (cbf.nwords,),
+                              dtype=torch.int32, device=dev, generator=gen)
+        for out in ("vals", "min", "hit"):
+            err["gather_counters"] = max(err["gather_counters"], require_equal(
+                f"width {width} gather_counters {out}",
+                gather_counters.gather_counters(words, pos, shift, out, 1),
+                gather_counters.gather_counters_plain(words, pos, shift,
+                                                      out, 1)))
+        inc = torch.randint(0, 4, pos.shape, dtype=torch.int32, device=dev,
+                            generator=gen)
+        big = torch.rand(pos.shape, device=dev, generator=gen) < 0.01
+        inc = torch.where(big, torch.randint(
+            -(1 << 31), 1 << 31, pos.shape, dtype=torch.int32, device=dev,
+            generator=gen), inc)
+        for what, c in (("unit", None), ("weighted", inc)):
+            wk = scatter_add.scatter_add(words.clone(), pos, shift, cmax, c)
+            wp = scatter_add.scatter_add_plain(words.clone(), pos, shift,
+                                               cmax, c)
+            err["scatter_add"] = max(err["scatter_add"], require_equal(
+                f"width {width} scatter_add {what}", wk, wp))
+            del wk, wp
+        del words, inc, big
+        for group in (True, False):
+            wk = torch.zeros(cbf.nwords, dtype=torch.int32, device=dev)
+            wp = torch.zeros_like(wk)
+            for batch in (first, second):
+                bpos, _s, _v = nthash_scan.positions_planes(
+                    torch.from_numpy(batch).to(dev), K, H, size)
+                p, v = frames(bpos)
+                per = cbf.counters_per_word
+                counting.insert_positions(wk, p, v, cmax, size, per,
+                                          group=group)
+                counting.insert_positions(wp, p, v, cmax, size, per,
+                                          group=group, **plain)
+            err["gather_counters"] = max(err["gather_counters"], require_equal(
+                f"width {width} group {group} conservative insert", wk, wp))
+            nz = int((wk != 0).sum())
+            del wk, wp, bpos, p, v
+        log(f"[6a] width {width}: gather_counters (vals, min, hit), "
+            f"scatter_add (unit, weighted) and the conservative insert of "
+            f"two {CB}x{L} batches (grouped and not) kernel == plain "
+            f"(bitwise); {nz} nonzero words after the insert")
+        del cbf, pos
+        torch.cuda.empty_cache()
+
+    # ---- 6b. stream-order oracle -----------------------------------------
+    rng = np.random.default_rng(SEED + 4)
+    size, h = 256, 3
+    rand = rng.integers(0, size, size=(400, h))
+    chain = np.array([[i, i + 1, 200 + i % 50] for i in range(40)])
+    hot = np.tile([[5, 6, 7]], (300, 1))          # freezes u8 counters
+    pos = np.concatenate([rand[:200], chain, hot, rand[200:]])
+    valid = rng.random(len(pos)) >= 0.1
+    hashes = u64.from_numpy(pos.astype(np.uint64))
+    for width, nbytes, dtype in ((1, size, np.uint8),
+                                 (8, 8 * size, np.uint64)):
+        ref = np_increment_min(pos, valid, size, dtype)
+        for group in (True, False):
+            cbf = counting.create(nbytes, h, K, 1, counter_width=width,
+                                  device=dev)
+            counting.insert(cbf, hashes, torch.from_numpy(valid),
+                            group_duplicates=group)
+            if not np.array_equal(counting.to_numpy(cbf), ref):
+                raise AssertionError(f"width {width} group {group}: insert "
+                                     "!= stream-order incrementMin")
+        log(f"[6b] width {width}: {len(pos)} frames over {size} counters "
+            f"(a 40-frame chain, a frame repeated 300 times, max counter "
+            f"{int(ref.max())}) == numpy stream-order incrementMin, grouped "
+            "and ungrouped")
+
+    # ---- 6c. the main path -----------------------------------------------
+    rng = np.random.default_rng(SEED + 5)
+    batches = [make_codes(rng, rows=CB) for _ in range(N_C_INSERT)]
+    fresh = [make_codes(rng, rows=CB) for _ in range(N_C_FRESH)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cbf = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
+    for c in batches:
+        counting.insert_seq(cbf, c, group_duplicates=False)
+    n_valid = 0
+    for c in batches:
+        mc, valid = counting.min_count_seq(cbf, c)
+        hit, _ = counting.contains_seq(cbf, c)
+        if not (torch.equal(hit, valid) and bool((mc[valid] >= 1).all())):
+            raise AssertionError("a valid window of an inserted read reads "
+                                 "0 or misses")
+        n_valid += int(valid.sum())
+    counting.insert_seq(cbf, batches[0], group_duplicates=False)
+    mc, valid = counting.min_count_seq(cbf, batches[0])
+    if not bool((mc[valid] >= 2).all()):
+        raise AssertionError("a window inserted twice reads below 2")
+    f_valid = f_hit = 0
+    for c in fresh:
+        hit, valid = counting.contains_seq(cbf, c)
+        f_valid += int(valid.sum())
+        f_hit += int(hit.sum())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"[6c] launches on the counting main path: {launches}")
+    for name in ("nthash_scan", "gather_counters", "scatter_add"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the counting "
+                                 f"main path: {launches}")
+    bound = 3 * counting.fpr(cbf) + 1e-5
+    frac = f_hit / f_valid
+    log(f"[6c] inserted {N_C_INSERT}+1 batches of {CB}x{L} ({n_valid} valid "
+        f"windows in the first {N_C_INSERT}) in {secs:.3f} s with the "
+        f"queries; every valid window reads >= 1 (>= 2 after its batch "
+        f"went in again); fresh-read hit fraction {frac} ({f_hit}/"
+        f"{f_valid}), bound {bound}; pop {counting.pop_count(cbf)}")
+    if not frac < bound:
+        raise AssertionError("fresh-read hit fraction outside the FPR band")
+    del cbf, mc, valid, hit
+    torch.cuda.empty_cache()
+
+    # ---- 6d. .bf round trip and goldens ---------------------------------
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for width in (1, 2, 4, 8):
+            cbf = counting.create(1 << 24, H, K, 2, counter_width=width,
+                                  device=dev)
+            counting.insert_seq(cbf, batches[0][:256])
+            counting.insert_seq(cbf, batches[0][:128])
+            path = os.path.join(tmp, f"w{width}.bf")
+            bf_format.store_counting(cbf, path)
+            back = bf_format.load_counting(path, 2, device=dev)
+            if not (torch.equal(back.counters, cbf.counters) and
+                    (back.size, back.counter_width, back.hash_num,
+                     back.kmer_size) == (cbf.size, width, H, K)):
+                raise AssertionError(f"width {width}: counting .bf round "
+                                     "trip changed the filter")
+        log("[6d] counting .bf round trip, widths 1/2/4/8, 2**24 bytes: "
+            "counters equal")
+        small = counting.create(1000, 5, 8, 1, counter_width=1, device=dev)
+        for _ in range(3):
+            counting.insert_seq(small, nthash_tables.encode_seq(CBF_SEQ))
+        rnd = counting.create(1001, 4, 6, 2, counter_width=1, device=dev)
+        counting.insert_seq(rnd, nthash_tables.encode_seq(
+            golden_long_seq(300)[:100]))
+        c64 = counting.create(4096, 3, 5, 1, counter_width=8, device=dev)
+        counting.insert_seq(c64, nthash_tables.encode_seq(
+            golden_long_seq(300)[:120]))
+        for cbf, name in ((small, "cbf_small.bf"), (rnd, "cbf_round.bf"),
+                          (c64, "cbf64_small.bf")):
+            path = os.path.join(tmp, name)
+            bf_format.store_counting(cbf, path)
+            with open(path, "rb") as f, \
+                    open(os.path.join(GOLDEN_DIR, name), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"{name} built on the card != "
+                                         "golden bytes")
+        log("[6d] cbf_small.bf, cbf_round.bf, cbf64_small.bf built on the "
+            "card == tests/golden")
+
+    # ---- 6e. times -------------------------------------------------------
+    codes = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, size=(CB, L), dtype=np.uint8)).to(dev)
+    kmers = CB * W
+    cbf = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
+    words_p = torch.zeros_like(cbf.counters)
+    cmax, size = cbf.counter_max, cbf.size
+
+    def plain_insert():
+        pos, _s, _v = nthash_scan.positions_planes_plain(codes, K, H, size)
+        p, v = frames(pos)
+        counting.insert_positions(words_p, p, v, cmax, size, 4, group=False,
+                                  **plain)
+
+    def plain_query():
+        pos, _s, _v = nthash_scan.positions_planes_plain(codes, K, H, size)
+        return gather_counters.gather_counters_plain(words_p, pos, 2, "hit",
+                                                     1)
+
+    for name, fn in (
+            ("insert kernel", lambda: counting.insert_seq(
+                cbf, codes, group_duplicates=False)),
+            ("insert plain", plain_insert),
+            ("query kernel", lambda: counting.contains_seq(cbf, codes)),
+            ("query plain", plain_query)):
+        t = median_ms(fn, C_REPS, C_INNER)
+        log(f"[6e] counting {name}: {t:.4f} ms per {CB}x{L} batch, "
+            f"{kmers / (t / 1e3):.6e} k-mers/s ({card_line})")
+    if not torch.equal(cbf.counters, words_p):
+        raise AssertionError("kernel and plain counting filters differ "
+                             "after phase 6e")
+    pos, _s, _v = nthash_scan.positions_planes(codes, K, H, size)
+    wk = cbf.counters
+    ms = {
+        "gather_counters": (
+            median_ms(lambda: gather_counters.gather_counters(
+                wk, pos, 2, "hit", 1)),
+            median_ms(lambda: gather_counters.gather_counters_plain(
+                wk, pos, 2, "hit", 1))),
+        "scatter_add": (
+            median_ms(lambda: scatter_add.scatter_add(wk, pos, 2, cmax)),
+            median_ms(lambda: scatter_add.scatter_add_plain(words_p, pos, 2,
+                                                            cmax))),
+    }
+    vals_ms = (median_ms(lambda: gather_counters.gather_counters(
+        wk, pos, 2, "vals")), median_ms(
+        lambda: gather_counters.gather_counters_plain(wk, pos, 2, "vals")))
+    for name, (tk, tp) in ms.items():
+        log(f"[6e] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms "
+            f"({CB}x{L}, k={K}, h={H}, 2**30 u8 counters; {card_line})")
+    log(f"[6e] gather_counters vals: kernel {vals_ms[0]:.4f} ms, plain "
+        f"{vals_ms[1]:.4f} ms ({card_line})")
+    del cbf, words_p, wk, pos
+    torch.cuda.empty_cache()
+    return err, ms, launches
 
 
 def main() -> None:
@@ -234,8 +537,10 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"[3] launches on the main path: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel never launched: {launches}")
+    for name in ("nthash_scan", "scatter_or", "gather_words"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the main path: "
+                                 f"{launches}")
     bf = pipe.bf
     same_frac = n_hit / n_valid
     fresh_frac = f_hit / f_valid
@@ -337,6 +642,16 @@ def main() -> None:
     if not torch.equal(bf.words, words_p):
         raise AssertionError("kernel and plain filters differ after phase 5")
 
+    del bf, words_p
+    torch.cuda.empty_cache()
+
+    # ---- 6. the counting filter -------------------------------------------
+    c_err, c_ms, c_launches = counting_phases(dev, card_line)
+    err.update(c_err)
+    ms.update(c_ms)
+    for name in c_err:
+        launches[name] = c_launches[name]
+
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
          "source": "btl_bloomfilter_tpu_torch/csrc/nthash_scan.cu",
@@ -347,6 +662,12 @@ def main() -> None:
         {"name": "gather_words", "route": "cuda",
          "source": "btl_bloomfilter_tpu_torch/csrc/gather_words.cu",
          "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297"},
+        {"name": "gather_counters", "route": "cuda",
+         "source": "btl_bloomfilter_tpu_torch/csrc/gather_counters.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297"},
+        {"name": "scatter_add", "route": "cuda",
+         "source": "btl_bloomfilter_tpu_torch/csrc/scatter_add.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
     ]}
     for r in record["kernels"]:
         r.update(launches=launches[r["name"]], max_abs_err=err[r["name"]],

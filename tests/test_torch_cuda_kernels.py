@@ -15,8 +15,11 @@ import pytest
 import torch
 
 from btl_bloomfilter_tpu_torch import kernels
-from btl_bloomfilter_tpu_torch.kernels import gather_words, nthash_scan, scatter_or
-from btl_bloomfilter_tpu_torch.models import bloom, kmer_bloom
+from btl_bloomfilter_tpu_torch.kernels import (gather_counters, gather_words,
+                                               nthash_scan, scatter_add,
+                                               scatter_or)
+from btl_bloomfilter_tpu_torch.models import bloom, counting, kmer_bloom
+from btl_bloomfilter_tpu_torch.ops import u64
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +126,134 @@ def test_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(TypeError):
         gather_words.gather_words(words, torch.zeros(
             (2, 4), dtype=torch.int64, device=dev))
+
+
+def random_words(n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=n,
+                                         dtype=np.int64).astype(np.int32))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("nwords", [1, 37, 1 << 18])
+def test_gather_counters_kernel_matches_plain(dev, shift, nwords):
+    rng = np.random.default_rng(nwords + shift)
+    words = random_words(nwords, shift).to(dev)
+    ncounters = nwords << shift
+    # positions inside and past the counters, invalid windows, stray
+    # sentinels
+    pos = rng.integers(0, ncounters + 50, size=(4, 5, 777), dtype=np.uint64)
+    pos[:, rng.random((5, 777)) < 0.1] = 0xFFFFFFFF
+    pos[rng.random((4, 5, 777)) < 0.02] = 0xFFFFFFFF
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    before = gather_counters.KERNEL.launches
+    for out, thr in (("vals", 0), ("min", 0), ("hit", 0), ("hit", 100),
+                     ("hit", (1 << 32) + 5)):
+        got = gather_counters.gather_counters(words, pos, shift, out, thr)
+        ref = gather_counters.gather_counters_plain(words, pos, shift, out,
+                                                    thr)
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+    assert gather_counters.KERNEL.launches == before + 5
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("nwords", [1, 37, 1 << 18])
+def test_scatter_add_kernel_matches_plain(dev, shift, nwords):
+    rng = np.random.default_rng(nwords * 3 + shift)
+    cmax = (1 << (32 >> shift)) - 1
+    start = random_words(nwords, nwords).to(dev)
+    n = 60_000
+    pos = rng.integers(0, (nwords << shift) + 64, size=n, dtype=np.uint64)
+    pos[:2000] = pos[0]                         # a hot counter saturates
+    pos[rng.random(n) < 0.05] = 0xFFFFFFFF
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    # full uint32 increments, zeros among them
+    inc = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+    inc[rng.random(n) < 0.3] = rng.integers(0, 4, size=1)[0]
+    inc = torch.from_numpy(inc.astype(np.uint32).view(np.int32)).to(dev)
+    for c in (None, inc):
+        got = scatter_add.scatter_add(start.clone(), pos, shift, cmax, c)
+        ref = scatter_add.scatter_add_plain(start.clone(), pos, shift, cmax,
+                                            c)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+def test_scatter_add_saturates_without_touching_neighbours(dev, shift):
+    per, bits = 1 << shift, 32 >> shift
+    cmax = (1 << bits) - 1
+    lane_type = {0: "<u4", 1: "<u2", 2: "<u1"}[shift]
+
+    def packed(lanes):
+        return torch.from_numpy(lanes.astype(lane_type).view("<i4")
+                                .astype(np.int32)).to(dev)
+
+    lanes = np.arange(1, 4 * per + 1, dtype=np.uint64)
+    lanes[1] = cmax - 3
+    words = packed(lanes)
+    # 10000 unit adds and 10000 adds of cmax onto counter 1
+    pos = torch.full((20000,), 1, dtype=torch.int32, device=dev)
+    inc = u64.to_u32_bits(torch.cat([
+        torch.ones(10000, dtype=torch.int64),
+        torch.full((10000,), cmax, dtype=torch.int64)])).to(dev)
+    scatter_add.scatter_add(words, pos, shift, cmax, inc)
+    lanes[1] = cmax
+    assert torch.equal(words, packed(lanes))
+
+
+def cbf_stream(n, h, size_bytes, repeat, width, seed):
+    rng = np.random.default_rng(seed)
+    hs = rng.integers(0, 1 << 64, size=(n, h), dtype=np.uint64)
+    if repeat > 1:
+        ridx = np.tile(np.arange(n), repeat)
+        rng.shuffle(ridx)
+        hs = hs[ridx]
+    valid = rng.random(hs.shape[0]) < 0.9
+    return u64.from_numpy(hs), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [True, False])
+@pytest.mark.parametrize("size_bytes,repeat,max_entangled", [
+    (1 << 16, 1, None), (256, 1, None), (2048, 6, None), (128, 1, 16)])
+def test_counting_on_cuda_matches_cpu(dev, width, group, size_bytes, repeat,
+                                      max_entangled):
+    """Conservative update (sparse, dense, coverage-like, and past the
+    replay buffer), incrementAll with duplicates, min count and membership:
+    the card's kernels against the CPU's plain path."""
+    hs, valid = cbf_stream(400, 3, size_bytes, repeat, width, size_bytes)
+    gpu = counting.create(size_bytes, 3, 5, 2, counter_width=width,
+                          device=dev)
+    cpu = counting.create(size_bytes, 3, 5, 2, counter_width=width)
+    kernels.reset_launch_counts()
+    for cbf in (gpu, cpu):
+        counting.insert(cbf, hs, valid, max_entangled=max_entangled,
+                        group_duplicates=group)
+        counting.insert_all(cbf, hs[:50])
+    assert torch.equal(gpu.counters.cpu(), cpu.counters)
+    assert torch.equal(counting.min_count(gpu, hs).cpu(),
+                       counting.min_count(cpu, hs))
+    assert torch.equal(counting.contains(gpu, hs).cpu(),
+                       counting.contains(cpu, hs))
+    counts = kernels.launch_counts()
+    if width == 8:
+        assert counts["gather_counters"] == counts["scatter_add"] == 0
+    else:
+        assert counts["gather_counters"] >= 3 and counts["scatter_add"] >= 2
+
+
+def test_counting_seq_on_cuda_matches_cpu(dev):
+    codes = random_codes(16, 700, 0.02, 7)
+    gpu = counting.create(1 << 20, 4, 25, 1, device=dev)
+    cpu = counting.create(1 << 20, 4, 25, 1)
+    for cbf in (gpu, cpu):
+        counting.insert_seq(cbf, codes, group_duplicates=False)
+        counting.insert_seq(cbf, codes[:8])
+    assert torch.equal(gpu.counters.cpu(), cpu.counters)
+    probe = torch.cat([codes[:8], random_codes(8, 700, 0.02, 8)])
+    for a, b in zip(counting.min_count_seq(gpu, probe),
+                    counting.min_count_seq(cpu, probe)):
+        assert torch.equal(a.cpu(), b)
+    hit, valid = counting.contains_seq(gpu, probe)
+    assert torch.equal(hit.cpu(), counting.contains_seq(cpu, probe)[0])
+    assert torch.equal(hit[:8], valid[:8])

@@ -14,6 +14,9 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.tools.write_bloom, "
             "btl_bloomfilter_tpu_torch.tools.test_bloom, "
             "btl_bloomfilter_tpu_torch.io.bf_format, "
+            "btl_bloomfilter_tpu_torch.models.counting, "
+            "btl_bloomfilter_tpu_torch.kernels.gather_counters, "
+            "btl_bloomfilter_tpu_torch.kernels.scatter_add, "
             "btl_bloomfilter_tpu_torch.native; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
