@@ -5,7 +5,9 @@ eagerly, so here the pipelines keep only the bucketing (sequence lengths
 padded up to powers of two with the N code, so padded windows are invalid)
 and move host batches to the filter's device. ``BloomPipeline`` runs the
 build/query path of ``models/kmer_bloom.py``: on a GPU, the ntHash,
-scatter-OR and gather kernels.
+scatter-OR and gather kernels. ``MIBFConstructPipeline`` runs the 4-phase
+MIBF build of ``models/mibf_construct.py``: on a GPU, the ntHash,
+scatter-OR and MIBF rank kernels.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from .kernels import nthash_scan
-from .models import bloom, kmer_bloom
+from .models import bloom, kmer_bloom, mibf_construct
 from .ops import nthash, nthash_tables
 
 
@@ -36,7 +38,7 @@ class HashPipeline:
     padded to length buckets, hashed on ``device`` by the ntHash kernel's
     hash mode (its plain version on the CPU)."""
 
-    def __init__(self, k: int, h: int, device="cpu"):
+    def __init__(self, k: int, h: int, device="cuda"):
         self.k = k
         self.h = h
         self.device = torch.device(device)
@@ -79,3 +81,54 @@ class BloomPipeline:
     def query_batch(self, codes):
         """(hit bool [B, W], valid bool [B, W]) on the filter's device."""
         return kmer_bloom.contains_seq(self.bf, codes)
+
+
+class MIBFConstructPipeline:
+    """The 4-phase MIBF build of one bit vector, on the state's device:
+    phase 1 per sequence (``insert_bv_seq``), ``freeze``, then phases 3 and
+    4 per sequence or per batch of sequences (``insert_mibf_seq`` /
+    ``insert_mibf_batch``, ``insert_saturation_seq`` /
+    ``insert_saturation_batch``; a batch equals its sequences one at a time
+    in ID order). The filter ``m`` and its ``counts`` are updated in
+    place."""
+
+    def __init__(self, state: mibf_construct.BitVectorState):
+        if state.sseeds:
+            raise NotImplementedError("spaced seeds are not ported yet")
+        self.state = state
+        self.hash = HashPipeline(state.kmer_size, state.hash_num,
+                                 device=state.bv_words.device)
+
+    def insert_bv_seq(self, codes: np.ndarray) -> None:
+        fr = self.hash.frames(codes)
+        if fr is not None:
+            mibf_construct.insert_bv(self.state, fr.hashes, fr.valid)
+
+    def freeze(self, data_width: int = 2):
+        self.m, self.counts = mibf_construct.get_empty_mibf(self.state,
+                                                            data_width)
+        return self.m
+
+    def insert_mibf_seq(self, codes: np.ndarray, id_value: int) -> None:
+        fr = self.hash.frames(codes)
+        if fr is not None:
+            mibf_construct.insert_mibf(self.m, self.counts, fr.hashes,
+                                       id_value, fr.valid)
+
+    def insert_mibf_batch(self, codes_list, ids) -> None:
+        """Phase 3 for many sequences at once; reads shorter than k add
+        nothing."""
+        fr = self.hash.frames_batch(codes_list)
+        mibf_construct.insert_mibf_many(self.m, self.counts, fr.hashes,
+                                        list(ids), fr.valid)
+
+    def insert_saturation_seq(self, codes: np.ndarray, id_value: int) -> None:
+        fr = self.hash.frames(codes)
+        if fr is not None:
+            mibf_construct.insert_saturation(self.m, self.counts, fr.hashes,
+                                             id_value, fr.valid)
+
+    def insert_saturation_batch(self, codes_list, ids) -> None:
+        fr = self.hash.frames_batch(codes_list)
+        mibf_construct.insert_saturation_many(self.m, self.counts, fr.hashes,
+                                              list(ids), fr.valid)

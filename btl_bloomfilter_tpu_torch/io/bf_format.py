@@ -109,7 +109,7 @@ def store_bloom(bf: bloom.BloomFilter, path: str) -> None:
         f.write(body)
 
 
-def load_bloom(path: str, device="cpu") -> bloom.BloomFilter:
+def load_bloom(path: str, device="cuda") -> bloom.BloomFilter:
     """Read a ``.bf`` file into a filter on ``device``."""
     with open(path, "rb") as f:
         data = f.read()
@@ -143,7 +143,7 @@ def store_counting(cbf: counting.CountingBloomFilter, path: str) -> None:
 
 
 def load_counting(path: str, count_threshold: int,
-                  device="cpu") -> counting.CountingBloomFilter:
+                  device="cuda") -> counting.CountingBloomFilter:
     """Read a counting ``.bf`` file into a filter on ``device``; the file
     does not hold the threshold, so the caller gives it."""
     with open(path, "rb") as f:

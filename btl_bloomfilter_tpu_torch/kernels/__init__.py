@@ -6,12 +6,15 @@ PyTorch version.
   * ``gather_words`` - Bloom query (gather + AND over h)
   * ``gather_counters`` - counting-filter read (packed lanes, min over h)
   * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane)
+  * ``mibf_rank``    - MIBF rank, hit and ID of bit positions
+  * ``mibf_frame_scan`` - MIBF classification's sequential per-read pass
 
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
 
-from . import gather_counters, gather_words, nthash_scan, scatter_add, scatter_or
+from . import (gather_counters, gather_words, mibf_frame_scan, mibf_rank,
+               nthash_scan, scatter_add, scatter_or)
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
@@ -19,6 +22,8 @@ KERNELS = {
     "gather_words": gather_words.KERNEL,
     "gather_counters": gather_counters.KERNEL,
     "scatter_add": scatter_add.KERNEL,
+    "mibf_rank": mibf_rank.KERNEL,
+    "mibf_frame_scan": mibf_frame_scan.KERNEL,
 }
 
 

@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
-           "gather_counters.cu", "scatter_add.cu", "errors.cu")
+           "gather_counters.cu", "scatter_add.cu", "mibf_rank.cu",
+           "mibf_frame_scan.cu", "errors.cu")
 HEADERS = ("common.cuh",)
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it

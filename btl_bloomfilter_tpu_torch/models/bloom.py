@@ -55,7 +55,7 @@ def _num_words(size: int) -> int:
 
 def create(size: int, hash_num: int, kmer_size: int, *, dfpr: float = 0.0,
            n_entry: int = 0, t_entry: int = 0,
-           device="cpu") -> BloomFilter:
+           device="cuda") -> BloomFilter:
     """Empty filter of ``size`` bits (a multiple of 8) on ``device``."""
     if size % 8 != 0:
         raise ValueError(f"filter size {size} is not a multiple of 8")
@@ -77,7 +77,7 @@ def calc_opti_hash_num(fpr: float) -> int:
 
 
 def create_from_fpr(expected_entries: int, fpr: float, hash_num: int,
-                    kmer_size: int, *, device="cpu") -> BloomFilter:
+                    kmer_size: int, *, device="cuda") -> BloomFilter:
     """FPR-sized constructor; hash_num 0 picks the optimal count."""
     if hash_num == 0:
         hash_num = calc_opti_hash_num(fpr)
@@ -87,7 +87,7 @@ def create_from_fpr(expected_entries: int, fpr: float, hash_num: int,
 
 def from_numpy_words(words_u32: np.ndarray, size: int, hash_num: int,
                      kmer_size: int, *, dfpr: float = 0.0, n_entry: int = 0,
-                     t_entry: int = 0, device="cpu") -> BloomFilter:
+                     t_entry: int = 0, device="cuda") -> BloomFilter:
     """A filter over existing uint32 words (for example
     ``np.asarray(jax_bf.words)``); the words are copied."""
     if size % 8 != 0:
@@ -164,12 +164,7 @@ def contains(bf: BloomFilter, hashes: torch.Tensor) -> torch.Tensor:
 
 def get_pop(bf: BloomFilter) -> int:
     """Number of set bits."""
-    x = u64.from_u32_bits(bf.words)
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    x = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
-    return int(x.sum())
+    return int(u64.popcount32(bf.words).sum())
 
 
 def get_fpr(bf: BloomFilter) -> float:

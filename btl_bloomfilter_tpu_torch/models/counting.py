@@ -54,12 +54,11 @@ import torch
 from ..kernels import gather_counters, nthash_scan, scatter_add
 from ..kernels._build import SENTINEL
 from ..ops import u64
+from ..ops.replay import STREAM_BITS, STREAM_MASK, replay_depth
 
 _NP_LE = {1: "<u1", 2: "<u2", 4: "<u4", 8: "<u8"}
 _PER_WORD = {1: 4, 2: 2, 4: 1, 8: 1}
 _SUB_SHIFT = {4: 2, 2: 1, 1: 0}  # log2(counters per word)
-_STREAM_BITS = 31                # frame index bits of a (position, frame) key
-_STREAM_MASK = (1 << _STREAM_BITS) - 1
 
 
 @dataclasses.dataclass
@@ -114,7 +113,7 @@ def _check_width(counter_width: int) -> None:
 
 def create(size_in_bytes: int, hash_num: int, kmer_size: int,
            count_threshold: int, counter_width: int = 1, *,
-           device="cpu") -> CountingBloomFilter:
+           device="cuda") -> CountingBloomFilter:
     """Empty filter on ``device``. As the reference's constructor,
     size_in_bytes is rounded up to a multiple of 8 and
     size = size_in_bytes / counter_width."""
@@ -133,7 +132,8 @@ def create(size_in_bytes: int, hash_num: int, kmer_size: int,
 
 def from_bytes(buf: bytes, *, size: int, hash_num: int, kmer_size: int,
                count_threshold: int, counter_width: int,
-               bits_per_counter: int = 8, device="cpu") -> CountingBloomFilter:
+               bits_per_counter: int = 8,
+               device="cuda") -> CountingBloomFilter:
     """A filter over the reference's counter array (``size`` counters of
     ``counter_width`` little-endian bytes)."""
     _check_width(counter_width)
@@ -159,7 +159,7 @@ def to_numpy(cbf: CountingBloomFilter) -> np.ndarray:
 def from_numpy_counters(counters: np.ndarray, *, size: int, hash_num: int,
                         kmer_size: int, count_threshold: int,
                         counter_width: int, bits_per_counter: int = 8,
-                        device="cpu") -> CountingBloomFilter:
+                        device="cuda") -> CountingBloomFilter:
     """A filter over the JAX package's counter state
     (``np.asarray(jax_cbf.counters)``): packed uint32 words [size * width
     / 4] for widths 1/2/4, the [2, size] uint32 planes (low, high) for
@@ -335,35 +335,13 @@ def _u64_step(plane: torch.Tensor):
     return step
 
 
-def _replay_depth(p: torch.Tensor) -> torch.Tensor:
-    """Round of each frame of p int64 [h, m] (live frames in stream order):
-    any two frames that share a position get strictly increasing rounds in
-    stream order, so the frames of one round are position-disjoint and the
-    rounds in order reproduce stream order. Computed as the fixpoint of
-    round[f] >= round[previous user of each position of f] + 1, one
-    iteration per link of the longest chain."""
-    h, m = p.shape
-    frame = torch.arange(m, device=p.device).repeat(h)
-    key, _ = torch.sort((p.reshape(-1) << _STREAM_BITS) | frame)
-    pos_s, frame_s = key >> _STREAM_BITS, key & _STREAM_MASK
-    # no self-edges: a frame's own duplicate positions impose no order
-    edge = (pos_s[1:] == pos_s[:-1]) & (frame_s[1:] != frame_s[:-1])
-    src, dst = frame_s[:-1][edge], frame_s[1:][edge]
-    depth = torch.ones(m, dtype=torch.int64, device=p.device)
-    while True:
-        new = depth.scatter_reduce(0, dst, depth[src] + 1, "amax")
-        if torch.equal(new, depth):
-            return depth
-        depth = new
-
-
 def _replay(step, p: torch.Tensor) -> None:
     """Apply the frames p int64 [h, m] (live, in stream order) exactly as
     stream order would: one conservative step per round of
-    :func:`_replay_depth`."""
+    :func:`replay_depth`."""
     if p.shape[1] == 0:
         return
-    depth = _replay_depth(p)
+    depth = replay_depth(p)
     order = torch.argsort(depth, stable=True)
     ones = torch.ones(p.shape[1], dtype=torch.int64, device=p.device)
     start = 0
@@ -416,10 +394,10 @@ def _decompose(pos: torch.Tensor, group: bool):
     # pairs sort by (position, stream) packed into one int64 key
     # (position < 2**32, stream < 2**31): a run's stream-first user is its
     # first pair
-    pair_key = (ks.reshape(-1) << _STREAM_BITS) | frame_of.repeat(h)
+    pair_key = (ks.reshape(-1) << STREAM_BITS) | frame_of.repeat(h)
     key_s, pi_s = torch.sort(pair_key)
-    pp_s = key_s >> _STREAM_BITS
-    pg_s = gid.repeat(h)[pi_s] if group else key_s & _STREAM_MASK
+    pp_s = key_s >> STREAM_BITS
+    pg_s = gid.repeat(h)[pi_s] if group else key_s & STREAM_MASK
     same = pp_s[1:] == pp_s[:-1]
     shared_prev = torch.zeros(n * h, dtype=torch.bool, device=dev)
     shared_prev[1:] = same & (pg_s[1:] != pg_s[:-1]) & (pp_s[1:] != SENTINEL)
@@ -475,7 +453,7 @@ def _insert_frames(step, pos: torch.Tensor, size: int, max_entangled,
     h, n = pos.shape
     if n == 0:
         return
-    if n >= (1 << _STREAM_BITS):
+    if n >= (1 << STREAM_BITS):
         raise ValueError(f"{n} frames in one batch; at most 2**31 - 1")
     ks, closed, closed_c, ent_frames = _decompose(pos, group)
     if ent_frames.numel() > _entangled_cap(n, h, size, max_entangled):

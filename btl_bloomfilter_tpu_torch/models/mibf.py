@@ -1,0 +1,299 @@
+"""Multi-index Bloom filter (MIBF): rank/select ID lookup, as torch tensors.
+
+Semantics are the reference's ``models/mibf.py`` (MIBloomFilter.hpp): the
+frozen bit vector plus its exclusive per-word cumulative popcounts give
+rank(p) = #set bits before p in one lookup; the ID array ("data") is indexed
+by rank. The top bit of each data value is the saturation flag ``s_mask``,
+the next the strand flag ``s_strand``, the rest the ID.
+
+Storage: ``bv_words`` and ``cum_ranks`` are int32 tensors holding uint32
+bits; ``data`` holds the IDs at their native width as bit patterns
+(widths 1 / 2 / 4 bytes as uint8 / int16 / int32), so its bytes are the
+reference's ID array; every comparison on it is unsigned
+(``ops/u64.unsigned``). Width 8 (two uint32 planes in the reference) is not
+ported yet and raises ``NotImplementedError``.
+
+Rank and ID lookups go through the CUDA kernel ``kernels/mibf_rank`` when
+the filter lies on a GPU, through its plain version on the CPU; that one
+routine serves the reference's ``rank_of_positions``,
+``rank_of_positions_auto`` and both of its ``*_kernel`` chains.
+
+Unlike the reference, ``saturate`` and ``set_data`` update ``m.data`` in
+place and return ``m``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import mibf_rank
+from ..ops import u64
+
+STORAGE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+_NP = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+_NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32}    # numpy of STORAGE
+
+
+def check_width(data_width: int) -> None:
+    if data_width == 8:
+        raise NotImplementedError("width-8 MIBF (uint64 IDs in two planes) "
+                                  "is not ported yet")
+    if data_width not in STORAGE:
+        raise ValueError(f"unsupported data width {data_width}")
+
+
+def to_storage(values: torch.Tensor, data_width: int) -> torch.Tensor:
+    """Unsigned int64 values < 2**(8 * data_width) -> the storage dtype with
+    the same bits."""
+    if data_width == 1:
+        return values.to(torch.uint8)
+    if data_width == 2:
+        return torch.where(values >= (1 << 15), values - (1 << 16),
+                           values).to(torch.int16)
+    return u64.to_u32_bits(values)
+
+
+@dataclasses.dataclass
+class MIBloomFilter:
+    bv_words: torch.Tensor    # int32 [ceil(size/32)] frozen bit vector
+    cum_ranks: torch.Tensor   # int32 [nwords] exclusive cumulative popcounts
+    data: torch.Tensor        # ID array [d_size], storage dtype of the width
+    size: int                 # bit-vector length in bits
+    hash_num: int
+    kmer_size: int
+    d_size: int               # population count == len(data)
+    data_width: int           # bytes per ID: 1, 2 or 4
+    sseeds: Tuple[str, ...] = ()
+
+    # --- bit-layout constants (MIBloomFilter.hpp:36-44) -------------------
+    @property
+    def s_mask(self) -> int:
+        return 1 << (8 * self.data_width - 1)
+
+    @property
+    def s_anti_mask(self) -> int:
+        return self.s_mask - 1
+
+    @property
+    def s_strand(self) -> int:
+        return 1 << (8 * self.data_width - 2)
+
+    @property
+    def s_id_mask(self) -> int:
+        return self.s_strand - 1
+
+    @property
+    def width_mask(self) -> int:
+        return (1 << (8 * self.data_width)) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.bv_words.device
+
+
+def calc_optimal_size(entries: int, hash_num: int, occupancy: float) -> int:
+    """Occupancy-based sizing (MIBloomFilter.hpp:84-88)."""
+    non64 = int(-float(entries) * hash_num / math.log(1.0 - occupancy))
+    return non64 + (64 - non64 % 64)
+
+
+def calc_prob_single_frame(occupancy: float, hash_num: int, freq: float,
+                           allowed_misses: int) -> float:
+    """Per-frame random-match probability (MIBloomFilter.hpp:65-77)."""
+    total = 0.0
+    for i in range(hash_num - allowed_misses, hash_num + 1):
+        prob = math.comb(hash_num, i)
+        prob *= occupancy ** i
+        prob *= (1.0 - occupancy) ** (hash_num - i)
+        prob *= 1.0 - (1.0 - freq) ** i
+        total += prob
+    return total
+
+
+# ---------------------------------------------------------------------------
+# construction from a frozen bit vector
+# ---------------------------------------------------------------------------
+
+def freeze(bv_words: torch.Tensor, size: int, hash_num: int, kmer_size: int,
+           data_width: int = 2, sseeds: Sequence[str] = ()) -> MIBloomFilter:
+    """Rank structure and an empty ID array over a populated bit vector
+    (int32 words, uint32 bits), on the vector's device; the filter shares
+    the words tensor. The MIBloomFilter(bv) constructor
+    (MIBloomFilter.hpp:122-147)."""
+    check_width(data_width)
+    pops = u64.popcount32(bv_words)
+    cum = torch.cumsum(pops, 0) - pops
+    d_size = int(pops.sum())
+    if d_size >= (1 << 31):
+        raise NotImplementedError("MIBF of 2**31 set bits or more is not "
+                                  "supported (ranks are int32)")
+    return MIBloomFilter(
+        bv_words=bv_words, cum_ranks=cum.to(torch.int32),
+        data=torch.zeros(d_size, dtype=STORAGE[data_width],
+                         device=bv_words.device),
+        size=size, hash_num=hash_num, kmer_size=kmer_size, d_size=d_size,
+        data_width=data_width, sseeds=tuple(sseeds))
+
+
+def from_numpy(bv_words_u32: np.ndarray, data: np.ndarray, *, size: int,
+               hash_num: int, kmer_size: int, data_width: int,
+               sseeds: Sequence[str] = (), device="cuda") -> MIBloomFilter:
+    """A filter over the JAX package's state (``np.asarray(m.bv_words)``,
+    ``np.asarray(m.data)``) on ``device``; the arrays are copied."""
+    check_width(data_width)
+    words = np.array(bv_words_u32, dtype=np.uint32)
+    if words.shape != ((size + 31) // 32,):
+        raise ValueError(f"expected {(size + 31) // 32} words for size "
+                         f"{size}, got shape {words.shape}")
+    m = freeze(torch.from_numpy(words.view(np.int32)).to(device), size,
+               hash_num, kmer_size, data_width, sseeds)
+    ids = np.array(data, dtype=_NP[data_width])
+    if ids.shape != (m.d_size,):
+        raise ValueError(f"expected {m.d_size} IDs (the bit vector's "
+                         f"popcount), got shape {ids.shape}")
+    m.data = torch.from_numpy(ids.view(_NP_SIGNED[data_width])).to(device)
+    return m
+
+
+def to_numpy(m: MIBloomFilter):
+    """(bv_words uint32, cum_ranks uint32, data uint8/16/32) on the host: the
+    JAX package's arrays."""
+    data = m.data.cpu().numpy()
+    return (m.bv_words.cpu().numpy().view(np.uint32),
+            m.cum_ranks.cpu().numpy().view(np.uint32),
+            data.view(_NP[m.data_width]))
+
+
+# ---------------------------------------------------------------------------
+# rank queries
+# ---------------------------------------------------------------------------
+
+def positions(m: MIBloomFilter, hashes: torch.Tensor) -> torch.Tensor:
+    """hash % size of hashes int64 (uint64 bits) as int32 uint32 bits."""
+    if m.size >= (1 << 32):
+        raise NotImplementedError("MIBF of 2**32 bits or more is not "
+                                  "supported (positions are uint32)")
+    return u64.to_u32_bits(u64.mod_const(hashes.to(m.device), m.size))
+
+
+def rank_of_positions(m: MIBloomFilter, pos: torch.Tensor):
+    """(rank int32, hit bool) of bit positions pos int32 (uint32 bits): rank
+    = #1s strictly before pos (sdsl rank, MIBloomFilter.hpp:527)."""
+    rank, hit, _ = mibf_rank.rank_lookup(m.bv_words, m.cum_ranks,
+                                         pos.to(m.device))
+    return rank, hit
+
+
+def at_rank(m: MIBloomFilter, hashes: torch.Tensor):
+    """atRank (MIBloomFilter.hpp:478-515) of hashes int64 [..., h]: (rank
+    int32 [..., h], hit bool [..., h])."""
+    return rank_of_positions(m, positions(m, hashes))
+
+
+def at_rank_data(m: MIBloomFilter, hashes: torch.Tensor):
+    """at_rank + getData in one lookup: (rank int32, hit bool, raw int64)
+    shaped like hashes, raw = data[rank] as an unsigned value with its
+    saturation and strand bits, 0 where the bit vector missed."""
+    rank, hit, raw = mibf_rank.rank_lookup(
+        m.bv_words, m.cum_ranks, positions(m, hashes), m.data)
+    return rank, hit, u64.from_u32_bits(raw)
+
+
+def at(m: MIBloomFilter, hashes: torch.Tensor, max_miss: int = 0):
+    """`at` (MIBloomFilter.hpp:448-472): (values int64 [..., h], ok [...],
+    frame_saturated [...]); ok marks frames with <= max_miss missing
+    positions; values at missing slots are 0, saturation bits stripped."""
+    _, hit, raw = at_rank_data(m, hashes)
+    ok = (~hit).sum(dim=-1) <= max_miss
+    sat = raw > m.s_mask
+    vals = torch.where(sat, raw & m.s_anti_mask, raw)
+    # any miss or any non-saturated present value clears the frame's
+    # saturated flag (MIBloomFilter.hpp:452-469)
+    return vals, ok, (hit & sat).all(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# data mutation (in place)
+# ---------------------------------------------------------------------------
+
+def _in_range(m: MIBloomFilter, rank: torch.Tensor) -> torch.Tensor:
+    """Ranks as int64 with those past the ID array dropped (the reference's
+    scatter mode="drop")."""
+    r = rank.reshape(-1).to(torch.int64).to(m.device)
+    return r[(r >= 0) & (r < m.d_size)]
+
+
+def saturate(m: MIBloomFilter, hashes: torch.Tensor) -> MIBloomFilter:
+    """OR the saturation bit at every addressed rank
+    (MIBloomFilter.hpp:440-446). Updates ``m.data`` in place."""
+    rank, _ = at_rank(m, hashes)
+    r = torch.unique(_in_range(m, rank))
+    m.data[r] = to_storage(u64.unsigned(m.data[r]) | m.s_mask, m.data_width)
+    return m
+
+
+def set_data(m: MIBloomFilter, rank: torch.Tensor,
+             ids: torch.Tensor) -> MIBloomFilter:
+    """Overwrite IDs at ranks, keeping each entry's saturation bit
+    (setData, MIBloomFilter.hpp:625-634); of duplicate ranks the last wins.
+    Updates ``m.data`` in place."""
+    r = rank.reshape(-1).to(torch.int64).to(m.device)
+    v = torch.as_tensor(ids).reshape(-1).to(m.device).to(torch.int64)
+    keep = (r >= 0) & (r < m.d_size)
+    r, v = r[keep], v[keep]
+    # the last occurrence of each rank: sort (rank, index) keys
+    key = torch.sort((r << 32) | torch.arange(r.numel(), device=m.device))[0]
+    last = torch.ones(key.numel(), dtype=torch.bool, device=m.device)
+    last[:-1] = (key[1:] >> 32) != (key[:-1] >> 32)
+    idx = key[last] & 0xFFFFFFFF
+    r, v = r[idx], v[idx] & m.width_mask
+    m.data[r] = to_storage(v | (u64.unsigned(m.data[r]) & m.s_mask),
+                           m.data_width)
+    return m
+
+
+# ---------------------------------------------------------------------------
+# statistics (MIBloomFilter.hpp:539-620, 664-707)
+# ---------------------------------------------------------------------------
+
+def get_pop(m: MIBloomFilter) -> int:
+    return m.d_size
+
+
+def get_pop_non_zero(m: MIBloomFilter) -> int:
+    return int((m.data != 0).sum())
+
+
+def get_pop_saturated(m: MIBloomFilter) -> int:
+    return int((u64.unsigned(m.data) > m.s_mask).sum())
+
+
+def get_id_counts(m: MIBloomFilter, num_ids: int):
+    """Histogram of stored IDs (getIDCounts, MIBloomFilter.hpp:539-551):
+    (counts int64 [num_ids], saturated count)."""
+    d = u64.unsigned(m.data)
+    sat = d > m.s_mask
+    ids = torch.where(sat, d & m.s_anti_mask, d)
+    counts = torch.bincount(ids[ids < num_ids], minlength=num_ids)
+    return counts, int(sat.sum())
+
+
+def calc_frame_probs(m: MIBloomFilter, num_ids: int, allowed_miss: int):
+    """calcFrameProbs (MIBloomFilter.hpp:664-679): per-ID frame match
+    probabilities. Returns (frame_probs list, saturation proportion)."""
+    occupancy = m.d_size / m.size
+    counts, sat = get_id_counts(m, num_ids)
+    counts = counts.cpu().numpy()
+    total = int(counts[1:].sum())
+    sat_prop = float(sat) / total if total else 0.0
+    probs = [0.0] * num_ids
+    for i in range(1, num_ids):
+        probs[i] = calc_prob_single_frame(
+            occupancy, m.hash_num, counts[i] / total if total else 0.0,
+            allowed_miss)
+    return probs, sat_prop

@@ -95,3 +95,19 @@ def to_u32_bits(x: torch.Tensor) -> torch.Tensor:
 def from_u32_bits(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> their unsigned value as int64."""
     return x.to(torch.int64) & _MASK32
+
+
+def unsigned(x: torch.Tensor) -> torch.Tensor:
+    """uint8 values or int16 / int32 bit patterns -> their unsigned value as
+    int64."""
+    return x.to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of the low 32 bits of each element (int32 bit patterns or
+    int64 values), as int64. torch has no popcount: a SWAR bit count."""
+    x = x.to(torch.int64) & _MASK32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _MASK32) >> 24

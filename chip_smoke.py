@@ -37,13 +37,38 @@ counters, batches of 3072 reads x 2048 bases):
      d. a counting .bf store/load round trip and the three golden counting
         .bf files rebuilt on the card;
      e. counting insert and query k-mers/s and per-kernel times, kernel
-        path against plain path.
+        path against plain path;
+  7. the multi-index Bloom filter (MIBF) build and read classification:
+     a. mibf_rank (rank only at the build's positions; rank + ID for ID
+        widths 1, 2 and 4 at the classify batch's) and mibf_frame_scan (at
+        the classify batch's pass C inputs, with and without an early exit)
+        against their plain versions, bitwise;
+     b. bench.py's pinned MIBF config uncut (k=31, h=4, 2**28-bit vector,
+        63 references x 16,384 bases, width-2 IDs; 256 reads x 2048 bases
+        classified with min count 2, frame probability 0.1, extra count
+        2.0): the whole 4-phase build and the 256 result lists, kernel path
+        against plain path;
+     c. the main path through api.MIBFConstructPipeline and
+        MIBFQuerySupport.query_many at the size users build
+        (mibf_construct.create for 64 x 262,144 bases at occupancy 0.5):
+        the fraction of reads whose top hit is their source (>= 0.95) and
+        the launch counts of the four kernels it runs;
+     d. the .mibf / .sdsl round trip of that filter, and the build_mibf /
+        classify CLIs on a small multi-FASTA;
+     e. MIBF construct and classify rates under bench.py's keys and
+        per-kernel times, kernel path against plain path.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel record {"kernels": [...]}.
+the per-kernel record {"kernels": [...]}, each kernel with its launches on
+its main path, its largest difference from the plain version, its time,
+the plain version's, and its bound: the bytes it must move (each input
+read once, each output written once; for a gather or scatter only the
+distinct words this run touches) over the card's 3.35 TB/s.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -70,6 +95,11 @@ N_INSERT, N_FRESH = 16, 4
 N_FRAC = 0.02
 REPS, INNER = 7, 20
 SEED = 0
+# MIBF: bench.py's config (7a, 7b, 7e) is btl_bloomfilter_tpu_torch/tools/
+# profile_mibf.py's; the occupancy-0.5 build at the size users build (7c)
+M_WIDTHS = (1, 2, 4)
+U_REFS, U_REF_L = 64, 262144
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 GOLDEN_README = os.path.join(GOLDEN_DIR, "bf_readme.bf")
 CBF_SEQ = "ACGTACACTGGACTGAGTCT"
@@ -149,6 +179,18 @@ def require_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> int:
     if err != 0 or not torch.equal(a, b):
         raise AssertionError(f"{what}: kernel != plain (max abs err {err})")
     return err
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least time to move nbytes at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def distinct_words(pos: torch.Tensor, shift: int) -> int:
+    """Distinct words p >> shift of positions pos (int32 uint32 bits),
+    sentinels left out."""
+    p = unsigned(pos.reshape(-1))
+    return int(torch.unique(p[p != 0xFFFFFFFF] >> shift).numel())
 
 
 def median_ms(fn, reps: int = REPS, inner: int = INNER) -> float:
@@ -407,14 +449,366 @@ def counting_phases(dev: torch.device, card_line: str):
     vals_ms = (median_ms(lambda: gather_counters.gather_counters(
         wk, pos, 2, "vals")), median_ms(
         lambda: gather_counters.gather_counters_plain(wk, pos, 2, "vals")))
+    n_words = distinct_words(pos, 2)
+    bounds = {
+        "gather_counters": bound_ms(4 * pos.numel() + pos[0].numel()
+                                    + 4 * n_words),
+        "scatter_add": bound_ms(4 * pos.numel() + 8 * n_words)}
     for name, (tk, tp) in ms.items():
-        log(f"[6e] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms "
-            f"({CB}x{L}, k={K}, h={H}, 2**30 u8 counters; {card_line})")
+        log(f"[6e] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms ({CB}x{L}, k={K}, h={H}, 2**30 u8 "
+            f"counters; {card_line})")
     log(f"[6e] gather_counters vals: kernel {vals_ms[0]:.4f} ms, plain "
         f"{vals_ms[1]:.4f} ms ({card_line})")
     del cbf, words_p, wk, pos
     torch.cuda.empty_cache()
-    return err, ms, launches
+    return err, ms, launches, bounds
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the kernel wrappers of the MIBF path to their plain versions
+    (on the card too): the path every kernel is held against."""
+    from btl_bloomfilter_tpu_torch.kernels import (mibf_frame_scan,
+                                                   mibf_rank, nthash_scan,
+                                                   scatter_or)
+    swaps = [(nthash_scan, "hash_frames_planes",
+              nthash_scan.hash_frames_planes_plain),
+             (scatter_or, "scatter_or", scatter_or.scatter_or_plain),
+             (mibf_rank, "rank_lookup", mibf_rank.rank_lookup_plain),
+             (mibf_frame_scan, "frame_scan",
+              mibf_frame_scan.frame_scan_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def capturing(mod, name: str):
+    """Record the positional arguments of every call of mod.name (the
+    wrapper still runs, and counts its launch) into the yielded list."""
+    fn, calls = getattr(mod, name), []
+
+    def recorded(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(mod, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
+
+
+def mibf_phases(dev: torch.device, card_line: str):
+    """Phase 7: the MIBF build and classification on the card. Returns
+    (err, ms, launches, bounds) for mibf_rank and mibf_frame_scan."""
+    from btl_bloomfilter_tpu_torch import api, kernels
+    from btl_bloomfilter_tpu_torch.io import mibf_format
+    from btl_bloomfilter_tpu_torch.kernels import (_build, mibf_frame_scan,
+                                                   mibf_rank)
+    from btl_bloomfilter_tpu_torch.models import (mibf, mibf_construct,
+                                                  mibf_query)
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+
+    def results(res):
+        return [[dataclasses.astuple(r) for r in rs] for rs in res]
+
+    err = {"mibf_rank": 0, "mibf_frame_scan": 0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    M_R, M_L, mc = mb.R, mb.L, mb.MIN_COUNT
+
+    # ---- 7b. bench.py's config: kernel path against plain path ----------
+    refs, reads, srcs = mb.bench_inputs()
+    codes = torch.from_numpy(refs).to(dev)
+    ids = torch.arange(1, mb.IDS, device=dev)
+    qcodes = torch.from_numpy(reads).to(dev)
+    m, counts = mb.bench_build(codes, ids)
+    qhashes, qvalid = mb.bench_hashes(qcodes)
+    with capturing(mibf_frame_scan, "frame_scan") as captured:
+        qs = mb.bench_engine(m)
+        res = qs.query_many(qhashes, qvalid, mc)
+    with plain_kernels():
+        m_p, counts_p = mb.bench_build(codes, ids)
+        qs_p = mb.bench_engine(m_p)
+        res_p = qs_p.query_many(qhashes, qvalid, mc)
+    for what, a, b in (("bit vector", m.bv_words, m_p.bv_words),
+                       ("cum_ranks", m.cum_ranks, m_p.cum_ranks),
+                       ("ID plane", m.data, m_p.data),
+                       ("counts", counts, counts_p)):
+        require_equal(f"7b build {what}", a, b)
+    if results(res) != results(res_p) or (qs.sat_count, qs.eval_count) != (
+            qs_p.sat_count, qs_p.eval_count):
+        raise AssertionError("7b classification: kernel path != plain path")
+    correct = sum(1 for r, s in zip(res, srcs) if r and r[0].id == s + 1)
+    log(f"[7b] bench config: build (bit vector {mb.BV} bits, d_size "
+        f"{m.d_size}, {mibf.get_pop_saturated(m)} saturated, "
+        f"{mibf.get_pop_non_zero(m)} non-zero) and {M_R} result lists "
+        f"(sat_count {qs.sat_count}, eval_count {qs.eval_count}) kernel "
+        f"path == plain path; correct fraction {correct / M_R}")
+    del m_p, counts_p, qs_p
+
+    # ---- 7a. kernels against plain versions at those shapes -------------
+    bpos = mibf.positions(m, mb.bench_hashes(codes)[0])
+    qpos = mibf.positions(m, qhashes)
+    for what, a, b in zip(("rank", "hit"),
+                          mibf_rank.rank_lookup(m.bv_words, m.cum_ranks,
+                                                bpos)[:2],
+                          mibf_rank.rank_lookup_plain(m.bv_words,
+                                                      m.cum_ranks, bpos)[:2]):
+        err["mibf_rank"] = max(err["mibf_rank"], require_equal(
+            f"mibf_rank build positions {what}", a, b))
+
+    def random_plane(width):
+        """Random IDs of every bit pattern of the width."""
+        lo = 0 if width == 1 else -(1 << (8 * width - 1))
+        return torch.randint(lo, lo + (1 << (8 * width)), (m.d_size,),
+                             dtype=torch.int64, device=dev,
+                             generator=gen).to(mibf.STORAGE[width])
+
+    planes = [(2, m.data)] + [(w, random_plane(w)) for w in M_WIDTHS]
+    for width, data in planes:
+        got = mibf_rank.rank_lookup(m.bv_words, m.cum_ranks, qpos, data)
+        ref = mibf_rank.rank_lookup_plain(m.bv_words, m.cum_ranks, qpos,
+                                          data)
+        for what, a, b in zip(("rank", "hit", "raw"), got, ref):
+            err["mibf_rank"] = max(err["mibf_rank"], require_equal(
+                f"mibf_rank width {width} {what}", a, b))
+    args = captured[0]
+    for efl in (10**6, 3):
+        got = mibf_frame_scan.frame_scan(*args[:7], efl)
+        ref = mibf_frame_scan.frame_scan_plain(*args[:7], efl)
+        for what, a, b in zip(("ok", "active", "best", "sat_count",
+                               "eval_count"), got, ref):
+            err["mibf_frame_scan"] = max(err["mibf_frame_scan"],
+                                         require_equal(
+                f"mibf_frame_scan efl {efl} {what}", a, b))
+    log(f"[7a] mibf_rank (rank only at {bpos.numel()} build positions; "
+        f"rank + ID for widths {M_WIDTHS} at {qpos.numel()} classify "
+        f"positions, {int(got[0].sum())} promoted slots at efl 3) and "
+        f"mibf_frame_scan ({M_R}x{args[0].shape[1]}x{H} slots, extra-frame "
+        "limit 10**6 and 3) kernel == plain (bitwise)")
+
+    # ---- 7e. times at those shapes ----------------------------------------
+    total_kmers = (mb.IDS - 1) * (mb.REF_L - K + 1)
+    rates = {}
+    for name, fn, reps in (
+            ("construct kernel", lambda: mb.bench_build(codes, ids), 3),
+            ("classify kernel", lambda: mb.bench_engine(m).query_many(
+                qhashes, qvalid, mc), 3)):
+        rates[name] = median_ms(fn, reps, 1)
+    with plain_kernels():
+        rates["construct plain"] = median_ms(
+            lambda: mb.bench_build(codes, ids), 1, 1)
+        rates["classify plain"] = median_ms(
+            lambda: mb.bench_engine(m).query_many(qhashes, qvalid, mc), 1, 1)
+    qkmers = M_R * (M_L - K + 1)
+    for path in ("kernel", "plain"):
+        tc, tq = rates[f"construct {path}"], rates[f"classify {path}"]
+        log(f"[7e] {path} path: construct {tc:.4f} ms, classify {tq:.4f} ms "
+            f"({card_line})")
+        log(f"[7e] {path} path: " + json.dumps({
+            "mibf_construct_kmers_per_s": total_kmers / (tc / 1e3),
+            "mibf_classify_reads_per_s": M_R / (tq / 1e3),
+            "mibf_classify_kmers_per_s": qkmers / (tq / 1e3),
+            "mibf_classify_correct_frac": correct / M_R}))
+    bv, cum, data = m.bv_words, m.cum_ranks, m.data
+    ms = {
+        "mibf_rank": (
+            median_ms(lambda: mibf_rank.rank_lookup(bv, cum, qpos, data)),
+            median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, qpos,
+                                                          data))),
+        "mibf_frame_scan": (
+            median_ms(lambda: mibf_frame_scan.frame_scan(*args)),
+            median_ms(lambda: mibf_frame_scan.frame_scan_plain(*args), 1,
+                      1)),
+    }
+    build_rank = (
+        median_ms(lambda: mibf_rank.rank_lookup(bv, cum, bpos)),
+        median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, bpos)))
+    hits = mibf_rank.rank_lookup(bv, cum, qpos)[1]
+    n_q, n_b = qpos.numel(), bpos.numel()
+    r_slots = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
+    bounds = {
+        # positions in; rank, hit, raw out; the distinct bv and cum words
+        # and the IDs of the hits
+        "mibf_rank": bound_ms(13 * n_q + 8 * distinct_words(qpos, 5)
+                              + 2 * int(torch.unique(
+                                  mibf_rank.rank_lookup(bv, cum, qpos)[0]
+                                  [hits]).numel())),
+        # c6, consider, min_count in and ok out per slot; five per-frame
+        # arrays; best, sat and eval counts per read
+        "mibf_frame_scan": bound_ms(
+            r_slots * (24 + 1 + 4 + 1)
+            + args[0].shape[0] * args[0].shape[1] * (1 + 1 + 1 + 4 + 1)
+            + args[0].shape[0] * 32)}
+    build_bound = bound_ms(9 * n_b + 8 * distinct_words(bpos, 5))
+    log(f"[7e] mibf_rank rank only at the build's {n_b} positions: kernel "
+        f"{build_rank[0]:.4f} ms, plain {build_rank[1]:.4f} ms, bound "
+        f"{build_bound:.4f} ms ({card_line})")
+    for name, (tk, tp) in ms.items():
+        log(f"[7e] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms (classify batch {M_R}x{M_L}, k={K}, "
+            f"h={H}, {mb.BV}-bit vector, width {mb.DATA_WIDTH}; {card_line})")
+    del m, counts, qs, captured, args, bpos, qpos, planes, hits
+    torch.cuda.empty_cache()
+
+    # ---- 7c. the main path at the size users build ----------------------
+    rng = np.random.default_rng(SEED + 7)
+    refs = rng.integers(0, 4, size=(U_REFS, U_REF_L), dtype=np.uint8)
+    reads, srcs = mb.reads_from(refs, M_R, M_L, rng)
+    pfp = [0.0] + [0.1] * U_REFS
+    mc = np.full(U_REFS + 1, 2, np.int32)
+
+    def main_path():
+        """Build through api.MIBFConstructPipeline, classify the reads
+        through query_many: (pipeline, engine, results, build seconds)."""
+        t0 = time.perf_counter()
+        pipe = api.MIBFConstructPipeline(mibf_construct.create(
+            U_REFS * U_REF_L, K, H, occupancy=0.5, device=dev))
+        for c in refs:
+            pipe.insert_bv_seq(c)
+        pipe.freeze(2)
+        pipe.insert_mibf_batch(list(refs), range(1, U_REFS + 1))
+        pipe.insert_saturation_batch(list(refs), range(1, U_REFS + 1))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        fr = pipe.hash.frames_batch(list(reads))
+        qs = mibf_query.MIBFQuerySupport(
+            m=pipe.m, per_frame_prob=pfp, extra_count=2.0,
+            extra_frame_limit=10**6, max_miss=0, min_count=1,
+            best_hit_agree=False)
+        return pipe, qs, qs.query_many(fr.hashes, fr.valid, mc), t_build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with capturing(mibf_rank, "rank_lookup") as rank_calls, \
+            capturing(mibf_frame_scan, "frame_scan") as scan_calls:
+        pipe, qs, res, t_build = main_path()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    m = pipe.m
+    log(f"[7c] launches on the MIBF main path: {launches}")
+    for name in ("nthash_scan", "scatter_or", "mibf_rank",
+                 "mibf_frame_scan"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the MIBF main "
+                                 f"path: {launches}")
+    correct = sum(1 for r, s in zip(res, srcs) if r and r[0].id == s + 1)
+    log(f"[7c] {U_REFS} x {U_REF_L} bases: bit vector {m.size} bits, "
+        f"d_size {m.d_size} (occupancy {m.d_size / m.size:.4f}), "
+        f"{mibf.get_pop_saturated(m)} saturated; built in {t_build:.3f} s, "
+        f"{M_R} reads classified in {t_all - t_build:.3f} s (first calls); "
+        f"correct fraction {correct / M_R} (sat_count {qs.sat_count}, "
+        f"eval_count {qs.eval_count}); peak memory {peak / 2**30:.2f} GiB")
+    if correct / M_R < 0.95:
+        raise AssertionError("fewer than 95% of the reads classify to "
+                             "their source")
+    # each kernel call of the main path again, against its plain version on
+    # the same inputs (the build's lookups are rank only, the classify
+    # batch's rank + ID)
+    shapes = []
+    for i, args in enumerate(rank_calls):
+        for what, a, b in zip(("rank", "hit", "raw"),
+                              mibf_rank.rank_lookup(*args),
+                              mibf_rank.rank_lookup_plain(*args)):
+            if a is not None or b is not None:
+                err["mibf_rank"] = max(err["mibf_rank"], require_equal(
+                    f"7c mibf_rank call {i} {what}", a, b))
+        shapes.append(f"{args[2].numel()}{' + ID' if len(args) > 3 else ''}")
+    for i, args in enumerate(scan_calls):
+        for what, a, b in zip(("ok", "active", "best", "sat_count",
+                               "eval_count"),
+                              mibf_frame_scan.frame_scan(*args),
+                              mibf_frame_scan.frame_scan_plain(*args)):
+            err["mibf_frame_scan"] = max(err["mibf_frame_scan"],
+                                         require_equal(
+                f"7c mibf_frame_scan call {i} {what}", a, b))
+    log(f"[7c] mibf_rank at the main path's {len(rank_calls)} calls "
+        f"(positions {', '.join(shapes)}) and mibf_frame_scan at its "
+        f"{len(scan_calls)} ({'; '.join(str(tuple(a[0].shape)) for a in scan_calls)}"
+        ") kernel == plain (bitwise)")
+    del rank_calls, scan_calls
+    # the whole main path again with every kernel swapped for its plain
+    # version: the same filter and the same result lists
+    with plain_kernels():
+        pipe_p, qs_p, res_p, _ = main_path()
+    for what, a, b in (("bit vector", m.bv_words, pipe_p.m.bv_words),
+                       ("cum_ranks", m.cum_ranks, pipe_p.m.cum_ranks),
+                       ("ID plane", m.data, pipe_p.m.data),
+                       ("counts", pipe.counts, pipe_p.counts)):
+        require_equal(f"7c build {what}", a, b)
+    if results(res) != results(res_p) or (qs.sat_count, qs.eval_count) != (
+            qs_p.sat_count, qs_p.eval_count):
+        raise AssertionError("7c classification: kernel path != plain path")
+    log(f"[7c] build (bit vector, cum_ranks, IDs, counts) and {M_R} result "
+        "lists: kernel path == plain path")
+    del pipe_p, qs_p, res_p
+    torch.cuda.empty_cache()
+
+    # ---- 7d. .mibf round trip and the CLIs --------------------------------
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "main.mibf")
+        mibf_format.store_mibf(m, path)
+        back = mibf_format.load_mibf(path, 2, device=dev)
+        for what in ("bv_words", "cum_ranks", "data"):
+            require_equal(f".mibf round trip {what}", getattr(back, what),
+                          getattr(m, what))
+        if (back.size, back.hash_num, back.kmer_size, back.d_size) != (
+                m.size, m.hash_num, m.kmer_size, m.d_size):
+            raise AssertionError(".mibf round trip changed the header")
+        log(f"[7d] .mibf round trip: {os.path.getsize(path)} + "
+            f"{os.path.getsize(path + '.sdsl')} bytes, filter equal")
+        del back, m, pipe, qs, res
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(SEED + 8)
+        refs = ["".join("ACGT"[c] for c in rng.integers(0, 4, size=3000))
+                for _ in range(8)]
+        fa, qa = os.path.join(tmp, "refs.fa"), os.path.join(tmp, "reads.fa")
+        with open(fa, "w") as f:
+            for i, s in enumerate(refs):
+                f.write(f">ref{i}\n{s}\n")
+        srcs = rng.integers(0, len(refs), size=40)
+        with open(qa, "w") as f:
+            for i, src in enumerate(srcs):
+                o = int(rng.integers(0, 3000 - 250))
+                f.write(f">read{i}\n{refs[src][o: o + 250]}\n")
+        out = os.path.join(tmp, "refs.mibf")
+        mod = "btl_bloomfilter_tpu_torch.tools."
+        run = subprocess.run(
+            [sys.executable, "-m", mod + "build_mibf", "-f", fa, "-k", "25",
+             "-o", out], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"build_mibf failed:\n{run.stdout}\n"
+                                 f"{run.stderr}")
+        q = subprocess.run(
+            [sys.executable, "-m", mod + "classify", "-f", qa, "-b", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if q.returncode != 0:
+            raise AssertionError(f"classify failed:\n{q.stdout}\n{q.stderr}")
+        got = {line.split("\t")[0]: line.split("\t")[2]
+               for line in q.stdout.splitlines()}
+        wrong = [f"read{i}" for i, src in enumerate(srcs)
+                 if got.get(f"read{i}") != f"ref{src}"]
+        log(f"[7d] CLI: build_mibf + classify of {len(srcs)} reads from "
+            f"{len(refs)} records: {len(srcs) - len(wrong)} classified to "
+            "their record")
+        if wrong:
+            raise AssertionError(f"CLI classify missed {wrong}:\n{q.stdout}")
+    return err, ms, launches, bounds
 
 
 def main() -> None:
@@ -507,9 +901,20 @@ def main() -> None:
             median_ms(lambda: gather_words.gather_words_plain(words_p,
                                                               pos))),
     }
+    n_words = distinct_words(pos, 5)
+    bounds = {
+        # codes in; positions, strand and valid out
+        "nthash_scan": bound_ms(codes.numel() + 4 * pos.numel()
+                                + 2 * pos[0].numel()),
+        # positions in; each distinct word read and written once
+        "scatter_or": bound_ms(4 * pos.numel() + 8 * n_words),
+        # positions in, hits out; each distinct word read once
+        "gather_words": bound_ms(4 * pos.numel() + pos[0].numel()
+                                 + 4 * n_words)}
     for name, (tk, tp) in ms.items():
-        log(f"[2] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms "
-            f"({B}x{L}, k={K}, h={H}, size 2**30; {card_line})")
+        log(f"[2] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms ({B}x{L}, k={K}, h={H}, size 2**30; "
+            f"{card_line})")
     del words_k, words_p, pos
     torch.cuda.empty_cache()
 
@@ -646,11 +1051,20 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 6. the counting filter -------------------------------------------
-    c_err, c_ms, c_launches = counting_phases(dev, card_line)
+    c_err, c_ms, c_launches, c_bounds = counting_phases(dev, card_line)
     err.update(c_err)
     ms.update(c_ms)
+    bounds.update(c_bounds)
     for name in c_err:
         launches[name] = c_launches[name]
+
+    # ---- 7. the multi-index Bloom filter ----------------------------------
+    m_err, m_ms, m_launches, m_bounds = mibf_phases(dev, card_line)
+    err.update(m_err)
+    ms.update(m_ms)
+    bounds.update(m_bounds)
+    for name in m_err:
+        launches[name] = m_launches[name]
 
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
@@ -668,10 +1082,22 @@ def main() -> None:
         {"name": "scatter_add", "route": "cuda",
          "source": "btl_bloomfilter_tpu_torch/csrc/scatter_add.cu",
          "replaces": "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
+        {"name": "mibf_rank", "route": "cuda",
+         "source": "btl_bloomfilter_tpu_torch/csrc/mibf_rank.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:231 "
+                     "and btl_bloomfilter_tpu/kernels/gather_words.py:297 "
+                     "(MIBF ID-plane mode)"},
+        {"name": "mibf_frame_scan", "route": "cuda",
+         "source": "btl_bloomfilter_tpu_torch/csrc/mibf_frame_scan.cu",
+         "replaces": "btl_bloomfilter_tpu/models/mibf_query.py:553 "
+                     "(lax.scan, no Pallas twin)"},
     ]}
     for r in record["kernels"]:
+        # no single PyTorch call computes any of these functions
         r.update(launches=launches[r["name"]], max_abs_err=err[r["name"]],
-                 ms=ms[r["name"]][0], plain_ms=ms[r["name"]][1])
+                 ms=ms[r["name"]][0], plain_ms=ms[r["name"]][1],
+                 bound_ms=bounds[r["name"]], bound_by="bytes",
+                 library_ms=None)
     log(f"card: {card_line}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

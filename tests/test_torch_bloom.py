@@ -52,7 +52,8 @@ def test_insert_sentinel_positions_matches_jax(size):
     pos = random_positions(size, (4, 16, 300), 0.2, size % 97)
     ref = jax_bloom.insert_sentinel_positions(
         jax_bloom.create(size, 4, 31), jnp.asarray(pos))
-    got = bloom.insert_sentinel_positions(bloom.create(size, 4, 31),
+    got = bloom.insert_sentinel_positions(bloom.create(size, 4, 31,
+                                                       device="cpu"),
                                           as_i32(pos))
     np.testing.assert_array_equal(port_words(got), np.asarray(ref.words))
 
@@ -65,7 +66,8 @@ def test_contains_sentinel_positions_matches_jax(size):
     jbf = jax_bloom.insert_sentinel_positions(jax_bloom.create(size, 3, 21),
                                               jnp.asarray(ins))
     ref = jax_bloom.contains_sentinel_positions(jbf, jnp.asarray(qry))
-    bf = bloom.insert_sentinel_positions(bloom.create(size, 3, 21),
+    bf = bloom.insert_sentinel_positions(bloom.create(size, 3, 21,
+                                                      device="cpu"),
                                          as_i32(ins))
     got = bloom.contains_sentinel_positions(bf, as_i32(qry))
     assert got.shape == (16, 200)
@@ -83,7 +85,8 @@ def test_insert_contains_hashes_match_jax(size):
                                    dtype=np.uint64)])
     jbf = jax_insert(jax_bloom.create(size, 4, 11),
                      jax_u64.from_numpy(hashes), jnp.asarray(valid))
-    bf = bloom.insert(bloom.create(size, 4, 11), u64.from_numpy(hashes),
+    bf = bloom.insert(bloom.create(size, 4, 11,
+                                   device="cpu"), u64.from_numpy(hashes),
                       torch.from_numpy(valid))
     np.testing.assert_array_equal(port_words(bf), np.asarray(jbf.words))
     ref = jax_contains(jbf, jax_u64.from_numpy(probe))
@@ -102,7 +105,8 @@ def test_jax_built_filter_queried_and_extended_by_port():
     a, b = random_codes(8, 200, 0.05, 3), random_codes(8, 200, 0.05, 4)
     jbf = jax_insert_seq(jax_bloom.create(size, h, k), a)
 
-    bf = bloom.from_numpy_words(np.asarray(jbf.words), size, h, k)
+    bf = bloom.from_numpy_words(np.asarray(jbf.words), size, h, k,
+                                device="cpu")
     for codes in (a, b):
         ref_hit, ref_valid = jax_contains_seq(jbf, codes)
         hit, valid = kmer_bloom.contains_seq(bf, codes)
@@ -117,7 +121,7 @@ def test_jax_built_filter_queried_and_extended_by_port():
 def test_port_built_filter_queried_by_jax():
     size, h, k = 4096, 3, 9
     a = random_codes(4, 120, 0.05, 5)
-    bf = kmer_bloom.insert_seq(bloom.create(size, h, k), a)
+    bf = kmer_bloom.insert_seq(bloom.create(size, h, k, device="cpu"), a)
     jbf = jax_bloom.BloomFilter(words=jnp.asarray(bloom.to_numpy_words(bf)),
                                 size=size, hash_num=h, kmer_size=k)
     ref = jax_insert_seq(jax_bloom.create(size, h, k), a)
@@ -131,14 +135,16 @@ def test_port_built_filter_queried_by_jax():
 
 def test_from_numpy_words_checks_length():
     with pytest.raises(ValueError):
-        bloom.from_numpy_words(np.zeros(3, np.uint32), 1024, 3, 5)
+        bloom.from_numpy_words(np.zeros(3, np.uint32), 1024, 3, 5,
+                               device="cpu")
 
 
 def test_get_pop_and_fpr_match_jax():
     pos = random_positions(1 << 14, (4, 8, 100), 0.1, 7)
     jbf = jax_bloom.insert_sentinel_positions(jax_bloom.create(1 << 14, 4, 5),
                                               jnp.asarray(pos))
-    bf = bloom.insert_sentinel_positions(bloom.create(1 << 14, 4, 5),
+    bf = bloom.insert_sentinel_positions(bloom.create(1 << 14, 4, 5,
+                                                      device="cpu"),
                                          as_i32(pos))
     assert bloom.get_pop(bf) == int(jax_bloom.get_pop(jbf))
     assert bloom.get_pop(bf) == int(np.unpackbits(
@@ -155,7 +161,7 @@ def test_sizing_math_matches_jax(entries, fpr, h):
     assert bloom.calc_optimal_size(entries, fpr, max(h, 1)) == \
         jax_bloom.calc_optimal_size(entries, fpr, max(h, 1))
     assert bloom.calc_opti_hash_num(fpr) == jax_bloom.calc_opti_hash_num(fpr)
-    got = bloom.create_from_fpr(entries, fpr, h, 21)
+    got = bloom.create_from_fpr(entries, fpr, h, 21, device="cpu")
     ref = jax_bloom.create_from_fpr(entries, fpr, h, 21)
     assert (got.size, got.hash_num, got.dfpr) == (ref.size, ref.hash_num,
                                                    ref.dfpr)
@@ -164,7 +170,7 @@ def test_sizing_math_matches_jax(entries, fpr, h):
 
 def test_size_rules():
     with pytest.raises(ValueError):
-        bloom.create(1001, 4, 5)
+        bloom.create(1001, 4, 5, device="cpu")
     big = bloom.BloomFilter(words=torch.zeros(1, dtype=torch.int32),
                             size=1 << 32, hash_num=1, kmer_size=5)
     with pytest.raises(NotImplementedError):

@@ -88,7 +88,8 @@ def stream(n, h, repeat, seed, vfrac=0.9):
 
 
 def both(size_bytes, h, width, threshold=1, k=5):
-    return (counting.create(size_bytes, h, k, threshold, counter_width=width),
+    return (counting.create(size_bytes, h, k, threshold, counter_width=width,
+                            device="cpu"),
             jax_counting.create(size_bytes, h, k, threshold,
                                 counter_width=width))
 
@@ -277,7 +278,8 @@ def test_width8_conservative_update_crosses_2_32():
     jcbf = jax_counting.from_bytes(base.astype("<u8").tobytes(), **kw)
     ref = jax_insert_sequential(jcbf, jax_u64.from_numpy(hs))
     for group in (True, False):
-        cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw)
+        cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw,
+                                  device="cpu")
         pair(counting.insert(cbf, u64.from_numpy(hs),
                              group_duplicates=group), ref)
     assert counting.to_numpy(cbf)[0] == (1 << 32) + 1
@@ -292,13 +294,13 @@ def test_width8_increment_all_carry_and_freeze():
                          np.full((4, 1), 1, np.uint64),
                          np.full((3, 1), 4, np.uint64)])
     jcbf = jax_counting.from_bytes(base.astype("<u8").tobytes(), **kw)
-    cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw)
+    cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw, device="cpu")
     pair(counting.insert_all(cbf, u64.from_numpy(hs)),
          jax_insert_all(jcbf, jax_u64.from_numpy(hs)))
     got = counting.to_numpy(cbf)
     assert got[0] == (1 << 32) + 7 and got[4] == 0xFFFFFFFFFFFFFFFF
     # conservative update freezes at 2**64-1 too
-    cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw)
+    cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw, device="cpu")
     counting.insert(cbf, u64.from_numpy(np.full((3, 1), 4, np.uint64)))
     np.testing.assert_array_equal(counting.to_numpy(cbf), base)
 
@@ -310,7 +312,7 @@ def test_width8_min_count_contains_and_stats_cross_2_32():
     kw = dict(size=8, hash_num=2, kmer_size=5, count_threshold=thr,
               counter_width=8)
     jcbf = jax_counting.from_bytes(base.astype("<u8").tobytes(), **kw)
-    cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw)
+    cbf = counting.from_bytes(base.astype("<u8").tobytes(), **kw, device="cpu")
     hs = np.array([[0, 1], [2, 3], [1, 3]], dtype=np.uint64)
     mc = counting.min_count(cbf, u64.from_numpy(hs))
     np.testing.assert_array_equal(
@@ -459,8 +461,10 @@ def test_codes_to_counts_match_jax(width, group):
     a = random_codes(6, 90, 0.05, 1)
     b = np.concatenate([a[:3], random_codes(3, 90, 0.05, 2)])
     jcbf = jax_counting.create(size_bytes, h, k, 2, counter_width=width)
-    by_hash = counting.create(size_bytes, h, k, 2, counter_width=width)
-    by_pos = counting.create(size_bytes, h, k, 2, counter_width=width)
+    by_hash = counting.create(size_bytes, h, k, 2, counter_width=width,
+                              device="cpu")
+    by_pos = counting.create(size_bytes, h, k, 2, counter_width=width,
+                             device="cpu")
     for codes in (a, b):
         f = jax_hash_frames(jnp.asarray(codes), k, h)
         jcbf = jax_insert(jcbf, f.hashes, f.valid, group_duplicates=group)
@@ -498,7 +502,7 @@ def test_state_carried_from_jax_and_back():
         jcbf = jax_insert_all(jcbf, f.hashes, f.valid)
         cbf = counting.from_numpy_counters(
             jax_state(jcbf), size=jcbf.size, hash_num=h, kmer_size=k,
-            count_threshold=1, counter_width=width)
+            count_threshold=1, counter_width=width, device="cpu")
         pair(cbf, jcbf)
         fb = jax_hash_frames(jnp.asarray(b), k, h)
         jcbf = jax_insert(jcbf, fb.hashes, fb.valid)
@@ -514,15 +518,17 @@ def test_state_carried_from_jax_and_back():
     with pytest.raises(ValueError):
         counting.from_numpy_counters(np.zeros(3, np.uint32), size=64,
                                      hash_num=1, kmer_size=5,
-                                     count_threshold=1, counter_width=1)
+                                     count_threshold=1, counter_width=1,
+                                     device="cpu")
 
 
 def test_size_rules():
-    cbf = counting.create(1001, 4, 6, 2)
+    cbf = counting.create(1001, 4, 6, 2, device="cpu")
     assert (cbf.size, cbf.size_in_bytes, cbf.nwords) == (1008, 1008, 252)
-    assert counting.create(1001, 4, 6, 2, counter_width=8).size == 126
+    assert counting.create(1001, 4, 6, 2, counter_width=8,
+                           device="cpu").size == 126
     with pytest.raises(ValueError):
-        counting.create(64, 2, 5, 1, counter_width=3)
+        counting.create(64, 2, 5, 1, counter_width=3, device="cpu")
     big = counting.CountingBloomFilter(
         counters=torch.zeros(1, dtype=torch.int32), size=1 << 32,
         hash_num=1, kmer_size=5, count_threshold=1, counter_width=4)
@@ -543,12 +549,12 @@ def insert_string(cbf, seq):
 def test_cbf_golden_bytes(tmp_path):
     """The three golden counting .bf files, built by the port to the
     recipes of the JAX package's tests."""
-    small = counting.create(1000, 5, 8, 1, counter_width=1)
+    small = counting.create(1000, 5, 8, 1, counter_width=1, device="cpu")
     for _ in range(3):
         insert_string(small, CBF_SEQ)
-    rnd = counting.create(1001, 4, 6, 2, counter_width=1)
+    rnd = counting.create(1001, 4, 6, 2, counter_width=1, device="cpu")
     insert_string(rnd, golden_long_seq(300)[:100])
-    c64 = counting.create(4096, 3, 5, 1, counter_width=8)
+    c64 = counting.create(4096, 3, 5, 1, counter_width=8, device="cpu")
     insert_string(c64, golden_long_seq(300)[:120])
     for cbf, name in ((small, "cbf_small.bf"), (rnd, "cbf_round.bf"),
                       (c64, "cbf64_small.bf")):
@@ -560,7 +566,7 @@ def test_cbf_golden_bytes(tmp_path):
 def test_cbf_golden_load_and_query(tmp_path):
     path = tmp_path / "g.bf"
     path.write_bytes(golden_bytes("cbf_small.bf"))
-    cbf = bf_format.load_counting(str(path), count_threshold=2)
+    cbf = bf_format.load_counting(str(path), count_threshold=2, device="cpu")
     assert (cbf.size, cbf.hash_num, cbf.kmer_size, cbf.counter_width) == \
         (1000, 5, 8, 1)
     mc, valid = counting.min_count_seq(cbf, nthash_tables.encode_seq(CBF_SEQ))
@@ -575,11 +581,11 @@ def test_cbf_golden_load_and_query(tmp_path):
 def test_cbf_store_load_roundtrip_matches_jax(tmp_path, width):
     rng = np.random.default_rng(width)
     hs = rng.integers(0, 1 << 64, size=(200, 3), dtype=np.uint64)
-    cbf = counting.create(1000, 3, 7, 2, counter_width=width)
+    cbf = counting.create(1000, 3, 7, 2, counter_width=width, device="cpu")
     counting.insert_all(cbf, u64.from_numpy(hs))
     path = tmp_path / "rt.bf"
     bf_format.store_counting(cbf, str(path))
-    back = bf_format.load_counting(str(path), count_threshold=2)
+    back = bf_format.load_counting(str(path), count_threshold=2, device="cpu")
     assert (back.size, back.counter_width, back.hash_num, back.kmer_size,
             back.count_threshold) == (cbf.size, width, 3, 7, 2)
     assert torch.equal(back.counters, cbf.counters)

@@ -104,7 +104,8 @@ def test_kmer_bloom_on_cuda_matches_cpu(dev):
     kernels.reset_launch_counts()
     bf_gpu = kmer_bloom.insert_seq(bloom.create(size, h, k, device=dev),
                                    codes)
-    bf_cpu = kmer_bloom.insert_seq(bloom.create(size, h, k), codes)
+    bf_cpu = kmer_bloom.insert_seq(bloom.create(size, h, k, device="cpu"),
+                                   codes)
     assert torch.equal(bf_gpu.words.cpu(), bf_cpu.words)
     probe = torch.cat([codes[:8], random_codes(8, 700, 0.02, 6)])
     hit_g, valid_g = kmer_bloom.contains_seq(bf_gpu, probe)
@@ -224,7 +225,8 @@ def test_counting_on_cuda_matches_cpu(dev, width, group, size_bytes, repeat,
     hs, valid = cbf_stream(400, 3, size_bytes, repeat, width, size_bytes)
     gpu = counting.create(size_bytes, 3, 5, 2, counter_width=width,
                           device=dev)
-    cpu = counting.create(size_bytes, 3, 5, 2, counter_width=width)
+    cpu = counting.create(size_bytes, 3, 5, 2, counter_width=width,
+                          device="cpu")
     kernels.reset_launch_counts()
     for cbf in (gpu, cpu):
         counting.insert(cbf, hs, valid, max_entangled=max_entangled,
@@ -245,7 +247,7 @@ def test_counting_on_cuda_matches_cpu(dev, width, group, size_bytes, repeat,
 def test_counting_seq_on_cuda_matches_cpu(dev):
     codes = random_codes(16, 700, 0.02, 7)
     gpu = counting.create(1 << 20, 4, 25, 1, device=dev)
-    cpu = counting.create(1 << 20, 4, 25, 1)
+    cpu = counting.create(1 << 20, 4, 25, 1, device="cpu")
     for cbf in (gpu, cpu):
         counting.insert_seq(cbf, codes, group_duplicates=False)
         counting.insert_seq(cbf, codes[:8])
@@ -257,3 +259,155 @@ def test_counting_seq_on_cuda_matches_cpu(dev):
     hit, valid = counting.contains_seq(gpu, probe)
     assert torch.equal(hit.cpu(), counting.contains_seq(cpu, probe)[0])
     assert torch.equal(hit[:8], valid[:8])
+
+
+# ---------------------------------------------------------------------------
+# MIBF kernels
+# ---------------------------------------------------------------------------
+
+def mibf_vector(nwords, seed, density=0.5):
+    """Random bit-vector words (int32 uint32 bits) and their exclusive
+    cumulative popcounts."""
+    from btl_bloomfilter_tpu_torch.models import mibf
+    rng = np.random.default_rng(seed)
+    bits = rng.random(nwords * 32) < density
+    words = np.packbits(bits, bitorder="little").view(np.uint32)
+    m = mibf.freeze(torch.from_numpy(words.view(np.int32)), nwords * 32, 4,
+                    21)
+    return m.bv_words, m.cum_ranks, m.d_size
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("nwords", [1, 37, 1 << 16])
+def test_mibf_rank_kernel_matches_plain(dev, width, nwords):
+    from btl_bloomfilter_tpu_torch.kernels import mibf_rank
+    from btl_bloomfilter_tpu_torch.models import mibf
+    bv, cum, d_size = mibf_vector(nwords, nwords + width)
+    rng = np.random.default_rng(width)
+    n = 40_000
+    pos = rng.integers(0, nwords * 32, size=n, dtype=np.uint64)
+    last = nwords * 32 - 1
+    pos[:64] = np.arange(64) % 32 + (last - 31)   # the last word, bits 0-31
+    pos[64:96] = 0                                 # bit 0 of word 0
+    pos[96:128] = last                             # bit 31 of the last word
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32))
+    lo = 0 if width == 1 else -(1 << (8 * width - 1))
+    data = torch.from_numpy(rng.integers(lo, lo + (1 << (8 * width)),
+                                         size=d_size)).to(mibf.STORAGE[width])
+    got = mibf_rank.rank_lookup(bv.to(dev), cum.to(dev), pos.to(dev),
+                                data.to(dev))
+    ref = mibf_rank.rank_lookup_plain(bv, cum, pos, data)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    rank_only = mibf_rank.rank_lookup(bv.to(dev), cum.to(dev), pos.to(dev))
+    assert rank_only[2] is None
+    assert torch.equal(rank_only[0].cpu(), ref[0])
+
+
+def test_mibf_rank_clamps_rank_d_size(dev):
+    from btl_bloomfilter_tpu_torch.kernels import mibf_rank
+    words = torch.tensor([0b1011, 0], dtype=torch.int32)   # bits 0, 1, 3
+    cum = torch.tensor([0, 3], dtype=torch.int32)
+    data = torch.tensor([5, 6, 7], dtype=torch.int16)
+    pos = torch.tensor([0, 1, 2, 3, 4, 63], dtype=torch.int32)
+    got = mibf_rank.rank_lookup(words.to(dev), cum.to(dev), pos.to(dev),
+                                data.to(dev))
+    assert got[0].tolist() == [0, 1, 2, 2, 3, 3]
+    assert got[1].tolist() == [True, True, False, True, False, False]
+    assert got[2].tolist() == [5, 6, 0, 7, 0, 0]
+
+
+def frame_scan_inputs(R, W, h, seed, valid_frac=0.9):
+    rng = np.random.default_rng(seed)
+    c6 = torch.from_numpy(rng.integers(0, 30, size=(R, W, h, 6))
+                          .astype(np.int32)).cumsum(1).to(torch.int32)
+    return (c6, torch.from_numpy(rng.random((R, W, h)) < 0.6),
+            torch.from_numpy(rng.integers(1, 40, size=(R, W, h))
+                             .astype(np.int32)),
+            torch.from_numpy(rng.random((R, W)) < valid_frac),
+            torch.from_numpy(rng.random((R, W)) < 0.2),
+            torch.from_numpy(rng.random((R, W)) < 0.9),
+            torch.from_numpy(rng.integers(0, h + 1, size=(R, W))
+                             .astype(np.int32)))
+
+
+@pytest.mark.parametrize("R,W,h,efl,valid_frac", [
+    (1, 1, 1, 10**6, 1.0),
+    (70, 300, 4, 10**6, 0.9),
+    (33, 200, 3, 0, 0.9),        # the early exit at its tightest
+    (40, 100, 4, 2, 1.0),
+    (5, 50, 2, 10**6, 0.0),      # reads of all-invalid frames
+])
+def test_mibf_frame_scan_kernel_matches_plain(dev, R, W, h, efl, valid_frac):
+    from btl_bloomfilter_tpu_torch.kernels import mibf_frame_scan
+    inputs = frame_scan_inputs(R, W, h, R * W + h, valid_frac)
+    before = mibf_frame_scan.KERNEL.launches
+    got = mibf_frame_scan.frame_scan(*(t.to(dev) for t in inputs), efl)
+    ref = mibf_frame_scan.frame_scan_plain(*inputs, efl)
+    assert mibf_frame_scan.KERNEL.launches == before + 1
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    if efl == 0 and valid_frac:
+        assert not ref[1].all()          # some read stopped early
+
+
+def test_mibf_frame_scan_stops_at_frame_zero(dev):
+    """One promoted slot whose nonSatFrame lead is past the limit at the
+    first frame: the read stops there, and later frames are inactive."""
+    from btl_bloomfilter_tpu_torch.kernels import mibf_frame_scan
+    R, W, h = 2, 6, 2
+    c6 = torch.zeros((R, W, h, 6), dtype=torch.int32)
+    c6[:, :, :, 0] = 5
+    c6[:, :, :, 3] = 100          # totalNonSat far from the second best
+    # nonSatFrame: leading, and rising, so the second best stays 0
+    c6[:, :, :, 4] = 50 * torch.arange(1, W + 1, dtype=torch.int32)[:, None]
+    consider = torch.zeros((R, W, h), dtype=torch.bool)
+    consider[:, :, 0] = True
+    mc = torch.ones((R, W, h), dtype=torch.int32)
+    valid = torch.ones((R, W), dtype=torch.bool)
+    zeros = torch.zeros((R, W), dtype=torch.bool)
+    hits = torch.full((R, W), h, dtype=torch.int32)
+    inputs = (c6, consider, mc, valid, zeros, valid, hits)
+    for efl, active_frames in ((-1, 1), (0, 2)):
+        got = mibf_frame_scan.frame_scan(*(t.to(dev) for t in inputs), efl)
+        ref = mibf_frame_scan.frame_scan_plain(*inputs, efl)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
+        assert ref[1].sum(dim=1).tolist() == [active_frames] * R
+
+
+def test_mibf_on_cuda_matches_cpu(dev):
+    """The 4-phase build and a classification on the card against the
+    CPU's plain path, with the launches of both MIBF kernels."""
+    from btl_bloomfilter_tpu_torch import api
+    from btl_bloomfilter_tpu_torch.models import (mibf, mibf_construct,
+                                                  mibf_query)
+    rng = np.random.default_rng(3)
+    refs = [rng.integers(0, 4, size=int(n), dtype=np.uint8)
+            for n in rng.integers(400, 900, size=7)]
+    reads = [r[50:250] for r in refs]
+    out = []
+    kernels.reset_launch_counts()
+    for device in (dev, torch.device("cpu")):
+        pipe = api.MIBFConstructPipeline(mibf_construct.create(
+            sum(map(len, refs)), 21, 3, device=device))
+        for c in refs:
+            pipe.insert_bv_seq(c)
+        pipe.freeze(2)
+        pipe.insert_mibf_batch(refs, range(1, 8))
+        pipe.insert_saturation_batch(refs, range(1, 8))
+        fr = pipe.hash.frames_batch(reads)
+        qs = mibf_query.MIBFQuerySupport(
+            m=pipe.m, per_frame_prob=[0.0] + [0.1] * 7, extra_count=2.0,
+            extra_frame_limit=10**6, max_miss=0, min_count=1,
+            best_hit_agree=False)
+        res = qs.query_many(fr.hashes, fr.valid, np.full(8, 2, np.int32))
+        out.append((mibf.to_numpy(pipe.m), pipe.counts.cpu(), res,
+                    qs.eval_count))
+    for a, b in zip(out[0][0], out[1][0]):
+        assert np.array_equal(a, b)
+    assert torch.equal(out[0][1], out[1][1])
+    assert out[0][2:] == out[1][2:]
+    assert [r[0].id for r in out[0][2]] == list(range(1, 8))
+    counts = kernels.launch_counts()
+    assert counts["mibf_rank"] == 3 and counts["mibf_frame_scan"] == 1

@@ -1,0 +1,47 @@
+"""The port's entry points that build, load or hash state run on the card
+unless the caller asks for the CPU: their ``device`` defaults to "cuda",
+and without a card they raise instead of moving to the CPU by themselves.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from btl_bloomfilter_tpu_torch import api
+from btl_bloomfilter_tpu_torch.io import bf_format, mibf_format
+from btl_bloomfilter_tpu_torch.models import (bloom, counting, mibf,
+                                              mibf_construct)
+
+ENTRY_POINTS = [
+    bloom.create, bloom.create_from_fpr, bloom.from_numpy_words,
+    counting.create, counting.from_bytes, counting.from_numpy_counters,
+    bf_format.load_bloom, bf_format.load_counting, api.HashPipeline,
+    mibf.from_numpy, mibf_construct.create, mibf_format.load_mibf,
+]
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS,
+                         ids=lambda f: f"{f.__module__}.{f.__qualname__}")
+def test_entry_point_defaults_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: bloom.create(64, 2, 5),
+    lambda: counting.create(64, 2, 5, 1),
+    lambda: mibf_construct.create(100, 5, 2),
+    lambda: mibf.from_numpy(np.zeros(2, np.uint32), np.zeros(0, np.uint16),
+                            size=64, hash_num=2, kmer_size=5, data_width=2),
+])
+def test_default_device_is_the_card(make):
+    """With a card the state lands on it; without one the call raises."""
+    if torch.cuda.is_available():
+        state = make()
+        for name in ("words", "counters", "bv_words"):
+            if hasattr(state, name):
+                assert getattr(state, name).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()

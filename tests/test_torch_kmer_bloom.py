@@ -58,7 +58,7 @@ def test_insert_contains_seq_match_jax(shape, size, h, k):
     a = random_codes(shape, 0.05, 1)
     b = random_codes(shape, 0.05, 2)
     jbf = jax_insert_seq(jax_bloom.create(size, h, k), a)
-    bf = kmer_bloom.insert_seq(bloom.create(size, h, k), a)
+    bf = kmer_bloom.insert_seq(bloom.create(size, h, k, device="cpu"), a)
     np.testing.assert_array_equal(bloom.to_numpy_words(bf),
                                   np.asarray(jbf.words))
     for codes in (a, b):
@@ -73,7 +73,7 @@ def test_insert_contains_kmers_match_jax():
     kmers = random_codes((30, k), 0.05, 3)     # some hold an N
     probe = np.concatenate([kmers[:10], random_codes((20, k), 0.0, 4)])
     jbf = jax_insert_kmers(jax_bloom.create(size, h, k), kmers)
-    bf = kmer_bloom.insert_kmers(bloom.create(size, h, k), kmers)
+    bf = kmer_bloom.insert_kmers(bloom.create(size, h, k, device="cpu"), kmers)
     np.testing.assert_array_equal(bloom.to_numpy_words(bf),
                                   np.asarray(jbf.words))
     np.testing.assert_array_equal(
@@ -82,7 +82,8 @@ def test_insert_contains_kmers_match_jax():
 
 
 def test_string_helpers():
-    bf = kmer_bloom.insert_string(bloom.create(1000, 4, 5), README_SEQ)
+    bf = kmer_bloom.insert_string(bloom.create(1000, 4, 5, device="cpu"),
+                                  README_SEQ)
     assert kmer_bloom.contains_string(bf, README_SEQ[3:8]).item()
     jbf = jax_insert_seq(jax_bloom.create(1000, 4, 5),
                          nthash_tables.encode_seq(README_SEQ))
@@ -96,7 +97,8 @@ def test_string_helpers():
     (UNIT_SEQ, 512, 3, 4, {"n_entry": 7, "t_entry": 11}, "bf_entries.bf"),
 ])
 def test_store_bloom_matches_golden(tmp_path, seq, size, h, k, kw, golden):
-    bf = kmer_bloom.insert_string(bloom.create(size, h, k, **kw), seq)
+    bf = kmer_bloom.insert_string(
+        bloom.create(size, h, k, **kw, device="cpu"), seq)
     path = tmp_path / "out.bf"
     bf_format.store_bloom(bf, str(path))
     assert path.read_bytes() == golden_bytes(golden)
@@ -106,7 +108,7 @@ def test_store_bloom_matches_golden(tmp_path, seq, size, h, k, kw, golden):
 def test_load_bloom_golden(tmp_path, golden):
     path = tmp_path / "g.bf"
     path.write_bytes(golden_bytes(golden))
-    bf = bf_format.load_bloom(str(path))
+    bf = bf_format.load_bloom(str(path), device="cpu")
     ref = jax_bf_format.load_bloom(str(path))
     assert (bf.size, bf.hash_num, bf.kmer_size, bf.dfpr, bf.n_entry,
             bf.t_entry) == (ref.size, ref.hash_num, ref.kmer_size, ref.dfpr,
@@ -121,11 +123,12 @@ def test_load_bloom_golden(tmp_path, golden):
 
 def test_bf_round_trip_keeps_metadata(tmp_path):
     bf = kmer_bloom.insert_seq(
-        bloom.create(4096, 5, 21, dfpr=0.25, n_entry=3, t_entry=9),
+        bloom.create(4096, 5, 21, dfpr=0.25, n_entry=3, t_entry=9,
+                     device="cpu"),
         random_codes((4, 100), 0.0, 5))
     path = tmp_path / "rt.bf"
     bf_format.store_bloom(bf, str(path))
-    back = bf_format.load_bloom(str(path))
+    back = bf_format.load_bloom(str(path), device="cpu")
     assert torch.equal(back.words, bf.words)
     assert (back.dfpr, back.n_entry, back.t_entry) == (0.25, 3, 9)
 
@@ -140,7 +143,7 @@ def test_bucketing_and_padding():
 
 def test_bloom_pipeline_matches_jax_on_two_buckets():
     size, h, k = 1 << 14, 3, 15
-    pipe = api.BloomPipeline(bloom.create(size, h, k))
+    pipe = api.BloomPipeline(bloom.create(size, h, k, device="cpu"))
     jpipe = jax_api.BloomPipeline(jax_bloom.create(size, h, k))
     batches = [random_codes((8, 128), 0.03, 6),
                random_codes((8, 256), 0.03, 7)]
@@ -158,7 +161,7 @@ def test_bloom_pipeline_matches_jax_on_two_buckets():
 
 def test_hash_pipeline_matches_jax():
     seqs = [random_codes((n,), 0.05, n) for n in (40, 150, 70)]
-    hp = api.HashPipeline(11, 3)
+    hp = api.HashPipeline(11, 3, device="cpu")
     jhp = jax_api.HashPipeline(11, 3)
     assert hp.frames(seqs[0][:5]) is None
     for got, ref in [(hp.frames(seqs[1]), jhp.frames(seqs[1])),

@@ -17,6 +17,15 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.models.counting, "
             "btl_bloomfilter_tpu_torch.kernels.gather_counters, "
             "btl_bloomfilter_tpu_torch.kernels.scatter_add, "
+            "btl_bloomfilter_tpu_torch.kernels.mibf_rank, "
+            "btl_bloomfilter_tpu_torch.kernels.mibf_frame_scan, "
+            "btl_bloomfilter_tpu_torch.models.mibf, "
+            "btl_bloomfilter_tpu_torch.models.mibf_construct, "
+            "btl_bloomfilter_tpu_torch.models.mibf_query, "
+            "btl_bloomfilter_tpu_torch.io.mibf_format, "
+            "btl_bloomfilter_tpu_torch.io.sdsl, "
+            "btl_bloomfilter_tpu_torch.tools.build_mibf, "
+            "btl_bloomfilter_tpu_torch.tools.classify, "
             "btl_bloomfilter_tpu_torch.native; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
