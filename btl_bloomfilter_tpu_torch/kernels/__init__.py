@@ -1,20 +1,26 @@
-"""Hand-written CUDA kernels of the build/query path, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels, each beside its plain PyTorch version.
 
   * ``nthash_scan``  - canonical ntHash positions / hash planes
-  * ``scatter_or``   - Bloom insert (atomicOr)
+  * ``scatter_or``   - Bloom insert (atomicOr), and of sorted positions
+    (one atomic per run of equal words)
+  * ``scatter_ring`` - Bloom insert of sorted positions into a delta
   * ``gather_words`` - Bloom query (gather + AND over h)
   * ``gather_counters`` - counting-filter read (packed lanes, min over h)
   * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane)
   * ``mibf_rank``    - MIBF rank, hit and ID of bit positions
   * ``mibf_frame_scan`` - MIBF classification's sequential per-read pass
+  * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
+  * ``window_scatter`` - static-window Bloom scatter in shared memory
+  * ``dma_sweep``    - chunked copy sweep
 
+The last four serve the probes (``probes/``), not the build/query paths.
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
 
-from . import (gather_counters, gather_words, mibf_frame_scan, mibf_rank,
-               nthash_scan, scatter_add, scatter_or)
+from . import (dma_sweep, gather_counters, gather_words, mibf_frame_scan,
+               mibf_rank, nthash_scan, scatter_add, scatter_or, scatter_ring,
+               vmem_sort, window_scatter)
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
@@ -24,6 +30,12 @@ KERNELS = {
     "scatter_add": scatter_add.KERNEL,
     "mibf_rank": mibf_rank.KERNEL,
     "mibf_frame_scan": mibf_frame_scan.KERNEL,
+    "scatter_or_sorted": scatter_or.SORTED_KERNEL,
+    "scatter_or_sorted_delta": scatter_ring.KERNEL,
+    "sort_blocks": vmem_sort.KERNEL,
+    "chunk_bitonic": vmem_sort.CHUNK_KERNEL,
+    "window_scatter": window_scatter.KERNEL,
+    "dma_sweep": dma_sweep.KERNEL,
 }
 
 

@@ -31,7 +31,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "gather_counters.cu", "scatter_add.cu", "mibf_rank.cu",
-           "mibf_frame_scan.cu", "errors.cu")
+           "mibf_frame_scan.cu", "scatter_or_sorted.cu", "block_sort.cu",
+           "window_scatter.cu", "dma_sweep.cu", "errors.cu")
 HEADERS = ("common.cuh",)
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it

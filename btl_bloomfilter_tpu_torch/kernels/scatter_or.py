@@ -1,10 +1,19 @@
-"""Bloom insert of bit positions: the CUDA kernel ``csrc/scatter_or.cu``
-and its plain PyTorch version.
+"""Bloom insert of bit positions: the CUDA kernels ``csrc/scatter_or.cu``
+and ``csrc/scatter_or_sorted.cu`` and their plain PyTorch version.
 
 ``scatter_or(words, pos)`` sets bit ``p & 31`` of ``words[p >> 5]`` for
 every position p (int32 holding uint32 bits, any shape, any order,
 duplicates allowed), skipping the sentinel 0xFFFFFFFF and positions past
 the filter. It updates ``words`` (int32 [nwords]) in place and returns it.
+
+``scatter_or_sorted(words, pos_sorted, pos_for_base=None)`` is the same
+insert for sorted positions, the port of the JAX package's
+``kernels/scatter_or.py:scatter_or_sorted``: one atomic per run of equal
+words instead of one per position. It updates ``words`` in place and
+returns ``(words, overflow)``; the overflow is always 0 (Hopper has no
+window to overflow, every position is applied), and ``pos_for_base``,
+which places the TPU's windows, is accepted and ignored.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -19,8 +28,10 @@ from ..ops import u64
 from . import _build
 from ._build import SENTINEL
 
-KERNEL = _build.CudaKernel("btl_scatter_or", [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong])
+ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong]
+KERNEL = _build.CudaKernel("btl_scatter_or", ARGS)
+SORTED_KERNEL = _build.CudaKernel("btl_scatter_or_sorted", ARGS)
 
 
 def _check(words: torch.Tensor, pos: torch.Tensor) -> None:
@@ -45,12 +56,33 @@ def scatter_or_plain(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return words
 
 
-def scatter_or(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def launch(kernel: _build.CudaKernel, words: torch.Tensor,
+           pos: torch.Tensor) -> None:
+    """Launch ``kernel`` (either entry point above) on CUDA tensors."""
     _check(words, pos)
-    if _build.on_cpu(words, pos):
-        return scatter_or_plain(words, pos)
     pos = pos.reshape(-1).contiguous()
     if pos.numel():
-        KERNEL.launch(words.device, _build.ptr(pos), pos.numel(),
+        kernel.launch(words.device, _build.ptr(pos), pos.numel(),
                       _build.ptr(words), words.numel())
+
+
+def scatter_or(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    if _build.on_cpu(words, pos):
+        return scatter_or_plain(words, pos)
+    launch(KERNEL, words, pos)
     return words
+
+
+def scatter_or_sorted_plain(words: torch.Tensor, pos_sorted: torch.Tensor,
+                            pos_for_base: torch.Tensor | None = None):
+    del pos_for_base
+    return scatter_or_plain(words, pos_sorted), 0
+
+
+def scatter_or_sorted(words: torch.Tensor, pos_sorted: torch.Tensor,
+                      pos_for_base: torch.Tensor | None = None):
+    del pos_for_base
+    if _build.on_cpu(words, pos_sorted):
+        return scatter_or_sorted_plain(words, pos_sorted)
+    launch(SORTED_KERNEL, words, pos_sorted)
+    return words, 0

@@ -4,9 +4,10 @@ Bit p lives in word p >> 5, bit p & 31, as in the reference's
 ``models/bloom.py``; the little-endian bytes of the words are the
 reference's byte array, so ``.bf`` files are byte-identical.
 
-Unlike the JAX reference, whose functions return a new filter, ``insert``
-and ``insert_sentinel_positions`` update ``bf.words`` in place (and return
-``bf``): at 2**30 bits a copy per batch would move 256 MiB for nothing.
+Unlike the JAX reference, whose functions return a new filter, ``insert``,
+``insert_sentinel_positions`` and ``insert_and_check[_sequential]`` update
+``bf.words`` in place (and return ``bf``): at 2**30 bits a copy per batch
+would move 256 MiB for nothing.
 
 The insert and query go through the CUDA kernels ``kernels/scatter_or``
 and ``kernels/gather_words`` when the words lie on a GPU, and through their
@@ -160,6 +161,53 @@ def contains(bf: BloomFilter, hashes: torch.Tensor) -> torch.Tensor:
     _require_u32_size(bf)
     pos = hash_positions(hashes.to(bf.device), bf.size)
     return contains_sentinel_positions(bf, pos.movedim(-1, 0))
+
+
+def insert_and_check(bf: BloomFilter, hashes: torch.Tensor, valid=None):
+    """Batched insertAndCheck: returns ``(bf, found)``, where ``found``
+    (bool [...]) is membership *before this batch*, not masked by
+    ``valid``, as the reference's batched form reports it; a later
+    duplicate in the batch of an earlier frame reports False. Updates
+    ``bf.words`` in place."""
+    found = contains(bf, hashes)
+    return insert(bf, hashes, valid), found
+
+
+def insert_and_check_sequential(bf: BloomFilter, hashes: torch.Tensor,
+                                valid=None):
+    """Order-exact insertAndCheck: frame i (in flat order) reports whether
+    all its bits were set at its own insert time, that is set before the
+    batch or by a valid frame before it; its own bits do not count, and
+    invalid frames report False and insert nothing. Returns ``(bf,
+    found)``, ``bf.words`` updated in place.
+
+    No scan: for every bit position p of a valid frame, ``first[p]`` is
+    the smallest valid frame index that holds p (a ``scatter_reduce`` with
+    ``amin``), and ``found_i = valid_i & AND_j(set_before(p_ij) |
+    first[p_ij] < i)``."""
+    _require_u32_size(bf)
+    hashes = hashes.to(bf.device)
+    h = hashes.shape[-1]
+    frames = hashes.shape[:-1]
+    pos = hash_positions(hashes.reshape(-1, h), bf.size)      # [n, h]
+    n = pos.shape[0]
+    if valid is None:
+        v = torch.ones(n, dtype=torch.bool, device=bf.device)
+    else:
+        v = torch.as_tensor(valid, device=bf.device).broadcast_to(
+            frames).reshape(-1)
+    before = gather_words.gather_words(bf.words, pos.reshape(1, -1))
+    uniq, inv = torch.unique(pos.reshape(-1), return_inverse=True)
+    frame = torch.arange(n, device=bf.device)
+    frame = torch.where(v, frame, n)[:, None].expand(n, h).reshape(-1)
+    first = torch.full((uniq.numel(),), n, dtype=torch.int64,
+                       device=bf.device).scatter_reduce_(
+        0, inv.reshape(-1), frame, "amin")
+    earlier = first[inv].reshape(n, h) < torch.arange(
+        n, device=bf.device)[:, None]
+    found = v & (before.reshape(n, h) | earlier).all(dim=1)
+    insert_sentinel_positions(bf, torch.where(v[:, None], pos, -1))
+    return bf, found.reshape(frames)
 
 
 def get_pop(bf: BloomFilter) -> int:

@@ -135,7 +135,7 @@ def _stages(stages, steps: int):
     return {name: t / steps for name, t in total.items()}
 
 
-def _profile(fn, steps: int):
+def profile(fn, steps: int):
     """(device busy ms per step, wall ms per step, top kernels) of fn under
     torch.profiler."""
     fn()
@@ -207,7 +207,7 @@ def main(argv=None) -> None:
               "classify_stages_ms": classify_ms}
     for name, fn in (("build", whole_build),
                      ("classify", lambda: qs.query_many(qh, qv, MIN_COUNT))):
-        busy, wall, top = _profile(fn, args.steps)
+        busy, wall, top = profile(fn, args.steps)
         report[name] = {"device_busy_ms": busy, "wall_ms": wall,
                         "idle_share": 1 - busy / wall, "top_kernels": top}
     print(f"card: {card}")

@@ -56,15 +56,34 @@ counters, batches of 3072 reads x 2048 bases):
      d. the .mibf / .sdsl round trip of that filter, and the build_mibf /
         classify CLIs on a small multi-FASTA;
      e. MIBF construct and classify rates under bench.py's keys and
-        per-kernel times, kernel path against plain path.
+        per-kernel times, kernel path against plain path;
+  8. the probes (btl_bloomfilter_tpu_torch/probes/), each driven through
+     its main with every launch count at 0 just before it and read just
+     after, then its kernels against their plain versions, bitwise, at the
+     probe's shapes, with kernel, plain and library times:
+     a. ring_probe: the Bloom insert step at 2**30 bits and 512 x 2048
+        (hash, unsigned sort, in-place dedupe) through the delta and the
+        in-place sorted scatters, and the main path; the three filters
+        equal;
+     b. vmem_sort_probe: the 2048-key block sort of 4 * 2**20 keys;
+     c. partition_probe: the 1024-key chunk sort of 2**22 keys and the four
+        copy sweeps;
+     d. kernel_lab: the window scatter, null and scatter, at 2**30 bits and
+        4 * 2**20 sorted positions, 4 slots;
+     e. bloom.insert_and_check and insert_and_check_sequential on two 512 x
+        2048 batches at 2**30 bits (the second repeating half of the
+        first's reads): words and found equal the plain path, and every
+        valid repeated window is found.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record {"kernels": [...]}, each kernel with its launches on
 its main path, its largest difference from the plain version, its time,
-the plain version's, and its bound: the bytes it must move (each input
-read once, each output written once; for a gather or scatter only the
-distinct words this run touches) over the card's 3.35 TB/s.
+the plain version's, the time of one PyTorch call computing the same
+function where there is one, and its bound: the bytes it must move (each
+input read once, each output written once; for a gather or an in-place
+scatter only the distinct words this run touches) over the card's 3.35
+TB/s.
 """
 
 import contextlib
@@ -100,6 +119,7 @@ SEED = 0
 M_WIDTHS = (1, 2, 4)
 U_REFS, U_REF_L = 64, 262144
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+DMA_ROW = (64, 8)              # the copy sweep (k, rows) of the kernel record
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 GOLDEN_README = os.path.join(GOLDEN_DIR, "bf_readme.bf")
 CBF_SEQ = "ACGTACACTGGACTGAGTCT"
@@ -467,14 +487,17 @@ def counting_phases(dev: torch.device, card_line: str):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the kernel wrappers of the MIBF path to their plain versions
-    (on the card too): the path every kernel is held against."""
-    from btl_bloomfilter_tpu_torch.kernels import (mibf_frame_scan,
+    """Route the kernel wrappers of the MIBF path and of the Bloom
+    insert_and_check pair to their plain versions (on the card too): the
+    path every kernel is held against."""
+    from btl_bloomfilter_tpu_torch.kernels import (gather_words,
+                                                   mibf_frame_scan,
                                                    mibf_rank, nthash_scan,
                                                    scatter_or)
     swaps = [(nthash_scan, "hash_frames_planes",
               nthash_scan.hash_frames_planes_plain),
              (scatter_or, "scatter_or", scatter_or.scatter_or_plain),
+             (gather_words, "gather_words", gather_words.gather_words_plain),
              (mibf_rank, "rank_lookup", mibf_rank.rank_lookup_plain),
              (mibf_frame_scan, "frame_scan",
               mibf_frame_scan.frame_scan_plain)]
@@ -811,6 +834,230 @@ def mibf_phases(dev: torch.device, card_line: str):
     return err, ms, launches, bounds
 
 
+def probe_phases(dev: torch.device, card_line: str):
+    """Phase 8: the probe paths that run the last six kernels, and the
+    Bloom insert_and_check pair. Returns (err, ms, launches, bounds,
+    library) for the six kernels."""
+    from btl_bloomfilter_tpu_torch import kernels
+    from btl_bloomfilter_tpu_torch.kernels import (dma_sweep, nthash_scan,
+                                                   scatter_or, scatter_ring,
+                                                   vmem_sort, window_scatter)
+    from btl_bloomfilter_tpu_torch.models import bloom
+    from btl_bloomfilter_tpu_torch.probes import (kernel_lab,
+                                                  partition_probe,
+                                                  ring_probe,
+                                                  vmem_sort_probe)
+
+    names = ("scatter_or_sorted", "scatter_or_sorted_delta", "sort_blocks",
+             "chunk_bitonic", "window_scatter", "dma_sweep")
+    err = dict.fromkeys(names, 0)
+    library = dict.fromkeys(names)
+    ms, launches, bounds = {}, {}, {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def drive(phase, main, need):
+        """Run a probe's main (its defaults: the card, full size) with
+        every launch count at 0 just before it; check that each kernel in
+        ``need`` launched, and keep the counts of the six."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = main([])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log(f"[{phase}] launches on the probe path: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        for name in need:
+            if counts[name] < 1:
+                raise AssertionError(f"{name} never launched on the {phase} "
+                                     f"path: {counts}")
+            if name in names:
+                launches[name] = counts[name]
+        return res
+
+    def random_words(shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                             device=dev, generator=gen)
+
+    # ---- 8a. ring probe: the insert step through the sorted scatters -----
+    res = drive("8a", ring_probe.main, ("nthash_scan", "scatter_or",
+                                        "scatter_or_sorted",
+                                        "scatter_or_sorted_delta"))
+    for label in ("delta ring", "in-place"):
+        require_equal(f"8a {label} filter == main path filter",
+                      res["words"][label], res["words"]["main path"])
+    for label, t in res["ms"].items():
+        log(f"[8a] {label}: {t:.4f} ms per {B}x{L} step ({card_line})")
+    pos_d, pos_s = ring_probe.sorted_positions(res["codes"], MAIN_SIZE)
+    start = random_words((MAIN_SIZE // 32,))
+    forms = {"scatter_or_sorted": (scatter_or.scatter_or_sorted,
+                                   scatter_or.scatter_or_sorted_plain),
+             "scatter_or_sorted_delta": (scatter_ring.scatter_or_sorted,
+                                         scatter_ring.scatter_or_sorted_plain)}
+    words_k = torch.zeros_like(start)
+    words_p = torch.zeros_like(start)
+    for name, (fn, plain) in forms.items():
+        got, over = fn(start.clone(), pos_d, pos_for_base=pos_s)
+        ref, _ = plain(start.clone(), pos_d)
+        if over != 0:
+            raise AssertionError(f"{name} reported an overflow")
+        err[name] = require_equal(f"8a {name}", got, ref)
+        del got, ref
+        ms[name] = (median_ms(lambda: fn(words_k, pos_d, pos_s)),
+                    median_ms(lambda: plain(words_p, pos_d), 3, 5))
+    n_pos, n_words = pos_d.numel(), distinct_words(pos_d, 5)
+    # positions in; in place each distinct word read and written once, the
+    # delta form reads the filter and writes a new one
+    bounds["scatter_or_sorted"] = bound_ms(4 * n_pos + 8 * n_words)
+    bounds["scatter_or_sorted_delta"] = bound_ms(4 * n_pos
+                                                 + 8 * start.numel())
+    pos, _s, _v = nthash_scan.positions_planes(res["codes"], K, H, MAIN_SIZE)
+    unsorted_ms = median_ms(lambda: scatter_or.scatter_or(words_k, pos))
+    sorted_ms = median_ms(lambda: scatter_or.scatter_or(words_k, pos_d))
+    prep_ms = median_ms(lambda: ring_probe.sorted_positions(res["codes"],
+                                                            MAIN_SIZE))
+    log(f"[8a] scatter_or_sorted and scatter_or_sorted_delta at the step's "
+        f"{n_pos} sorted positions ({n_words} distinct words) kernel == "
+        f"plain (bitwise); delta and in-place filters == main path filter")
+    for name in forms:
+        log(f"[8a] {name}: kernel {ms[name][0]:.4f} ms, plain "
+            f"{ms[name][1]:.4f} ms, bound {bounds[name]:.4f} ms "
+            f"({card_line})")
+    log(f"[8a] scatter_or (atomicOr) on the same positions unsorted "
+        f"{unsorted_ms:.4f} ms, sorted {sorted_ms:.4f} ms; hash + sort + "
+        f"dedupe {prep_ms:.4f} ms ({card_line})")
+    del res, start, words_k, words_p, pos_d, pos_s, pos
+    torch.cuda.empty_cache()
+
+    # ---- 8b. vmem_sort probe: 2048-key block sort ------------------------
+    res = drive("8b", vmem_sort_probe.main, ("sort_blocks",))
+    if not res["block_sorted_ok"]:
+        raise AssertionError("8b: a block came out unsorted")
+    x = vmem_sort_probe.make_keys(device=dev)
+    err["sort_blocks"] = require_equal(
+        "8b sort_blocks", vmem_sort.sort_blocks(x),
+        vmem_sort.sort_blocks_plain(x))
+    flipped = (x ^ vmem_sort.SIGN).reshape(-1, vmem_sort.BLOCK)
+    ms["sort_blocks"] = (median_ms(lambda: vmem_sort.sort_blocks(x)),
+                         median_ms(lambda: vmem_sort.sort_blocks_plain(x)))
+    library["sort_blocks"] = median_ms(lambda: torch.sort(flipped, dim=-1))
+    bounds["sort_blocks"] = bound_ms(8 * x.numel())
+    log(f"[8b] sort_blocks of {x.numel()} keys kernel == plain (bitwise); "
+        f"probe: {json.dumps(res)} ({card_line})")
+    del x, flipped
+
+    # ---- 8c. partition probe: 1024-key chunk sort and copy sweeps --------
+    res = drive("8c", partition_probe.main, ("chunk_bitonic", "dma_sweep"))
+    x = partition_probe.make_keys(device=dev)
+    err["chunk_bitonic"] = require_equal(
+        "8c chunk_bitonic", partition_probe.chunk_bitonic(x),
+        vmem_sort.chunk_bitonic_plain(x))
+    flipped = (x ^ vmem_sort.SIGN).reshape(-1, vmem_sort.CHUNK)
+    ms["chunk_bitonic"] = (
+        median_ms(lambda: partition_probe.chunk_bitonic(x)),
+        median_ms(lambda: vmem_sort.chunk_bitonic_plain(x)))
+    library["chunk_bitonic"] = median_ms(lambda: torch.sort(flipped, dim=-1))
+    bounds["chunk_bitonic"] = bound_ms(8 * x.numel())
+    del x, flipped
+    for k, rows in partition_probe.SWEEPS:
+        copy, src = partition_probe.dma_sweep(partition_probe.NSTEPS, k, rows,
+                                              device=dev)
+        got = copy(src)
+        require_equal(f"8c copy sweep {k}x{rows} == src", got, src)
+        err["dma_sweep"] = max(err["dma_sweep"], require_equal(
+            f"8c dma_sweep {k}x{rows}", got,
+            dma_sweep.sweep_copy_plain(src, k, rows)))
+        t = res["sweep_ms"][(k, rows)]
+        log(f"[8c] copy sweep {k} copies x {rows * 512} B per step: "
+            f"{t:.4f} ms, {t / (partition_probe.NSTEPS * k) * 1e6:.2f} ns per "
+            f"copy ({card_line})")
+        if (k, rows) == DMA_ROW:
+            dst = torch.empty_like(src)
+            ms["dma_sweep"] = (
+                median_ms(lambda: copy(src)),
+                median_ms(lambda: dma_sweep.sweep_copy_plain(src, k, rows)))
+            library["dma_sweep"] = median_ms(lambda: dst.copy_(src))
+            bounds["dma_sweep"] = bound_ms(8 * src.numel())
+            del dst
+        del got, src
+    log(f"[8c] chunk_bitonic of {partition_probe.N} keys and the four copy "
+        f"sweeps kernel == plain (bitwise); flat sort "
+        f"{res['flat_sort_ms']:.4f} ms, chunk sort "
+        f"{res['chunk_bitonic_ms']:.4f} ms ({card_line})")
+
+    # ---- 8d. kernel lab: the window scatter --------------------------------
+    res = drive("8d", kernel_lab.main, ("window_scatter", "scatter_or"))
+    idx, pos, words = kernel_lab.make_inputs(device=dev)
+    start = random_words(tuple(words.shape))
+    for scatter in (True, False):
+        err["window_scatter"] = max(err["window_scatter"], require_equal(
+            f"8d window_scatter scatter={scatter}",
+            window_scatter.window_scatter(idx, pos, start.clone(), scatter),
+            window_scatter.window_scatter_plain(idx, pos, start.clone(),
+                                                scatter)))
+    ms["window_scatter"] = (
+        median_ms(lambda: window_scatter.window_scatter(idx, pos, words)),
+        median_ms(lambda: window_scatter.window_scatter_plain(idx, pos,
+                                                              words), 3, 5))
+    # positions and chunk map in; each distinct word read and written once
+    bounds["window_scatter"] = bound_ms(4 * pos.numel() + 4 * idx.numel()
+                                        + 8 * distinct_words(pos, 5))
+    log(f"[8d] window_scatter (scatter and null) kernel == plain (bitwise); "
+        f"every position applied with {idx.shape[0]} slots: "
+        f"{res['complete']}; null {res['ms']['null']:.4f} ms, scatter "
+        f"{res['ms']['scatter']:.4f} ms, scatter_or (atomicOr) on the same "
+        f"positions {res['ms']['scatter_or']:.4f} ms ({card_line})")
+    del idx, pos, words, start
+    torch.cuda.empty_cache()
+
+    # ---- 8e. insert_and_check[_sequential] ---------------------------------
+    rng = np.random.default_rng(SEED + 9)
+    first = make_codes(rng)
+    second = np.concatenate([first[: B // 2], make_codes(rng, rows=B - B // 2)])
+
+    def frames(codes):
+        hashes, _strand, valid = nthash_scan.hash_frames_planes(
+            torch.from_numpy(codes).to(dev), K, H)
+        return hashes.movedim(0, -1), valid
+
+    def run_pair():
+        out = {}
+        for form in ("insert_and_check", "insert_and_check_sequential"):
+            bf = bloom.create(MAIN_SIZE, H, K, device=dev)
+            found = [getattr(bloom, form)(bf, *frames(c))[1]
+                     for c in (first, second)]
+            out[form] = (bf.words, found)
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = run_pair()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[8e] launches: { {k: v for k, v in counts.items() if v} }")
+    for name in ("nthash_scan", "gather_words", "scatter_or"):
+        if counts[name] < 1:
+            raise AssertionError(f"{name} never launched in 8e: {counts}")
+    with plain_kernels():
+        ref = run_pair()
+    _, valid2 = frames(second)
+    for form, (words, found) in got.items():
+        require_equal(f"8e {form} words", words, ref[form][0])
+        for i, (a, b) in enumerate(zip(found, ref[form][1])):
+            require_equal(f"8e {form} found, batch {i}", a, b)
+        again = found[1][: B // 2][valid2[: B // 2]]
+        if not bool(again.all()):
+            raise AssertionError(f"8e {form}: a valid repeated window of "
+                                 "the second batch is not found")
+        log(f"[8e] {form}: words and found == plain path (bitwise); found "
+            f"{int(found[0].sum())} and {int(found[1].sum())} of "
+            f"{found[0].numel()} windows, every valid repeated window "
+            f"({again.numel()}) found")
+    del got, ref
+    torch.cuda.empty_cache()
+    return err, ms, launches, bounds, library
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1066,6 +1313,14 @@ def main() -> None:
     for name in m_err:
         launches[name] = m_launches[name]
 
+    # ---- 8. the probes and insert_and_check ------------------------------
+    p_err, p_ms, p_launches, p_bounds, library = probe_phases(dev, card_line)
+    err.update(p_err)
+    ms.update(p_ms)
+    bounds.update(p_bounds)
+    launches.update(p_launches)
+
+    src = "btl_bloomfilter_tpu_torch/csrc/"
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
          "source": "btl_bloomfilter_tpu_torch/csrc/nthash_scan.cu",
@@ -1091,13 +1346,32 @@ def main() -> None:
          "source": "btl_bloomfilter_tpu_torch/csrc/mibf_frame_scan.cu",
          "replaces": "btl_bloomfilter_tpu/models/mibf_query.py:553 "
                      "(lax.scan, no Pallas twin)"},
+        {"name": "scatter_or_sorted", "route": "cuda",
+         "source": src + "scatter_or_sorted.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_or.py:158"},
+        {"name": "scatter_or_sorted_delta", "route": "cuda",
+         "source": src + "scatter_or_sorted.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_ring.py:234"},
+        {"name": "sort_blocks", "route": "cuda",
+         "source": src + "block_sort.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/vmem_sort.py:87"},
+        {"name": "chunk_bitonic", "route": "cuda",
+         "source": src + "block_sort.cu",
+         "replaces": "bench/partition_probe.py:95"},
+        {"name": "window_scatter", "route": "cuda",
+         "source": src + "window_scatter.cu",
+         "replaces": "bench/kernel_lab.py:117"},
+        {"name": "dma_sweep", "route": "cuda",
+         "source": src + "dma_sweep.cu",
+         "replaces": "bench/partition_probe.py:132"},
     ]}
     for r in record["kernels"]:
-        # no single PyTorch call computes any of these functions
+        # library: torch.sort on the block view for the sorts, copy_ for the
+        # sweep; no single PyTorch call computes the other functions
         r.update(launches=launches[r["name"]], max_abs_err=err[r["name"]],
                  ms=ms[r["name"]][0], plain_ms=ms[r["name"]][1],
                  bound_ms=bounds[r["name"]], bound_by="bytes",
-                 library_ms=None)
+                 library_ms=library.get(r["name"]))
     log(f"card: {card_line}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -175,3 +175,90 @@ def test_size_rules():
                             size=1 << 32, hash_num=1, kmer_size=5)
     with pytest.raises(NotImplementedError):
         bloom.insert_sentinel_positions(big, torch.zeros(1, dtype=torch.int32))
+
+
+jax_insert_and_check = jax.jit(jax_bloom.insert_and_check)
+jax_insert_and_check_seq = jax.jit(jax_bloom.insert_and_check_sequential)
+INSERT_AND_CHECK = {
+    "batched": (jax_insert_and_check, bloom.insert_and_check),
+    "sequential": (jax_insert_and_check_seq,
+                   bloom.insert_and_check_sequential),
+}
+
+
+def check_stream(size, h, seed):
+    """Frames [6, 35, h] with in-batch duplicate frames (in one row and
+    across rows), a frame whose slots repeat one hash, invalid frames, and
+    invalid copies of later valid frames."""
+    rng = np.random.default_rng(seed)
+    hashes = rng.integers(0, 1 << 64, size=(6, 35, h), dtype=np.uint64)
+    hashes[2, 20] = hashes[0, 3]          # a duplicate in a later row
+    hashes[1, 30] = hashes[1, 5]          # a duplicate in the same row
+    hashes[4, 10] = hashes[4, 11] = hashes[5, 2]
+    hashes[3, 7, :] = hashes[3, 7, 0]     # one hash in every slot
+    hashes[3, 8, 1] = hashes[3, 8, 0]
+    valid = rng.random((6, 35)) < 0.8
+    valid[4, 10] = False                  # invalid, then valid copies
+    valid[4, 11] = valid[5, 2] = True
+    valid[0, 3] = valid[2, 20] = valid[1, 5] = valid[1, 30] = True
+    return hashes, valid
+
+
+@pytest.mark.parametrize("form", sorted(INSERT_AND_CHECK))
+@pytest.mark.parametrize("size,h,masked", [
+    (1000, 3, True), (1 << 14, 4, True), (1 << 16, 2, False),
+    (999_992, 5, True)])
+def test_insert_and_check_matches_jax(form, size, h, masked):
+    """Two calls on one filter, words and found bit for bit; a small filter
+    makes found True often before the batch too."""
+    jax_fn, port_fn = INSERT_AND_CHECK[form]
+    hashes, valid = check_stream(size, h, size % 97 + h)
+    jbf = jax_bloom.create(size, h, 11)
+    bf = bloom.create(size, h, 11, device="cpu")
+    for batch in (hashes[:3], hashes):
+        v = valid[: len(batch)] if masked else None
+        jbf, jfound = jax_fn(jbf, jax_u64.from_numpy(batch),
+                             None if v is None else jnp.asarray(v))
+        got, found = port_fn(bf, u64.from_numpy(batch),
+                             None if v is None else torch.from_numpy(v))
+        assert got is bf and found.shape == batch.shape[:-1]
+        np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+        np.testing.assert_array_equal(port_words(bf), np.asarray(jbf.words))
+    if form == "sequential":
+        assert found[2, 20] and found[1, 30] and found[5, 2]
+        if masked:
+            assert not found[~valid].any()
+
+
+@pytest.mark.parametrize("form", sorted(INSERT_AND_CHECK))
+def test_insert_and_check_twice(form):
+    """The two-call case of tests/test_filters.py: a frame is new, then
+    found."""
+    jax_fn, port_fn = INSERT_AND_CHECK[form]
+    hashes = u64.from_numpy(np.array([[1, 2, 3]], dtype=np.uint64))
+    jbf = jax_bloom.create(800, 3, 5)
+    bf = bloom.create(800, 3, 5, device="cpu")
+    for want in (False, True):
+        jbf, jfound = jax_fn(jbf, jax_u64.from_numpy(
+            np.array([[1, 2, 3]], dtype=np.uint64)), None)
+        _, found = port_fn(bf, hashes)
+        assert bool(found[0]) == bool(jfound[0]) == want
+    np.testing.assert_array_equal(port_words(bf), np.asarray(jbf.words))
+
+
+def test_insert_and_check_sequential_sees_earlier_frames():
+    """A later duplicate of a valid frame reports True, its first copy and
+    an invalid copy False; the batched form reports all False. Then an
+    invalid frame already in the filter: found by the batched form (not
+    masked by valid), not by the sequential one."""
+    hashes = np.array([[5, 6], [7, 8], [5, 6], [9, 10], [9, 10]],
+                      dtype=np.uint64)
+    valid = torch.tensor([True, True, True, False, True])
+    for form, want in (("sequential", [False, False, True, False, False]),
+                       ("batched", [False] * 5)):
+        fn = INSERT_AND_CHECK[form][1]
+        bf = bloom.create(1 << 12, 2, 5, device="cpu")
+        _, found = fn(bf, u64.from_numpy(hashes), valid)
+        assert found.tolist() == want
+        _, found = fn(bf, u64.from_numpy(hashes[:1]), torch.tensor([False]))
+        assert found.tolist() == [form == "batched"]

@@ -411,3 +411,175 @@ def test_mibf_on_cuda_matches_cpu(dev):
     assert [r[0].id for r in out[0][2]] == list(range(1, 8))
     counts = kernels.launch_counts()
     assert counts["mibf_rank"] == 3 and counts["mibf_frame_scan"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels and insert_and_check
+# ---------------------------------------------------------------------------
+
+def sorted_positions(kind, nwords, rng):
+    """int32 positions (uint32 bits) of one edge case."""
+    sent = 0xFFFFFFFF
+    if kind == "empty":
+        pos = np.zeros(0, np.uint64)
+    elif kind == "all_sentinels":
+        pos = np.full(1000, sent, np.uint64)
+    elif kind == "past_nwords":     # sorted, words past the filter, then
+        pos = np.sort(rng.integers(0, nwords * 32 + 5000, size=20_000))
+        pos = np.concatenate([pos, np.full(333, sent)])   # sentinels
+    elif kind == "ragged":          # not a multiple of the 256-thread tile
+        pos = np.sort(rng.integers(0, nwords * 32, size=256 * 40 + 77))
+    elif kind == "runs_across_tiles":   # runs of 300 slots on one word
+        n = 256 * 12 + 5
+        pos = (np.arange(n) // 300) * 32 + rng.integers(0, 32, size=n)
+        pos = np.sort(pos)
+    elif kind == "in_place_sentinels":  # duplicates set to the sentinel
+        pos = np.sort(rng.integers(0, 3000, size=30_000))
+        dup = np.concatenate([[False], pos[1:] == pos[:-1]])
+        pos = np.where(dup, sent, pos)
+    else:                           # unsorted, duplicates, sentinels
+        pos = rng.integers(0, nwords * 32, size=30_000)
+        pos[rng.random(30_000) < 0.1] = sent
+    return torch.from_numpy(np.asarray(pos, np.uint64).astype(np.uint32)
+                            .view(np.int32))
+
+
+@pytest.mark.parametrize("kind", [
+    "empty", "all_sentinels", "past_nwords", "ragged", "runs_across_tiles",
+    "in_place_sentinels", "unsorted"])
+@pytest.mark.parametrize("name", ["scatter_or_sorted",
+                                  "scatter_or_sorted_delta"])
+def test_sorted_scatter_kernels_match_plain(dev, name, kind):
+    from btl_bloomfilter_tpu_torch.kernels import scatter_ring
+    fn, plain = {
+        "scatter_or_sorted": (scatter_or.scatter_or_sorted,
+                              scatter_or.scatter_or_sorted_plain),
+        "scatter_or_sorted_delta": (scatter_ring.scatter_or_sorted,
+                                    scatter_ring.scatter_or_sorted_plain),
+    }[name]
+    rng = np.random.default_rng(len(kind))
+    nwords = 5000
+    pos = sorted_positions(kind, nwords, rng)
+    start = random_words(nwords, 3) & 0x00FF00FF
+    before = kernels.KERNELS[name].launches
+    words = start.to(dev)
+    got, over = fn(words, pos.to(dev), pos_for_base=pos.to(dev))
+    ref, _ = plain(start.clone(), pos)
+    torch.cuda.synchronize()
+    assert over == 0 and torch.equal(got.cpu(), ref)
+    assert (got is words) == (name == "scatter_or_sorted")
+    assert kernels.KERNELS[name].launches == before + int(pos.numel() > 0)
+
+
+def sort_keys(kind, n, rng):
+    if kind == "all_equal":
+        x = np.full(n, 0x80000000, np.uint32)
+    elif kind == "extremes":
+        x = rng.choice(np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                                 0xFFFFFFFF], np.uint32), size=n)
+    elif kind == "descending":
+        x = np.sort(rng.integers(0, 1 << 32, size=n, dtype=np.uint32))[::-1]
+    else:
+        x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["random", "all_equal", "extremes",
+                                  "descending"])
+@pytest.mark.parametrize("nblocks", [0, 1, 37])
+@pytest.mark.parametrize("name,block", [("sort_blocks", 2048),
+                                        ("chunk_bitonic", 1024)])
+def test_block_sort_kernels_match_plain(dev, name, block, nblocks, kind):
+    from btl_bloomfilter_tpu_torch.kernels import vmem_sort
+    fn = getattr(vmem_sort, name)
+    plain = getattr(vmem_sort, name + "_plain")
+    x = sort_keys(kind, nblocks * block, np.random.default_rng(nblocks))
+    before = kernels.KERNELS[name].launches
+    got = fn(x.to(dev))
+    ref = plain(x)
+    assert torch.equal(got.cpu(), ref)
+    assert kernels.KERNELS[name].launches == before + int(nblocks > 0)
+    u = ref.numpy().view(np.uint32).reshape(-1, block) if nblocks else None
+    assert u is None or (np.diff(u.astype(np.int64), axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("kind", ["uniform", "last_window", "sentinels",
+                                  "bad_chunks"])
+def test_window_scatter_kernel_matches_plain(dev, kind, slots):
+    from btl_bloomfilter_tpu_torch.kernels import window_scatter
+    from btl_bloomfilter_tpu_torch.probes import kernel_lab
+    win, chunk = window_scatter.WIN_WORDS, window_scatter.CHUNK
+    rng = np.random.default_rng(slots)
+    nwin, n = 6, 8 * chunk
+    nwords = nwin * win
+    top = nwords * 32
+    if kind == "last_window":       # down to the filter's very last bit
+        pos = rng.integers(top - win * 32, top, size=n)
+        pos[:5] = top - 1
+    elif kind == "sentinels":       # past the filter, then sentinels
+        pos = rng.integers(0, top + 4000, size=n)
+        pos[: n // 2] = 0xFFFFFFFF
+    else:
+        pos = rng.integers(0, top, size=n)
+    pos = torch.from_numpy(np.sort(pos.astype(np.uint64)).astype(np.uint32)
+                           .view(np.int32))
+    idx = kernel_lab.chunk_index(pos, slots, nwords)
+    if kind == "bad_chunks":
+        idx[0, ::2] = -1
+        idx[-1, 1::3] = n // chunk
+    start = random_words(nwords, 5) & 0x0F0F0F0F
+    for scatter in (False, True):
+        before = window_scatter.KERNEL.launches
+        got = window_scatter.window_scatter(idx.to(dev), pos.to(dev),
+                                            start.to(dev), scatter)
+        ref = window_scatter.window_scatter_plain(idx, pos, start.clone(),
+                                                  scatter)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref)
+        assert window_scatter.KERNEL.launches == before + 1
+    if kind == "last_window":
+        assert bool((ref[-win:] != start[-win:]).any())
+
+
+@pytest.mark.parametrize("nsteps,k,rows", [(0, 3, 2), (1, 1, 1), (3, 7, 3),
+                                           (5, 16, 8), (2, 255, 1)])
+def test_dma_sweep_kernel_matches_plain(dev, nsteps, k, rows):
+    from btl_bloomfilter_tpu_torch.kernels import dma_sweep
+    from btl_bloomfilter_tpu_torch.probes import partition_probe
+    copy, src = partition_probe.dma_sweep(nsteps, k, rows, device=dev,
+                                          seed=k)
+    before = dma_sweep.KERNEL.launches
+    got = copy(src)
+    torch.cuda.synchronize()
+    assert got.data_ptr() != src.data_ptr() or nsteps == 0
+    assert torch.equal(got, src)
+    assert torch.equal(got.cpu(), dma_sweep.sweep_copy_plain(src.cpu(), k,
+                                                             rows))
+    assert dma_sweep.KERNEL.launches == before + int(nsteps > 0)
+
+
+@pytest.mark.parametrize("form", ["insert_and_check",
+                                  "insert_and_check_sequential"])
+def test_insert_and_check_on_cuda_matches_cpu(dev, form):
+    rng = np.random.default_rng(11)
+    hashes = rng.integers(0, 1 << 64, size=(40, 60, 4), dtype=np.uint64)
+    hashes[3, 5, 1] = hashes[3, 5, 0]
+    hashes[20:] = hashes[:20]               # repeated frames
+    valid = torch.from_numpy(rng.random((40, 60)) < 0.9)
+    fn = getattr(bloom, form)
+    out = []
+    kernels.reset_launch_counts()
+    for device in (dev, torch.device("cpu")):
+        bf = bloom.create(50_000, 4, 21, device=device)
+        found = [fn(bf, u64.from_numpy(hashes[:10]), valid[:10])[1],
+                 fn(bf, u64.from_numpy(hashes), valid)[1]]
+        out.append((bf.words.cpu(), [f.cpu() for f in found]))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+    counts = kernels.launch_counts()
+    assert counts["gather_words"] == 2 and counts["scatter_or"] == 2
+    if form == "insert_and_check_sequential":
+        again = valid[20:] & valid[:20]     # both copies valid
+        assert bool(out[0][1][1][20:][again].all())

@@ -13,12 +13,17 @@ from btl_bloomfilter_tpu_torch import api
 from btl_bloomfilter_tpu_torch.io import bf_format, mibf_format
 from btl_bloomfilter_tpu_torch.models import (bloom, counting, mibf,
                                               mibf_construct)
+from btl_bloomfilter_tpu_torch.probes import (kernel_lab, partition_probe,
+                                              ring_probe, vmem_sort_probe)
 
 ENTRY_POINTS = [
     bloom.create, bloom.create_from_fpr, bloom.from_numpy_words,
     counting.create, counting.from_bytes, counting.from_numpy_counters,
     bf_format.load_bloom, bf_format.load_counting, api.HashPipeline,
     mibf.from_numpy, mibf_construct.create, mibf_format.load_mibf,
+    ring_probe.make_codes, vmem_sort_probe.make_keys,
+    partition_probe.make_keys, partition_probe.dma_sweep,
+    kernel_lab.make_inputs,
 ]
 
 
@@ -45,3 +50,20 @@ def test_default_device_is_the_card(make):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             make()
+
+
+@pytest.mark.parametrize("main,argv", [
+    (ring_probe.main, ["--rows", "2", "--length", "64", "--log2-size",
+                       "16"]),
+    (vmem_sort_probe.main, ["--n", "2048"]),
+    (partition_probe.main, ["--n", "1024", "--nsteps", "1"]),
+    (kernel_lab.main, ["--log2-size", "19", "--n", "1024"]),
+], ids=["ring_probe", "vmem_sort_probe", "partition_probe", "kernel_lab"])
+def test_probe_mains_default_to_the_card(main, argv):
+    """Without --device a probe runs on the card; without a card it
+    raises."""
+    if torch.cuda.is_available():
+        main(argv + ["--reps", "1"])
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            main(argv + ["--reps", "1"])

@@ -26,7 +26,15 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.io.sdsl, "
             "btl_bloomfilter_tpu_torch.tools.build_mibf, "
             "btl_bloomfilter_tpu_torch.tools.classify, "
-            "btl_bloomfilter_tpu_torch.native; "
+            "btl_bloomfilter_tpu_torch.native, "
+            "btl_bloomfilter_tpu_torch.kernels.scatter_ring, "
+            "btl_bloomfilter_tpu_torch.kernels.vmem_sort, "
+            "btl_bloomfilter_tpu_torch.kernels.window_scatter, "
+            "btl_bloomfilter_tpu_torch.kernels.dma_sweep, "
+            "btl_bloomfilter_tpu_torch.probes.ring_probe, "
+            "btl_bloomfilter_tpu_torch.probes.vmem_sort_probe, "
+            "btl_bloomfilter_tpu_torch.probes.partition_probe, "
+            "btl_bloomfilter_tpu_torch.probes.kernel_lab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
             "m.startswith('btl_bloomfilter_tpu.')]; "
