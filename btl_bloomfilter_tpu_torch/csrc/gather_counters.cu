@@ -13,16 +13,25 @@
 //
 // What bounds it on the H100: random 4-byte loads from the word array (2**30
 // u8 counters = 1 GiB, far beyond the 50 MB L2), h per window, each moving a
-// 32-byte sector. Design: one thread per window in a grid-stride loop; the
+// whole DRAM sector. Measured, the loads take as long issued one after
+// another as issued together: random-access DRAM throughput bounds it, not
+// latency. Design: one thread per window (no grid-stride loop); the
 // position loads (plane-major [h, n]) and all stores are coalesced across
-// the warp. When only the hit is wanted, a window stops loading at its first
-// counter below the threshold.
+// the warp. A window's word loads are issued together, as independent loads
+// held in registers, before any of them is compared, in groups of up to
+// G_MAX slots (all of them for h <= G_MAX). When only the hit is wanted,
+// slot 0 is loaded alone first: a miss usually stops after that one load,
+// a hit costs two round trips; a window stops after the first group whose
+// minimum falls below the threshold. An invalid window loads nothing unless
+// the values are wanted.
 //
 // Semantics: a sentinel slot reads 0; a window whose slot 0 is the sentinel
 // is invalid (min 0, hit false); a word index past the array is clamped to
 // the last word, as an XLA gather clamps.
 
 #include "common.cuh"
+
+#define G_MAX 8
 
 __global__ void __launch_bounds__(BTL_BLOCK)
 gather_counters_kernel(const uint32_t* __restrict__ pos, long long n, int h,
@@ -36,26 +45,43 @@ gather_counters_kernel(const uint32_t* __restrict__ pos, long long n, int h,
     const unsigned lane_mask = bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
     const uint32_t sub_mask = (1u << shift) - 1u;
     const bool hit_only = vals == nullptr && mins == nullptr;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n; i += stride) {
-        const bool valid = pos[i] != BTL_SENTINEL;
-        uint32_t mn = 0xFFFFFFFFu;
-        for (int j = 0; j < h; ++j) {
-            const uint32_t p = pos[(long long)j * n + i];
-            uint32_t v = 0;
-            if (p != BTL_SENTINEL) {
-                long long w = p >> shift;
-                if (w >= nwords) w = nwords - 1;
-                v = (__ldg(&words[w]) >> ((p & sub_mask) * bits)) & lane_mask;
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const bool valid = pos[i] != BTL_SENTINEL;
+    uint32_t mn = 0xFFFFFFFFu;
+    if (valid || vals) {
+        for (int j0 = 0; j0 < h;) {
+            int g = hit_only && j0 == 0 ? 1 : G_MAX;
+            if (g > h - j0) g = h - j0;
+            uint32_t p[G_MAX], v[G_MAX];
+#pragma unroll
+            for (int j = 0; j < G_MAX; ++j)
+                if (j < g) p[j] = pos[(long long)(j0 + j) * n + i];
+            // every load of the group issued before any is used
+#pragma unroll
+            for (int j = 0; j < G_MAX; ++j) {
+                if (j < g) {
+                    long long w = p[j] >> shift;
+                    if (w >= nwords) w = nwords - 1;
+                    v[j] = p[j] == BTL_SENTINEL ? 0u : __ldg(&words[w]);
+                }
             }
-            if (vals) vals[(long long)j * n + i] = v;
-            mn = v < mn ? v : mn;
-            if (hit_only && (!valid || mn < threshold)) break;
+#pragma unroll
+            for (int j = 0; j < G_MAX; ++j) {
+                if (j < g) {
+                    if (p[j] != BTL_SENTINEL)
+                        v[j] = (v[j] >> ((p[j] & sub_mask) * bits))
+                               & lane_mask;
+                    if (vals) vals[(long long)(j0 + j) * n + i] = v[j];
+                    mn = v[j] < mn ? v[j] : mn;
+                }
+            }
+            j0 += g;
+            if (hit_only && mn < threshold) break;
         }
-        if (mins) mins[i] = valid ? mn : 0u;
-        if (hit) hit[i] = valid && mn >= threshold;
     }
+    if (mins) mins[i] = valid ? mn : 0u;
+    if (hit) hit[i] = valid && mn >= threshold;
 }
 
 // pos uint32 [h, n] plane-major; words uint32 [nwords]; outputs (each may
@@ -67,8 +93,8 @@ extern "C" int btl_gather_counters(const void* pos, long long n, int h,
                                    int device, void* stream) {
     cudaError_t err = btl_set_device(device);
     if (err != cudaSuccess) return (int)err;
-    gather_counters_kernel<<<btl_blocks(n), BTL_BLOCK, 0,
-                             (cudaStream_t)stream>>>(
+    const unsigned blocks = (unsigned)((n + BTL_BLOCK - 1) / BTL_BLOCK);
+    gather_counters_kernel<<<blocks, BTL_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)pos, n, h, (const unsigned int*)words, nwords,
         shift, threshold, (uint32_t*)vals, (uint32_t*)mins, (bool*)hit);
     return (int)cudaGetLastError();

@@ -5,22 +5,28 @@
     (one atomic per run of equal words)
   * ``scatter_ring`` - Bloom insert of sorted positions into a delta
   * ``gather_words`` - Bloom query (gather + AND over h)
-  * ``gather_counters`` - counting-filter read (packed lanes, min over h)
-  * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane)
+  * ``gather_counters`` - counting-filter read (packed lanes, min over h;
+    all of a window's loads issued together)
+  * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane):
+    incrementAll
+  * ``conservative_step`` - counting-filter conservative step (gather, min,
+    target and a carry-free atomicAdd per lane in one pass): the insert's
+    closed form and replay rounds
   * ``mibf_rank``    - MIBF rank, hit and ID of bit positions
   * ``mibf_frame_scan`` - MIBF classification's sequential per-read pass
   * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
   * ``window_scatter`` - static-window Bloom scatter in shared memory
   * ``dma_sweep``    - chunked copy sweep
 
-The last four serve the probes (``probes/``), not the build/query paths.
+``scatter_ring`` and the last three serve the probes (``probes/``), not the
+build/query paths.
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
 
-from . import (dma_sweep, gather_counters, gather_words, mibf_frame_scan,
-               mibf_rank, nthash_scan, scatter_add, scatter_or, scatter_ring,
-               vmem_sort, window_scatter)
+from . import (conservative_step, dma_sweep, gather_counters, gather_words,
+               mibf_frame_scan, mibf_rank, nthash_scan, scatter_add,
+               scatter_or, scatter_ring, vmem_sort, window_scatter)
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
@@ -36,6 +42,7 @@ KERNELS = {
     "chunk_bitonic": vmem_sort.CHUNK_KERNEL,
     "window_scatter": window_scatter.KERNEL,
     "dma_sweep": dma_sweep.KERNEL,
+    "conservative_step": conservative_step.KERNEL,
 }
 
 

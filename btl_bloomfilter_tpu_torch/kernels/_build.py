@@ -32,7 +32,8 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "gather_counters.cu", "scatter_add.cu", "mibf_rank.cu",
            "mibf_frame_scan.cu", "scatter_or_sorted.cu", "block_sort.cu",
-           "window_scatter.cu", "dma_sweep.cu", "errors.cu")
+           "window_scatter.cu", "dma_sweep.cu", "conservative_step.cu",
+           "errors.cu")
 HEADERS = ("common.cuh",)
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it

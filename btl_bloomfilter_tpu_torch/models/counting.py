@@ -27,11 +27,13 @@ share a position with another group ("entangled") and frames that are the
 stream-first user of every position they touch, apply the closed form
 ``max(cur, min + min(c, max - min))`` to untangled groups and stream-first
 frames at once, and replay the rest in rounds of position-disjoint frames.
-The sorts are torch sorts. The counter reads and writes of widths 1/2/4 go
-through the CUDA kernels ``kernels/gather_counters`` and
-``kernels/scatter_add`` when the counters lie on a GPU, through their plain
-versions on the CPU. Width 8 is plain torch on every device, as it is in
-the reference, which never routes it to a kernel.
+The sorts are torch sorts. Each conservative step of widths 1/2/4 (the
+closed form, and every replay round) is one launch of the CUDA kernel
+``kernels/conservative_step`` when the counters lie on a GPU (gather, min,
+target and a carry-free add per lane in one pass), its plain version on the
+CPU; queries go through ``kernels/gather_counters`` and incrementAll
+through ``kernels/scatter_add``. Width 8 is plain torch on every device, as
+it is in the reference, which never routes it to a kernel.
 
 Two things differ from the reference's decomposition, neither in result:
 the replay scheduler runs to its fixpoint with no round cap (the reference
@@ -51,8 +53,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import gather_counters, nthash_scan, scatter_add
+from ..kernels import (conservative_step, gather_counters, nthash_scan,
+                       scatter_add)
 from ..kernels._build import SENTINEL
+from ..kernels.conservative_step import earlier_dup_mask
 from ..ops import u64
 from ..ops.replay import STREAM_BITS, STREAM_MASK, replay_depth
 
@@ -213,16 +217,6 @@ def _positions(cbf: CountingBloomFilter, hashes: torch.Tensor) -> torch.Tensor:
     return u64.to_u32_bits(u64.mod_const(hashes.to(cbf.device), cbf.size))
 
 
-def _earlier_dup_mask(p: torch.Tensor) -> torch.Tensor:
-    """True where an earlier slot of the same frame holds the same
-    position: p is [h, m] plane-major. A frame updates such a counter once,
-    as the reference's compare-and-swap loop does."""
-    dup = torch.zeros(p.shape, dtype=torch.bool, device=p.device)
-    for j in range(1, p.shape[0]):
-        dup[j] = (p[:j] == p[j]).any(dim=0)
-    return dup
-
-
 # ---------------------------------------------------------------------------
 # queries
 # ---------------------------------------------------------------------------
@@ -296,25 +290,21 @@ def _frames(cbf: CountingBloomFilter, hashes: torch.Tensor, valid):
 
 
 def _packed_step(words: torch.Tensor, per: int, counter_max: int,
-                 gather=gather_counters.gather_counters,
-                 scatter=scatter_add.scatter_add):
+                 kernel=conservative_step.conservative_step):
     """The conservative step on packed words, for position-disjoint
     frames p int64 [h, m] (counter indices or the sentinel) each repeated
-    c[m] times: every counter becomes max(cur, mn + min(c, cmax - mn)),
-    mn the frame's minimum. It is incrementMin for c = 1 and the closed
-    form of c repeats of a frame (the freeze at cmax included). One
-    ``gather`` (gather_counters) and one ``scatter`` (scatter_add): the
-    deltas stay inside their lanes, and in-frame duplicates write once."""
+    c[m] times (int64), the frames where ``live`` (bool [m], or None for
+    all) is False left out: every counter becomes max(cur, mn + min(c,
+    cmax - mn)), mn the frame's minimum. It is incrementMin for c = 1 and
+    the closed form of c repeats of a frame (the freeze at cmax included).
+    One call of ``kernel`` (conservative_step or its plain version)."""
     shift = _SUB_SHIFT[per]
 
-    def step(p: torch.Tensor, c: torch.Tensor) -> None:
-        pos = u64.to_u32_bits(p)
-        cur = gather(words, pos, shift, "vals")
-        mn = cur.amin(dim=0)
-        target = mn + torch.minimum(c, counter_max - mn)
-        delta = torch.where(~_earlier_dup_mask(p) & (cur < target),
-                            target - cur, 0)
-        scatter(words, pos, shift, counter_max, inc=u64.to_u32_bits(delta))
+    def step(p: torch.Tensor, c: torch.Tensor, live=None) -> None:
+        pos = p.to(torch.int32)          # low 32 bits: the uint32 bits
+        if live is not None:             # slot 0 the sentinel: no write
+            pos[0].masked_fill_(~live, -1)
+        kernel(words, pos, c, shift, counter_max)
 
     return step
 
@@ -323,13 +313,15 @@ def _u64_step(plane: torch.Tensor):
     """Width-8 twin of :func:`_packed_step` on the int64 plane (uint64
     arithmetic, freeze at 2**64-1); plain torch on every device."""
 
-    def step(p: torch.Tensor, c: torch.Tensor) -> None:
-        live = p != SENTINEL
-        p = torch.where(live, p, 0)
+    def step(p: torch.Tensor, c: torch.Tensor, live=None) -> None:
+        if live is not None:
+            p = torch.where(live, p, SENTINEL)
+        slot = p != SENTINEL
+        p = torch.where(slot, p, 0)
         cur = plane[p]
         mn = u64.amin(cur, dim=0)
         target = (mn + u64.min_(c, ~mn)).expand_as(cur)   # ~mn = headroom
-        take = live & ~_earlier_dup_mask(p) & u64.lt(cur, target)
+        take = slot & ~earlier_dup_mask(p) & u64.lt(cur, target)
         plane[p[take]] = target[take]
 
     return step
@@ -461,7 +453,7 @@ def _insert_frames(step, pos: torch.Tensor, size: int, max_entangled,
         # rounds from the state before it (the closed form is not applied)
         _replay(step, pos[:, pos[0] != SENTINEL])
         return
-    step(torch.where(closed, ks, SENTINEL), closed_c)
+    step(ks, closed_c, closed)
     _replay(step, pos[:, ent_frames])
 
 
@@ -478,21 +470,20 @@ def _as_positions(pos, v) -> torch.Tensor:
 def insert_positions(words: torch.Tensor, pos, v, counter_max: int,
                      size: int, per_word: int, max_entangled=None,
                      group: bool = True, *,
-                     gather=gather_counters.gather_counters,
-                     scatter=scatter_add.scatter_add) -> torch.Tensor:
+                     step=conservative_step.conservative_step
+                     ) -> torch.Tensor:
     """Position-level core of :func:`insert`: conservative update of the
     packed words (int32 [size // per_word], uint32 bits, ``per_word``
     counters per word) with frames pos [n, h] (counter indices < size;
     invalid frames masked by v bool [n]), bit-identical to stream order.
     Updates ``words`` in place and returns it.
 
-    ``gather`` and ``scatter`` read and write the counters; passing the
-    kernels' plain versions (``gather_counters_plain``,
-    ``scatter_add_plain``) runs the plain path on any device, which is how
-    the kernels are held against it on the card."""
+    ``step`` applies each conservative step; passing the kernel's plain
+    version (``conservative_step_plain``) runs the plain path on any
+    device, which is how the kernel path is held against it on the card."""
     p = _as_positions(pos, v).to(words.device)
-    _insert_frames(_packed_step(words, per_word, counter_max, gather,
-                                scatter), p, size, max_entangled, group)
+    _insert_frames(_packed_step(words, per_word, counter_max, step), p,
+                   size, max_entangled, group)
     return words
 
 

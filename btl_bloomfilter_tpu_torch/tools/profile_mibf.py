@@ -120,7 +120,7 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _stages(stages, steps: int):
+def stage_times(stages, steps: int):
     """Mean host ms of each (name, fn) stage run in order, ``steps`` times,
     each ended by a synchronize; a warm-up pass first."""
     total = {name: 0.0 for name, _ in stages}
@@ -173,7 +173,7 @@ def main(argv=None) -> None:
     qcodes = torch.from_numpy(reads).to(dev)
     st = {}
     build = build_stages(codes, ids, st)
-    build_ms = _stages(build, args.steps)
+    build_ms = stage_times(build, args.steps)
     qh, qv = bench_hashes(qcodes)
     m = st["m"]
 
@@ -195,7 +195,7 @@ def main(argv=None) -> None:
 
     classify = [("rank + ID lookups", lookups), ("engine", engine),
                 ("host ranking", ranking)]
-    classify_ms = _stages(classify, args.steps)
+    classify_ms = stage_times(classify, args.steps)
 
     def whole_build():
         for _, fn in build:

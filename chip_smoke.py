@@ -21,23 +21,30 @@ counters, batches of 3072 reads x 2048 bases):
   4. the write_bloom / test_bloom CLIs on a small multi-FASTA;
   5. insert and query k-mers/s, kernel path against plain path;
   6. the counting filter:
-     a. gather_counters and scatter_add (unit and weighted) against their
-        plain versions at the full shape for counter widths 1, 2 and 4, and
-        the whole conservative insert (two batches, the second repeating
-        half of the first's reads; group_duplicates True and False)
-        against the plain path, bitwise;
+     a. gather_counters, scatter_add (unit and weighted) and
+        conservative_step (the closed-form rows of the batch's
+        decomposition, ungrouped and grouped over a batch whose reads all
+        appear twice, and its first replay round, on random words) against
+        their plain versions at the full shape for counter widths 1, 2 and
+        4, and the whole conservative insert (two batches, the second
+        repeating half of the first's reads; group_duplicates True and
+        False) against the plain path, bitwise;
      b. a dense small stream with a chain of more than 32 frames and a
         frame repeated past the u8 freeze, at widths 1 and 8, against a
         numpy stream-order incrementMin loop;
      c. the main path through counting.insert_seq / min_count_seq /
         contains_seq: 4 batches inserted (every valid window reads >= 1
         and hits), one inserted again (its windows read >= 2), 2 fresh
-        batches queried (hit fraction under 3 * fpr + 1e-5), and the
-        launch counts of the kernels it runs;
+        batches queried (hit fraction under 3 * fpr + 1e-5), one batch
+        put into a second filter by incrementAll (counting.insert_all),
+        and the launch counts of the kernels it runs;
      d. a counting .bf store/load round trip and the three golden counting
         .bf files rebuilt on the card;
      e. counting insert and query k-mers/s and per-kernel times, kernel
-        path against plain path;
+        path against plain path; gather_counters' hit mode on inserted
+        (hit-heavy) and fresh (miss-heavy) reads; the ungrouped insert's four stages (hash, decompose,
+        closed form, replay) on the host clock and its device idle share
+        under torch.profiler;
   7. the multi-index Bloom filter (MIBF) build and read classification:
      a. mibf_rank (rank only at the build's positions; rank + ID for ID
         widths 1, 2 and 4 at the classify batch's) and mibf_frame_scan (at
@@ -235,17 +242,19 @@ def median_ms(fn, reps: int = REPS, inner: int = INNER) -> float:
 
 def counting_phases(dev: torch.device, card_line: str):
     """Phase 6: the counting filter on the card. Returns (err, ms,
-    launches) for gather_counters and scatter_add."""
+    launches, bounds) for gather_counters, scatter_add and
+    conservative_step."""
     from btl_bloomfilter_tpu_torch import kernels
     from btl_bloomfilter_tpu_torch.io import bf_format
-    from btl_bloomfilter_tpu_torch.kernels import (_build, gather_counters,
+    from btl_bloomfilter_tpu_torch.kernels import (_build, conservative_step,
+                                                   gather_counters,
                                                    nthash_scan, scatter_add)
     from btl_bloomfilter_tpu_torch.models import counting
     from btl_bloomfilter_tpu_torch.ops import nthash_tables, u64
+    from btl_bloomfilter_tpu_torch.ops.replay import replay_depth
 
-    plain = dict(gather=gather_counters.gather_counters_plain,
-                 scatter=scatter_add.scatter_add_plain)
-    err = {"gather_counters": 0, "scatter_add": 0}
+    plain = dict(step=conservative_step.conservative_step_plain)
+    err = {"gather_counters": 0, "scatter_add": 0, "conservative_step": 0}
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
@@ -254,12 +263,26 @@ def counting_phases(dev: torch.device, card_line: str):
         [n], as insert_positions takes them."""
         return pos.reshape(H, -1).T, pos[0].reshape(-1) != -1
 
+    def step_inputs(pos, group):
+        """The conservative steps of one batch's decomposition (positions
+        int32 [h, B, W]): the closed-form rows (pos int32 [h, n], c int64
+        [n]; every other row the sentinel) and the first replay round."""
+        p = u64.from_u32_bits(pos).reshape(pos.shape[0], -1)
+        ks, closed, closed_c, ent = counting._decompose(p, group)
+        rest = p[:, ent]
+        rows = rest[:, replay_depth(rest) == 1] if rest.shape[1] else rest
+        return ((u64.to_u32_bits(torch.where(closed, ks, _build.SENTINEL)),
+                 closed_c),
+                (u64.to_u32_bits(rows),
+                 torch.ones(rows.shape[1], dtype=torch.int64, device=dev)))
+
     # ---- 6a. kernels against their plain versions, full shape ----------
     rng = np.random.default_rng(SEED + 3)
     first = make_codes(rng, rows=CB)
     second = np.concatenate([first[: CB // 2],
                              make_codes(rng, rows=CB - CB // 2)])
     codes = torch.from_numpy(first).to(dev)
+    twice = torch.from_numpy(np.concatenate([first[: CB // 2]] * 2)).to(dev)
     for width in C_WIDTHS:
         cbf = counting.create(C_BYTES, H, K, 1, counter_width=width,
                               device=dev)
@@ -287,7 +310,29 @@ def counting_phases(dev: torch.device, card_line: str):
             err["scatter_add"] = max(err["scatter_add"], require_equal(
                 f"width {width} scatter_add {what}", wk, wp))
             del wk, wp
-        del words, inc, big
+        tpos, _s, _v = nthash_scan.positions_planes(twice, K, H, size)
+        steps = []
+        for what, fpos, group in (("ungrouped", pos, False),
+                                  ("grouped, reads twice", tpos, True)):
+            closed_form, replay_round = step_inputs(fpos, group)
+            for name, (sp, sc) in (("closed form", closed_form),
+                                   ("replay round 1", replay_round)):
+                wk = conservative_step.conservative_step(
+                    words.clone(), sp, sc, shift, cmax)
+                wp = conservative_step.conservative_step_plain(
+                    words.clone(), sp, sc, shift, cmax)
+                err["conservative_step"] = max(
+                    err["conservative_step"], require_equal(
+                        f"width {width} {what} conservative_step {name}",
+                        wk, wp))
+                live = int((sp[0] != -1).sum())
+                steps.append(f"{what} {name}: {live} live frames, max c "
+                             f"{int(sc.max()) if sc.numel() else 0}, "
+                             f"{int((wk != words).sum())} words changed")
+                del wk, wp
+        log(f"[6a] width {width}: conservative_step kernel == plain "
+            f"(bitwise): " + "; ".join(steps))
+        del words, inc, big, tpos
         for group in (True, False):
             wk = torch.zeros(cbf.nwords, dtype=torch.int32, device=dev)
             wp = torch.zeros_like(wk)
@@ -305,7 +350,8 @@ def counting_phases(dev: torch.device, card_line: str):
             nz = int((wk != 0).sum())
             del wk, wp, bpos, p, v
         log(f"[6a] width {width}: gather_counters (vals, min, hit), "
-            f"scatter_add (unit, weighted) and the conservative insert of "
+            f"scatter_add (unit, weighted), conservative_step and the "
+            f"conservative insert of "
             f"two {CB}x{L} batches (grouped and not) kernel == plain "
             f"(bitwise); {nz} nonzero words after the insert")
         del cbf, pos
@@ -363,11 +409,22 @@ def counting_phases(dev: torch.device, card_line: str):
         hit, valid = counting.contains_seq(cbf, c)
         f_valid += int(valid.sum())
         f_hit += int(hit.sum())
+    # incrementAll of one batch into a second filter
+    cbf_all = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
+    hashes, _s, hvalid = nthash_scan.hash_frames_planes(
+        torch.from_numpy(batches[0]).to(dev), K, H)
+    hashes = hashes.movedim(0, -1)
+    counting.insert_all(cbf_all, hashes, hvalid)
+    all_ok = bool((counting.min_count(cbf_all, hashes)[hvalid] >= 1).all())
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
     log(f"[6c] launches on the counting main path: {launches}")
-    for name in ("nthash_scan", "gather_counters", "scatter_add"):
+    if not all_ok:
+        raise AssertionError("a valid window put in by insert_all reads 0")
+    del cbf_all, hashes, hvalid
+    for name in ("nthash_scan", "gather_counters", "conservative_step",
+                 "scatter_add"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the counting "
                                  f"main path: {launches}")
@@ -377,7 +434,8 @@ def counting_phases(dev: torch.device, card_line: str):
         f"windows in the first {N_C_INSERT}) in {secs:.3f} s with the "
         f"queries; every valid window reads >= 1 (>= 2 after its batch "
         f"went in again); fresh-read hit fraction {frac} ({f_hit}/"
-        f"{f_valid}), bound {bound}; pop {counting.pop_count(cbf)}")
+        f"{f_valid}), bound {bound}; pop {counting.pop_count(cbf)}; "
+        f"insert_all: every valid window of its batch reads >= 1")
     if not frac < bound:
         raise AssertionError("fresh-read hit fraction outside the FPR band")
     del cbf, mc, valid, hit
@@ -423,8 +481,14 @@ def counting_phases(dev: torch.device, card_line: str):
             "card == tests/golden")
 
     # ---- 6e. times -------------------------------------------------------
-    codes = torch.from_numpy(np.random.default_rng(0).integers(
-        0, 4, size=(CB, L), dtype=np.uint8)).to(dev)
+    from btl_bloomfilter_tpu_torch.tools.profile_mibf import (profile,
+                                                              stage_times)
+
+    rng = np.random.default_rng(0)
+    codes = torch.from_numpy(rng.integers(0, 4, size=(CB, L),
+                                          dtype=np.uint8)).to(dev)
+    fresh = torch.from_numpy(rng.integers(0, 4, size=(CB, L),
+                                          dtype=np.uint8)).to(dev)
     kmers = CB * W
     cbf = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
     words_p = torch.zeros_like(cbf.counters)
@@ -454,7 +518,18 @@ def counting_phases(dev: torch.device, card_line: str):
         raise AssertionError("kernel and plain counting filters differ "
                              "after phase 6e")
     pos, _s, _v = nthash_scan.positions_planes(codes, K, H, size)
+    fpos, _s, _v = nthash_scan.positions_planes(fresh, K, H, size)
     wk = cbf.counters
+    for what, qpos in (("inserted", pos), ("fresh", fpos)):
+        hits = int(gather_counters.gather_counters(wk, qpos, 2, "hit",
+                                                   1).sum())
+        t = median_ms(lambda: gather_counters.gather_counters(
+            wk, qpos, 2, "hit", 1))
+        log(f"[6e] gather_counters hit, {what} reads ({hits}/"
+            f"{qpos[0].numel()} hit): {t:.4f} ms ({card_line})")
+    (cpos, cc), _ = step_inputs(pos, False)
+    c_live = int((cpos[0] != -1).sum())
+    cw_k, cw_p = wk.clone(), wk.clone()
     ms = {
         "gather_counters": (
             median_ms(lambda: gather_counters.gather_counters(
@@ -465,22 +540,69 @@ def counting_phases(dev: torch.device, card_line: str):
             median_ms(lambda: scatter_add.scatter_add(wk, pos, 2, cmax)),
             median_ms(lambda: scatter_add.scatter_add_plain(words_p, pos, 2,
                                                             cmax))),
+        "conservative_step": (
+            median_ms(lambda: conservative_step.conservative_step(
+                cw_k, cpos, cc, 2, cmax)),
+            median_ms(lambda: conservative_step.conservative_step_plain(
+                cw_p, cpos, cc, 2, cmax), C_REPS, C_INNER)),
     }
-    vals_ms = (median_ms(lambda: gather_counters.gather_counters(
-        wk, pos, 2, "vals")), median_ms(
-        lambda: gather_counters.gather_counters_plain(wk, pos, 2, "vals")))
     n_words = distinct_words(pos, 2)
     bounds = {
+        # positions in, hits out; each distinct word read once
         "gather_counters": bound_ms(4 * pos.numel() + pos[0].numel()
                                     + 4 * n_words),
-        "scatter_add": bound_ms(4 * pos.numel() + 8 * n_words)}
+        # positions in; each distinct word read and written once
+        "scatter_add": bound_ms(4 * pos.numel() + 8 * n_words),
+        # slot 0 of every frame in; the other slots and c of each live
+        # frame in (a frame whose slot 0 is the sentinel stops there); each
+        # distinct word of a live frame read and written once
+        "conservative_step": bound_ms(4 * cpos.shape[1] + (
+            4 * (cpos.shape[0] - 1) + 8) * c_live
+            + 8 * distinct_words(cpos, 2))}
     for name, (tk, tp) in ms.items():
         log(f"[6e] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
             f"{bounds[name]:.4f} ms ({CB}x{L}, k={K}, h={H}, 2**30 u8 "
             f"counters; {card_line})")
-    log(f"[6e] gather_counters vals: kernel {vals_ms[0]:.4f} ms, plain "
-        f"{vals_ms[1]:.4f} ms ({card_line})")
-    del cbf, words_p, wk, pos
+    log(f"[6e] conservative_step at the closed form: "
+        f"{c_live} live of {cpos.shape[1]} frames")
+    del cw_k, cw_p, words_p, cpos, cc, fpos
+
+    # the ungrouped insert by stage, on a fresh filter, and its idle share
+    cbf_s = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
+    step = counting._packed_step(cbf_s.counters, 4, cmax)
+    st = {}
+
+    def hash_stage():
+        st["pos"], _s, _v = nthash_scan.positions_planes(codes, K, H, size)
+
+    def decompose_stage():
+        p = u64.from_u32_bits(st["pos"]).reshape(H, -1)
+        st["p"] = p
+        st["d"] = counting._decompose(p, False)
+        if st["d"][3].numel() > counting._entangled_cap(p.shape[1], H, size,
+                                                       None):
+            raise AssertionError("the batch overflows the replay buffer")
+
+    def closed_stage():
+        ks, closed, closed_c, _ent = st["d"]
+        step(ks, closed_c, closed)
+
+    def replay_stage():
+        counting._replay(step, st["p"][:, st["d"][3]])
+
+    stage_ms = stage_times([("hash", hash_stage),
+                            ("decompose", decompose_stage),
+                            ("closed form", closed_stage),
+                            ("replay", replay_stage)], C_REPS)
+    busy, wall, top = profile(lambda: counting.insert_seq(
+        cbf_s, codes, group_duplicates=False), C_REPS)
+    log("[6e] ungrouped insert by stage (host clock around a synchronize): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+        + f"; under torch.profiler: busy {busy:.4f} ms of {wall:.4f} ms, "
+        f"idle share {1 - busy / wall:.4f} ({card_line})")
+    log("[6e] top kernels of the insert: " + "; ".join(
+        f"{k} {t:.4f} ms x{n}" for k, t, n in top))
+    del cbf, cbf_s, wk, pos, st
     torch.cuda.empty_cache()
     return err, ms, launches, bounds
 
@@ -1364,6 +1486,11 @@ def main() -> None:
         {"name": "dma_sweep", "route": "cuda",
          "source": src + "dma_sweep.cu",
          "replaces": "bench/partition_probe.py:132"},
+        {"name": "conservative_step", "route": "cuda",
+         "source": src + "conservative_step.cu",
+         "replaces": "btl_bloomfilter_tpu/models/counting.py:699 and "
+                     "btl_bloomfilter_tpu/models/counting.py:389, on the "
+                     "path of btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
     ]}
     for r in record["kernels"]:
         # library: torch.sort on the block view for the sorts, copy_ for the

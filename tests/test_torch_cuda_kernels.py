@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from btl_bloomfilter_tpu_torch import kernels
-from btl_bloomfilter_tpu_torch.kernels import (gather_counters, gather_words,
+from btl_bloomfilter_tpu_torch.kernels import (conservative_step,
+                                               gather_counters, gather_words,
                                                nthash_scan, scatter_add,
                                                scatter_or)
 from btl_bloomfilter_tpu_torch.models import bloom, counting, kmer_bloom
@@ -157,6 +158,79 @@ def test_gather_counters_kernel_matches_plain(dev, shift, nwords):
     assert gather_counters.KERNEL.launches == before + 5
 
 
+@pytest.mark.parametrize("h", [1, 4, 7, 8, 9, 11, 17])
+def test_gather_counters_load_groups_match_plain(dev, h):
+    """Every mode gives the plain result for h below, at and above the
+    kernel's group of 8 loads, hit mode's lone first load included."""
+    rng = np.random.default_rng(h)
+    nwords, shift = 4096, 2
+    words = random_words(nwords, h).to(dev)
+    pos = rng.integers(0, (nwords << shift) + 50, size=(h, 3, 5000),
+                       dtype=np.uint64)
+    pos[:, rng.random((3, 5000)) < 0.1] = 0xFFFFFFFF
+    pos[rng.random((h, 3, 5000)) < 0.02] = 0xFFFFFFFF
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    for out, thr in (("vals", 0), ("min", 0), ("hit", 60), ("hit", 200)):
+        got = gather_counters.gather_counters(words, pos, shift, out, thr)
+        assert torch.equal(got, gather_counters.gather_counters_plain(
+            words, pos, shift, out, thr))
+
+
+def disjoint_frames(rng, ncount, h, m):
+    """Position-disjoint frames uint32 [h, m]: a live frame owns 1..h
+    counters and repeats some of them in its other slots (in-frame
+    duplicates, slots shuffled); a dead frame, or one past the counters,
+    holds the sentinel in every slot."""
+    k = rng.integers(1, min(h, ncount) + 1, size=m)
+    k[rng.random(m) >= 0.8] = 0
+    k[np.cumsum(k) > ncount] = 0
+    live = k > 0
+    own = rng.permutation(ncount)[:int(k.sum())]
+    start = np.cumsum(k) - k
+    j = np.arange(h)[None, :]
+    extra = (rng.random((m, h)) * np.maximum(k, 1)[:, None]).astype(np.int64)
+    pick = np.where(j < k[:, None], j, extra)
+    pick = np.take_along_axis(pick, np.argsort(rng.random((m, h)), axis=1),
+                              axis=1)
+    pos = own[np.minimum(start[:, None] + pick, len(own) - 1)]
+    return np.where(live[:, None], pos, 0xFFFFFFFF).astype(np.uint32).T, live
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("nwords", [1, 37, 1 << 18])
+@pytest.mark.parametrize("h", [1, 4, 7, 11])
+def test_conservative_step_kernel_matches_plain(dev, shift, nwords, h):
+    """Position-disjoint frames with in-frame duplicates and sentinel
+    frames, repeat counts from 1 to past the headroom, words preloaded with
+    frozen and nearly full counters (h = 11 runs the scratch loop)."""
+    rng = np.random.default_rng(nwords * 7 + shift * 3 + h)
+    bits = 32 >> shift
+    cmax = (1 << bits) - 1
+    ncount = nwords << shift
+    m = 30_000
+    pos, live = disjoint_frames(rng, ncount, h, m)
+    vals = rng.integers(0, cmax + 1, size=ncount, dtype=np.uint64)
+    hot = pos[:, rng.random(m) < 0.3]
+    hot = hot[hot != 0xFFFFFFFF]
+    vals[hot] = cmax - rng.integers(0, 3, size=hot.size)
+    lane = {0: "<u4", 1: "<u2", 2: "<u1"}[shift]
+    words = torch.from_numpy(vals.astype(lane).view("<i4")
+                             .astype(np.int32)).to(dev)
+    c = rng.choice(np.array([1, 1, 2, 5, 255, 300, 65535, 1 << 20,
+                             (1 << 32) + 3], np.int64), size=m)
+    pos_t = torch.from_numpy(pos.view(np.int32)).to(dev)
+    c_t = torch.from_numpy(c).to(dev)
+    for cc in (c_t, torch.ones_like(c_t)):
+        before = conservative_step.KERNEL.launches
+        got = conservative_step.conservative_step(words.clone(), pos_t, cc,
+                                                  shift, cmax)
+        assert conservative_step.KERNEL.launches == before + 1
+        ref = conservative_step.conservative_step_plain(words.clone(), pos_t,
+                                                        cc, shift, cmax)
+        assert torch.equal(got, ref)
+        assert live.any() and not torch.equal(got, words)
+
+
 @pytest.mark.parametrize("shift", [0, 1, 2])
 @pytest.mark.parametrize("nwords", [1, 37, 1 << 18])
 def test_scatter_add_kernel_matches_plain(dev, shift, nwords):
@@ -240,8 +314,11 @@ def test_counting_on_cuda_matches_cpu(dev, width, group, size_bytes, repeat,
     counts = kernels.launch_counts()
     if width == 8:
         assert counts["gather_counters"] == counts["scatter_add"] == 0
+        assert counts["conservative_step"] == 0
     else:
-        assert counts["gather_counters"] >= 3 and counts["scatter_add"] >= 2
+        # the insert: the closed form and at least one replay round
+        assert counts["conservative_step"] >= 2
+        assert counts["gather_counters"] >= 2 and counts["scatter_add"] >= 1
 
 
 def test_counting_seq_on_cuda_matches_cpu(dev):
