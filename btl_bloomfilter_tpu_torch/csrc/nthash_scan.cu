@@ -12,20 +12,24 @@
 //   fh(p) = XOR_j srol^{k-1-j}(seed(s[p+j])),  rh(p) = XOR_j srol^{j}(rcseed(s[p+j]))
 //
 // from per-block tables of the pre-rotated seeds (5 codes x k offsets, in
-// shared memory), with native uint64_t arithmetic.
+// shared memory), with native uint64_t arithmetic. Any k >= 1: the block
+// walks the k offsets in pieces of KPIECE, rebuilding the two tables and
+// the code tile for each piece, so shared memory stays at 10,623 bytes
+// whatever k is. srol^t has period lcm(33, 31) = 1023 in t, which the
+// exponents k - 1 - j and j pass for k > 1023.
 //
 // What bounds it on the H100: the output. At 512 reads x 2048 bases, k=31,
 // h=4, it writes 16 B of positions (or 32 B of hashes) plus 2 B of flags per
 // window against 1 B of codes read. The 2k shared-memory table lookups per
 // window are the compute side. Design: one block per (read, 256-window
-// tile); the tile's codes are staged in shared memory once; thread t writes
-// window t of the tile, so every store of every h-plane is coalesced. The
-// mod by a non-power-of-two size is a Barrett multiply (magic from the
-// host), a mask for a power of two.
+// tile); the tile's codes are staged in shared memory, once for k <= 128;
+// thread t writes window t of the tile, so every store of every h-plane is
+// coalesced. The mod by a non-power-of-two size is a Barrett multiply
+// (magic from the host), a mask for a power of two.
 
 #include "common.cuh"
 
-#define MAX_K 128
+#define KPIECE 128                   // offsets per table piece
 #define NUM_CODES 5
 
 __constant__ uint64_t kSeeds[4] = {
@@ -59,6 +63,9 @@ __device__ __forceinline__ uint32_t mod_size(uint64_t v, uint64_t size,
     return (uint32_t)r;
 }
 
+// PIECES is false for k <= KPIECE: one piece, compiled as a straight line
+// so that short k keeps the per-window cost of a kernel with one table.
+template <bool PIECES>
 __global__ void __launch_bounds__(BTL_BLOCK)
 nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
                    long long L, int k, int h, long long W,
@@ -66,39 +73,46 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
                    uint64_t size, uint64_t magic, int shift,
                    void* __restrict__ out, bool* __restrict__ strand,
                    bool* __restrict__ valid) {
-    __shared__ uint64_t tf[MAX_K * NUM_CODES];
-    __shared__ uint64_t tr[MAX_K * NUM_CODES];
-    __shared__ uint8_t sc[BTL_BLOCK + MAX_K];
+    __shared__ uint64_t tf[KPIECE * NUM_CODES];
+    __shared__ uint64_t tr[KPIECE * NUM_CODES];
+    __shared__ uint8_t sc[BTL_BLOCK + KPIECE - 1];
 
     const long long b = blockIdx.x / tiles_per_row;
     const long long p0 = (blockIdx.x % tiles_per_row) * BTL_BLOCK;
-
-    // tf[j][c] = srol^{k-1-j}(seed c), tr[j][c] = srol^{j}(rcseed c); N -> 0
-    for (int i = threadIdx.x; i < k * NUM_CODES; i += blockDim.x) {
-        int j = i / NUM_CODES, c = i % NUM_CODES;
-        tf[i] = c < 4 ? srol_pow(kSeeds[c], (unsigned)(k - 1 - j)) : 0;
-        tr[i] = c < 4 ? srol_pow(kSeeds[3 - c], (unsigned)j) : 0;
-    }
-    long long nload = L - p0;
-    if (nload > BTL_BLOCK + k - 1) nload = BTL_BLOCK + k - 1;
-    const uint8_t* row = codes + b * L + p0;
-    for (int i = threadIdx.x; i < nload; i += blockDim.x) {
-        uint8_t c = row[i];
-        sc[i] = c < 4 ? c : 4;
-    }
-    __syncthreads();
-
     const long long p = p0 + threadIdx.x;
-    if (p >= W) return;
+    const uint8_t* row = codes + b * L + p0;
 
     uint64_t fh = 0, rh = 0;
     int n_count = 0;
-    for (int j = 0; j < k; ++j) {
-        int c = sc[threadIdx.x + j];
-        fh ^= tf[j * NUM_CODES + c];
-        rh ^= tr[j * NUM_CODES + c];
-        n_count += (c == 4);
+    for (int j0 = 0; j0 < (PIECES ? k : 1); j0 += KPIECE) {
+        const int kp = !PIECES ? k : k - j0 < KPIECE ? k - j0 : KPIECE;
+        if (PIECES && j0) __syncthreads();   // the last piece's tables read
+        // tf[j][c] = srol^{k-1-j}(seed c), tr[j][c] = srol^{j}(rcseed c)
+        // for the piece's offsets j = j0 + jj; N -> 0
+        for (int i = threadIdx.x; i < kp * NUM_CODES; i += blockDim.x) {
+            const int j = j0 + i / NUM_CODES, c = i % NUM_CODES;
+            tf[i] = c < 4 ? srol_pow(kSeeds[c], (unsigned)(k - 1 - j)) : 0;
+            tr[i] = c < 4 ? srol_pow(kSeeds[3 - c], (unsigned)j) : 0;
+        }
+        long long nload = L - p0 - j0;
+        if (nload > BTL_BLOCK + kp - 1) nload = BTL_BLOCK + kp - 1;
+        for (int i = threadIdx.x; i < nload; i += blockDim.x) {
+            const uint8_t c = row[j0 + i];
+            sc[i] = c < 4 ? c : 4;
+        }
+        __syncthreads();
+        if (!PIECES && p >= W) return;
+        if (p < W) {
+            for (int jj = 0; jj < kp; ++jj) {
+                const int c = sc[threadIdx.x + jj];
+                fh ^= tf[jj * NUM_CODES + c];
+                rh ^= tr[jj * NUM_CODES + c];
+                n_count += (c == 4);
+            }
+        }
     }
+    if (p >= W) return;
+
     const bool st = rh < fh;           // canonical tie-break: rh < fh
     const uint64_t canon = st ? rh : fh;
     const bool ok = n_count == 0;
@@ -124,8 +138,8 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
 }
 
 // codes uint8 [B, L] -> out [h, B, W] (uint32 positions or uint64 hashes),
-// strand and valid bool [B, W], W = L - k + 1. Requires 1 <= k <= 128,
-// L >= k, h >= 1; in positions mode 1 <= size < 2**32.
+// strand and valid bool [B, W], W = L - k + 1. Requires k >= 1, L >= k,
+// h >= 1; in positions mode 1 <= size < 2**32.
 extern "C" int btl_nthash_scan(const void* codes, long long B, long long L,
                                int k, int h, int positions_mode,
                                unsigned long long size,
@@ -137,8 +151,9 @@ extern "C" int btl_nthash_scan(const void* codes, long long B, long long L,
     const long long W = L - k + 1;
     const long long tiles = (W + BTL_BLOCK - 1) / BTL_BLOCK;
     if (B <= 0 || W <= 0) return (int)cudaGetLastError();
-    nthash_scan_kernel<<<(unsigned)(B * tiles), BTL_BLOCK, 0,
-                         (cudaStream_t)stream>>>(
+    auto kernel = k > KPIECE ? nthash_scan_kernel<true>
+                             : nthash_scan_kernel<false>;
+    kernel<<<(unsigned)(B * tiles), BTL_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)codes, B, L, k, h, W, tiles, positions_mode,
         (uint64_t)size, (uint64_t)magic, shift, out, (bool*)strand,
         (bool*)valid);

@@ -13,7 +13,8 @@
     target and a carry-free atomicAdd per lane in one pass): the insert's
     closed form and replay rounds
   * ``mibf_rank``    - MIBF rank, hit and ID of bit positions
-  * ``mibf_frame_scan`` - MIBF classification's sequential per-read pass
+  * ``mibf_frame_scan`` - MIBF classification's per-read pass C, as prefix
+    scans
   * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
   * ``window_scatter`` - static-window Bloom scatter in shared memory
   * ``dma_sweep``    - chunked copy sweep

@@ -23,7 +23,6 @@ from ..ops import nthash, nthash_tables as T, u64
 from . import _build
 from ._build import SENTINEL
 
-MAX_K = 128
 KERNEL = _build.CudaKernel("btl_nthash_scan", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong,
@@ -77,8 +76,6 @@ def positions_planes_plain(codes: torch.Tensor, k: int, h: int, size: int):
 # ---------------------------------------------------------------------------
 
 def _launch(codes: torch.Tensor, k: int, h: int, size):
-    if k > MAX_K:
-        raise ValueError(f"the CUDA kernel supports k <= {MAX_K}, got {k}")
     if codes.dtype != torch.uint8:
         codes = codes.clamp(0, T.CODE_N).to(torch.uint8)
     codes = codes.contiguous()

@@ -9,7 +9,9 @@ flat sort itself; the port of ``bench/partition_probe.py``.
   2. copy sweep: ``nsteps`` blocks each copying ``k`` chunks of ``rows *
      512`` bytes (``kernels/dma_sweep.py``), the per-(chunk, bucket) write
      pattern of a bucket partition, swept over k and the chunk size; the
-     source is seeded random data, so a wrong copy shows;
+     source is seeded random data, so a wrong copy shows. The CUDA kernel
+     copies a step's k chunks as one span, so on the card the sweep's time
+     depends on its total bytes and not on k;
   3. the flat ``torch.sort`` of all N = 2**22 keys, for reference.
 
 A B-bucket stable partition of N keys makes about N / 1024 * B small

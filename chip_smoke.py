@@ -12,7 +12,8 @@ counters, batches of 3072 reads x 2048 bases):
 
   1. device: card name and power limit, kernel build time;
   2. each kernel against its plain PyTorch version on the card, bitwise, at
-     filter sizes 2**30 and 2**32-64 (not a power of two);
+     filter sizes 2**30 and 2**32-64 (not a power of two); ntHash also at
+     k=129 and k=1 in both modes;
   3. the main path through api.BloomPipeline: 16 batches inserted, the same
      reads queried (every valid window must hit), 4 fresh batches queried
      (hit fraction inside the FPR band), the .bf store/load round trip, the
@@ -85,9 +86,12 @@ counters, batches of 3072 reads x 2048 bases):
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel record {"kernels": [...]}, each kernel with its launches on
-its main path, its largest difference from the plain version, its time,
-the plain version's, the time of one PyTorch call computing the same
-function where there is one, and its bound: the bytes it must move (each
+its main path, its largest difference from the plain version, its time as
+the host issues back-to-back calls (``ms``) and on the card, the calls
+queued while the card spins so that the host's cost of issuing them is
+left out (``card_ms``), the plain version's time, the time of one PyTorch
+call computing the same function where there is one (``library_ms``, and
+``library_card_ms`` queued), and its bound: the bytes it must move (each
 input read once, each output written once; for a gather or an in-place
 scatter only the distinct words this run touches) over the card's 3.35
 TB/s.
@@ -106,8 +110,11 @@ import time
 import numpy as np
 import torch
 
+from btl_bloomfilter_tpu_torch.tools.timing import kernel_times, median_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K, H = 31, 4
+K_EDGES = (129, 1)       # k past one piece of the hash kernel's tables, and 1
 B, L = 512, 2048
 CB = 3072                # counting batch (bench.py:158)
 C_BYTES = 1 << 30        # counting filter: 2**30 one-byte counters
@@ -119,7 +126,6 @@ MAIN_SIZE = 1 << 30
 CHECK_SIZES = (1 << 30, (1 << 32) - 64)
 N_INSERT, N_FRESH = 16, 4
 N_FRAC = 0.02
-REPS, INNER = 7, 20
 SEED = 0
 # MIBF: bench.py's config (7a, 7b, 7e) is btl_bloomfilter_tpu_torch/tools/
 # profile_mibf.py's; the occupancy-0.5 build at the size users build (7c)
@@ -220,24 +226,14 @@ def distinct_words(pos: torch.Tensor, shift: int) -> int:
     return int(torch.unique(p[p != 0xFFFFFFFF] >> shift).numel())
 
 
-def median_ms(fn, reps: int = REPS, inner: int = INNER) -> float:
-    """Milliseconds per call: the median over reps of CUDA-event time
-    around ``inner`` back-to-back calls, divided by ``inner``, after a
-    warm-up call. Back-to-back calls let the host issue the next call while
-    the card runs this one, as a batch loop does."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return float(np.median(times))
+def sector_floors(floors: dict, what: str, card_line: str) -> None:
+    """Log the sector floor of each random-access kernel: the bytes it
+    streams plus 32 B for every distinct 32-byte sector it reads and every
+    one it writes, over the card's memory rate (a random access moves a
+    whole sector)."""
+    log(f"[{what}] sector floors: " + ", ".join(
+        f"{k} {bound_ms(v):.4f} ms" for k, v in floors.items())
+        + f" ({card_line})")
 
 
 def counting_phases(dev: torch.device, card_line: str):
@@ -523,7 +519,7 @@ def counting_phases(dev: torch.device, card_line: str):
     for what, qpos in (("inserted", pos), ("fresh", fpos)):
         hits = int(gather_counters.gather_counters(wk, qpos, 2, "hit",
                                                    1).sum())
-        t = median_ms(lambda: gather_counters.gather_counters(
+        t = kernel_times(lambda: gather_counters.gather_counters(
             wk, qpos, 2, "hit", 1))
         log(f"[6e] gather_counters hit, {what} reads ({hits}/"
             f"{qpos[0].numel()} hit): {t:.4f} ms ({card_line})")
@@ -532,16 +528,17 @@ def counting_phases(dev: torch.device, card_line: str):
     cw_k, cw_p = wk.clone(), wk.clone()
     ms = {
         "gather_counters": (
-            median_ms(lambda: gather_counters.gather_counters(
+            kernel_times(lambda: gather_counters.gather_counters(
                 wk, pos, 2, "hit", 1)),
             median_ms(lambda: gather_counters.gather_counters_plain(
                 wk, pos, 2, "hit", 1))),
         "scatter_add": (
-            median_ms(lambda: scatter_add.scatter_add(wk, pos, 2, cmax)),
+            kernel_times(lambda: scatter_add.scatter_add(wk, pos, 2,
+                                                         cmax)),
             median_ms(lambda: scatter_add.scatter_add_plain(words_p, pos, 2,
                                                             cmax))),
         "conservative_step": (
-            median_ms(lambda: conservative_step.conservative_step(
+            kernel_times(lambda: conservative_step.conservative_step(
                 cw_k, cpos, cc, 2, cmax)),
             median_ms(lambda: conservative_step.conservative_step_plain(
                 cw_p, cpos, cc, 2, cmax), C_REPS, C_INNER)),
@@ -559,6 +556,13 @@ def counting_phases(dev: torch.device, card_line: str):
         "conservative_step": bound_ms(4 * cpos.shape[1] + (
             4 * (cpos.shape[0] - 1) + 8) * c_live
             + 8 * distinct_words(cpos, 2))}
+    n_sect = distinct_words(pos, 5)
+    sector_floors({
+        "gather_counters": 4 * pos.numel() + pos[0].numel() + 32 * n_sect,
+        "scatter_add": 4 * pos.numel() + 64 * n_sect,
+        "conservative_step": 4 * cpos.shape[1] + (
+            4 * (cpos.shape[0] - 1) + 8) * c_live
+            + 64 * distinct_words(cpos, 5)}, "6e", card_line)
     for name, (tk, tp) in ms.items():
         log(f"[6e] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
             f"{bounds[name]:.4f} ms ({CB}x{L}, k={K}, h={H}, 2**30 u8 "
@@ -766,16 +770,17 @@ def mibf_phases(dev: torch.device, card_line: str):
     bv, cum, data = m.bv_words, m.cum_ranks, m.data
     ms = {
         "mibf_rank": (
-            median_ms(lambda: mibf_rank.rank_lookup(bv, cum, qpos, data)),
+            kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, qpos,
+                                                       data)),
             median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, qpos,
                                                           data))),
         "mibf_frame_scan": (
-            median_ms(lambda: mibf_frame_scan.frame_scan(*args)),
+            kernel_times(lambda: mibf_frame_scan.frame_scan(*args)),
             median_ms(lambda: mibf_frame_scan.frame_scan_plain(*args), 1,
                       1)),
     }
     build_rank = (
-        median_ms(lambda: mibf_rank.rank_lookup(bv, cum, bpos)),
+        kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, bpos)),
         median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, bpos)))
     hits = mibf_rank.rank_lookup(bv, cum, qpos)[1]
     n_q, n_b = qpos.numel(), bpos.numel()
@@ -794,6 +799,14 @@ def mibf_phases(dev: torch.device, card_line: str):
             + args[0].shape[0] * args[0].shape[1] * (1 + 1 + 1 + 4 + 1)
             + args[0].shape[0] * 32)}
     build_bound = bound_ms(9 * n_b + 8 * distinct_words(bpos, 5))
+    # bv and cum_ranks share their sector index (one cum word a bv word);
+    # 16 two-byte IDs to a sector
+    sector_floors({
+        "mibf_rank rank + ID": 13 * n_q + 64 * distinct_words(qpos, 8)
+        + 32 * int(torch.unique(mibf_rank.rank_lookup(bv, cum, qpos)[0]
+                                [hits] >> 4).numel()),
+        "mibf_rank rank only (build)": 9 * n_b
+        + 64 * distinct_words(bpos, 8)}, "7e", card_line)
     log(f"[7e] mibf_rank rank only at the build's {n_b} positions: kernel "
         f"{build_rank[0]:.4f} ms, plain {build_rank[1]:.4f} ms, bound "
         f"{build_bound:.4f} ms ({card_line})")
@@ -1025,7 +1038,7 @@ def probe_phases(dev: torch.device, card_line: str):
             raise AssertionError(f"{name} reported an overflow")
         err[name] = require_equal(f"8a {name}", got, ref)
         del got, ref
-        ms[name] = (median_ms(lambda: fn(words_k, pos_d, pos_s)),
+        ms[name] = (kernel_times(lambda: fn(words_k, pos_d, pos_s)),
                     median_ms(lambda: plain(words_p, pos_d), 3, 5))
     n_pos, n_words = pos_d.numel(), distinct_words(pos_d, 5)
     # positions in; in place each distinct word read and written once, the
@@ -1034,8 +1047,9 @@ def probe_phases(dev: torch.device, card_line: str):
     bounds["scatter_or_sorted_delta"] = bound_ms(4 * n_pos
                                                  + 8 * start.numel())
     pos, _s, _v = nthash_scan.positions_planes(res["codes"], K, H, MAIN_SIZE)
-    unsorted_ms = median_ms(lambda: scatter_or.scatter_or(words_k, pos))
-    sorted_ms = median_ms(lambda: scatter_or.scatter_or(words_k, pos_d))
+    unsorted_ms = kernel_times(lambda: scatter_or.scatter_or(words_k,
+                                                             pos))
+    sorted_ms = kernel_times(lambda: scatter_or.scatter_or(words_k, pos_d))
     prep_ms = median_ms(lambda: ring_probe.sorted_positions(res["codes"],
                                                             MAIN_SIZE))
     log(f"[8a] scatter_or_sorted and scatter_or_sorted_delta at the step's "
@@ -1060,9 +1074,10 @@ def probe_phases(dev: torch.device, card_line: str):
         "8b sort_blocks", vmem_sort.sort_blocks(x),
         vmem_sort.sort_blocks_plain(x))
     flipped = (x ^ vmem_sort.SIGN).reshape(-1, vmem_sort.BLOCK)
-    ms["sort_blocks"] = (median_ms(lambda: vmem_sort.sort_blocks(x)),
+    ms["sort_blocks"] = (kernel_times(lambda: vmem_sort.sort_blocks(x)),
                          median_ms(lambda: vmem_sort.sort_blocks_plain(x)))
-    library["sort_blocks"] = median_ms(lambda: torch.sort(flipped, dim=-1))
+    library["sort_blocks"] = kernel_times(lambda: torch.sort(flipped,
+                                                             dim=-1))
     bounds["sort_blocks"] = bound_ms(8 * x.numel())
     log(f"[8b] sort_blocks of {x.numel()} keys kernel == plain (bitwise); "
         f"probe: {json.dumps(res)} ({card_line})")
@@ -1076,9 +1091,10 @@ def probe_phases(dev: torch.device, card_line: str):
         vmem_sort.chunk_bitonic_plain(x))
     flipped = (x ^ vmem_sort.SIGN).reshape(-1, vmem_sort.CHUNK)
     ms["chunk_bitonic"] = (
-        median_ms(lambda: partition_probe.chunk_bitonic(x)),
+        kernel_times(lambda: partition_probe.chunk_bitonic(x)),
         median_ms(lambda: vmem_sort.chunk_bitonic_plain(x)))
-    library["chunk_bitonic"] = median_ms(lambda: torch.sort(flipped, dim=-1))
+    library["chunk_bitonic"] = kernel_times(lambda: torch.sort(flipped,
+                                                               dim=-1))
     bounds["chunk_bitonic"] = bound_ms(8 * x.numel())
     del x, flipped
     for k, rows in partition_probe.SWEEPS:
@@ -1096,9 +1112,9 @@ def probe_phases(dev: torch.device, card_line: str):
         if (k, rows) == DMA_ROW:
             dst = torch.empty_like(src)
             ms["dma_sweep"] = (
-                median_ms(lambda: copy(src)),
+                kernel_times(lambda: copy(src)),
                 median_ms(lambda: dma_sweep.sweep_copy_plain(src, k, rows)))
-            library["dma_sweep"] = median_ms(lambda: dst.copy_(src))
+            library["dma_sweep"] = kernel_times(lambda: dst.copy_(src))
             bounds["dma_sweep"] = bound_ms(8 * src.numel())
             del dst
         del got, src
@@ -1118,7 +1134,8 @@ def probe_phases(dev: torch.device, card_line: str):
             window_scatter.window_scatter_plain(idx, pos, start.clone(),
                                                 scatter)))
     ms["window_scatter"] = (
-        median_ms(lambda: window_scatter.window_scatter(idx, pos, words)),
+        kernel_times(lambda: window_scatter.window_scatter(idx, pos,
+                                                           words)),
         median_ms(lambda: window_scatter.window_scatter_plain(idx, pos,
                                                               words), 3, 5))
     # positions and chunk map in; each distinct word read and written once
@@ -1218,6 +1235,26 @@ def main() -> None:
                                  require_equal(f"hash mode {what}", a, b))
     log("[2] nthash_scan hash mode: kernel == plain (tolerance 0: all "
         "outputs are integers or bools, compared bitwise)")
+    for k in K_EDGES:
+        before = nthash_scan.KERNEL.launches
+        for what, got, ref in (
+                ("positions", nthash_scan.positions_planes(codes, k, H,
+                                                           MAIN_SIZE),
+                 nthash_scan.positions_planes_plain(codes, k, H, MAIN_SIZE)),
+                ("hashes", nthash_scan.hash_frames_planes(codes, k, H),
+                 nthash_scan.hash_frames_planes_plain(codes, k, H))):
+            for name, a, b in zip(("out", "strand", "valid"), got, ref):
+                err["nthash_scan"] = max(err["nthash_scan"], require_equal(
+                    f"k={k} {what} {name}", a, b))
+        if nthash_scan.KERNEL.launches != before + 2:
+            raise AssertionError(f"k={k}: nthash_scan did not launch once "
+                                 "a mode")
+        t = kernel_times(lambda: nthash_scan.positions_planes(codes, k, H,
+                                                           MAIN_SIZE))
+        log(f"[2] nthash_scan k={k}: positions and hash modes kernel == "
+            f"plain (bitwise), valid {int(got[2].sum())}/{got[2].numel()}; "
+            f"positions kernel {t:.4f} ms ({B}x{L}; {card_line})")
+        del got, ref
 
     for size in CHECK_SIZES:
         pk = nthash_scan.positions_planes(codes, K, H, size)
@@ -1258,15 +1295,15 @@ def main() -> None:
     words_p = words_k.clone()
     ms = {
         "nthash_scan": (
-            median_ms(lambda: nthash_scan.positions_planes(
+            kernel_times(lambda: nthash_scan.positions_planes(
                 codes, K, H, MAIN_SIZE)),
             median_ms(lambda: nthash_scan.positions_planes_plain(
                 codes, K, H, MAIN_SIZE))),
         "scatter_or": (
-            median_ms(lambda: scatter_or.scatter_or(words_k, pos)),
+            kernel_times(lambda: scatter_or.scatter_or(words_k, pos)),
             median_ms(lambda: scatter_or.scatter_or_plain(words_p, pos))),
         "gather_words": (
-            median_ms(lambda: gather_words.gather_words(words_k, pos)),
+            kernel_times(lambda: gather_words.gather_words(words_k, pos)),
             median_ms(lambda: gather_words.gather_words_plain(words_p,
                                                               pos))),
     }
@@ -1280,6 +1317,11 @@ def main() -> None:
         # positions in, hits out; each distinct word read once
         "gather_words": bound_ms(4 * pos.numel() + pos[0].numel()
                                  + 4 * n_words)}
+    n_sect = distinct_words(pos, 8)
+    sector_floors({
+        "scatter_or": 4 * pos.numel() + 64 * n_sect,
+        "gather_words": 4 * pos.numel() + pos[0].numel() + 32 * n_sect},
+        "2", card_line)
     for name, (tk, tp) in ms.items():
         log(f"[2] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
             f"{bounds[name]:.4f} ms ({B}x{L}, k={K}, h={H}, size 2**30; "
@@ -1495,10 +1537,12 @@ def main() -> None:
     for r in record["kernels"]:
         # library: torch.sort on the block view for the sorts, copy_ for the
         # sweep; no single PyTorch call computes the other functions
+        (kernel, plain), lib = ms[r["name"]], library.get(r["name"])
         r.update(launches=launches[r["name"]], max_abs_err=err[r["name"]],
-                 ms=ms[r["name"]][0], plain_ms=ms[r["name"]][1],
+                 ms=kernel.issued, card_ms=kernel.card, plain_ms=plain,
                  bound_ms=bounds[r["name"]], bound_by="bytes",
-                 library_ms=library.get(r["name"]))
+                 library_ms=lib and lib.issued,
+                 library_card_ms=lib and lib.card)
     log(f"card: {card_line}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from btl_bloomfilter_tpu_torch.kernels import (conservative_step,
                                                scatter_or)
 from btl_bloomfilter_tpu_torch.models import bloom, counting, kmer_bloom
 from btl_bloomfilter_tpu_torch.ops import u64
+from btl_bloomfilter_tpu_torch.probes import partition_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -47,22 +48,27 @@ SHAPES = [  # B, L, k, h, nfrac, size
     (7, 513, 64, 5, 0.3, 3),
     (2, 257, 33, 4, 0.0, 1),
     (4, 2048, 31, 4, 0.02, (1 << 32) - 64),
+    (3, 300, 1, 3, 0.1, 1 << 20),              # k == 1
+    (4, 700, 129, 4, 0.002, (1 << 32) - 64),   # two pieces of the tables
+    (3, 1500, 1024, 2, 0.0002, 1000),          # past srol's period of 1023
+    (2, 1400, 1025, 3, 0.0002, 3),
 ]
 
 
 @pytest.mark.parametrize("B,L,k,h,nfrac,size", SHAPES)
 def test_nthash_kernel_matches_plain(dev, B, L, k, h, nfrac, size):
     codes = random_codes(B, L, nfrac, B * L + k).to(dev)
-    before = nthash_scan.KERNEL.launches
-    for got, ref in [
-            (nthash_scan.positions_planes(codes, k, h, size),
-             nthash_scan.positions_planes_plain(codes, k, h, size)),
-            (nthash_scan.hash_frames_planes(codes, k, h),
-             nthash_scan.hash_frames_planes_plain(codes, k, h))]:
-        for a, b in zip(got, ref):
+    for kernel, plain in [
+            (lambda: nthash_scan.positions_planes(codes, k, h, size),
+             lambda: nthash_scan.positions_planes_plain(codes, k, h, size)),
+            (lambda: nthash_scan.hash_frames_planes(codes, k, h),
+             lambda: nthash_scan.hash_frames_planes_plain(codes, k, h))]:
+        before = nthash_scan.KERNEL.launches
+        got = kernel()
+        assert nthash_scan.KERNEL.launches == before + 1
+        for a, b in zip(got, plain()):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert torch.equal(a, b)
-    assert nthash_scan.KERNEL.launches == before + 2
 
 
 @pytest.mark.parametrize("nwords", [1, 37, 1 << 20])
@@ -408,24 +414,85 @@ def frame_scan_inputs(R, W, h, seed, valid_frac=0.9):
                              .astype(np.int32)))
 
 
-@pytest.mark.parametrize("R,W,h,efl,valid_frac", [
-    (1, 1, 1, 10**6, 1.0),
-    (70, 300, 4, 10**6, 0.9),
-    (33, 200, 3, 0, 0.9),        # the early exit at its tightest
-    (40, 100, 4, 2, 1.0),
-    (5, 50, 2, 10**6, 0.0),      # reads of all-invalid frames
-])
-def test_mibf_frame_scan_kernel_matches_plain(dev, R, W, h, efl, valid_frac):
+def check_frame_scan(dev, inputs, efl):
+    """The kernel against the plain version on inputs (CPU tensors), one
+    launch; returns the plain outputs."""
     from btl_bloomfilter_tpu_torch.kernels import mibf_frame_scan
-    inputs = frame_scan_inputs(R, W, h, R * W + h, valid_frac)
     before = mibf_frame_scan.KERNEL.launches
     got = mibf_frame_scan.frame_scan(*(t.to(dev) for t in inputs), efl)
     ref = mibf_frame_scan.frame_scan_plain(*inputs, efl)
     assert mibf_frame_scan.KERNEL.launches == before + 1
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
-    if efl == 0 and valid_frac:
+    return ref
+
+
+@pytest.mark.parametrize("R,W,h,efl,valid_frac", [
+    (1, 1, 1, 10**6, 1.0),
+    (70, 300, 4, 10**6, 0.9),
+    (33, 200, 3, 0, 0.9),        # the early exit at its tightest
+    (40, 100, 4, 2, 1.0),
+    (5, 50, 2, 10**6, 0.0),      # reads of all-invalid frames
+    # three chunks of 256 frames, the last one ragged
+    (20, 700, 4, -1, 0.9),
+    (20, 700, 4, 0, 0.9),
+    (20, 700, 4, 1, 0.7),
+    (12, 1000, 5, 10**6, 0.9),
+    (8, 300, 9, 10**6, 0.9),     # many slots a frame
+    (6, 520, 11, 0, 0.9),
+    (256, 2018, 4, 10**6, 0.9),  # the bench batch
+])
+def test_mibf_frame_scan_kernel_matches_plain(dev, R, W, h, efl, valid_frac):
+    inputs = frame_scan_inputs(R, W, h, R * W + h, valid_frac)
+    ref = check_frame_scan(dev, inputs, efl)
+    if efl <= 0 and valid_frac:
         assert not ref[1].all()          # some read stopped early
+
+
+@pytest.mark.parametrize("efl", [-1, 0, 1, 10**6])
+def test_mibf_frame_scan_read_that_never_promotes(dev, efl):
+    """One read among many has no slot at or above its min count: it
+    promotes nothing, and its best stays 0."""
+    inputs = list(frame_scan_inputs(9, 600, 4, 17, 0.9))
+    inputs[2] = inputs[2].clone()
+    inputs[2][4] = torch.iinfo(torch.int32).max
+    ref = check_frame_scan(dev, inputs, efl)
+    assert not ref[0][4].any() and ref[2][4].tolist() == [0] * 6
+    assert int(ref[0].any(dim=2).any(dim=1).sum()) == 8
+
+
+def staged_inputs(R, W, h, first):
+    """Reads that promote slot 0 first at frame ``first`` (its min count
+    out of reach before) and at every frame after, leading with no second
+    best: from ``first`` on the extra count rises by one a frame, so the
+    extra-frame limit ``stop - first - 1`` stops the read at frame
+    ``stop``."""
+    c6 = torch.zeros((R, W, h, 6), dtype=torch.int32)
+    c6[..., 0] = 5
+    c6[..., 3] = 100              # totalNonSat far from the second best
+    c6[..., 4] = 50 * torch.arange(1, W + 1, dtype=torch.int32)[:, None]
+    consider = torch.zeros((R, W, h), dtype=torch.bool)
+    consider[:, :, 0] = True
+    mc = torch.ones((R, W, h), dtype=torch.int32)
+    mc[:, :first] = torch.iinfo(torch.int32).max
+    valid = torch.ones((R, W), dtype=torch.bool)
+    hits = torch.full((R, W), h, dtype=torch.int32)
+    return (c6, consider, mc, valid, torch.zeros_like(valid), valid, hits)
+
+
+@pytest.mark.parametrize("W,first,stop", [
+    (700, 0, 0),        # the first frame
+    (700, 600, 650),    # a first promotion deep in the read
+    (700, 100, 256),    # the first frame of a chunk
+    (700, 100, 511),    # the last frame of a chunk
+    (700, 300, 699),    # the read's last frame
+    (513, 255, 256),    # promoted at a chunk's end, stopped just past it
+])
+def test_mibf_frame_scan_staged_promotion_and_stop(dev, W, first, stop):
+    ref = check_frame_scan(dev, staged_inputs(3, W, 2, first),
+                           stop - first - 1)
+    assert ref[1].sum(dim=1).tolist() == [stop + 1] * 3
+    assert ref[0][:, :, 0].sum(dim=1).tolist() == [stop - first + 1] * 3
 
 
 def test_mibf_frame_scan_stops_at_frame_zero(dev):
@@ -619,11 +686,15 @@ def test_window_scatter_kernel_matches_plain(dev, kind, slots):
         assert bool((ref[-win:] != start[-win:]).any())
 
 
-@pytest.mark.parametrize("nsteps,k,rows", [(0, 3, 2), (1, 1, 1), (3, 7, 3),
-                                           (5, 16, 8), (2, 255, 1)])
+@pytest.mark.parametrize("nsteps,k,rows", [
+    (0, 3, 2), (1, 1, 1), (3, 7, 3), (5, 16, 8), (2, 255, 1),
+    (3, 5, 40),          # 20 KiB chunks
+    (2, 3, 32),          # 16 KiB chunks
+    (7, 100, 150),       # past L2: steps split over blocks, unevenly
+] + [(partition_probe.NSTEPS, k, rows)          # the probe's sweeps, whole
+     for k, rows in partition_probe.SWEEPS])
 def test_dma_sweep_kernel_matches_plain(dev, nsteps, k, rows):
     from btl_bloomfilter_tpu_torch.kernels import dma_sweep
-    from btl_bloomfilter_tpu_torch.probes import partition_probe
     copy, src = partition_probe.dma_sweep(nsteps, k, rows, device=dev,
                                           seed=k)
     before = dma_sweep.KERNEL.launches

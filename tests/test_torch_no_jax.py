@@ -35,7 +35,9 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.probes.ring_probe, "
             "btl_bloomfilter_tpu_torch.probes.vmem_sort_probe, "
             "btl_bloomfilter_tpu_torch.probes.partition_probe, "
-            "btl_bloomfilter_tpu_torch.probes.kernel_lab; "
+            "btl_bloomfilter_tpu_torch.probes.kernel_lab, "
+            "btl_bloomfilter_tpu_torch.tools.time_kernels, "
+            "btl_bloomfilter_tpu_torch.tools.timing; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
             "m.startswith('btl_bloomfilter_tpu.')]; "

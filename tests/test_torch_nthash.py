@@ -55,6 +55,10 @@ def check_frames(codes, k, h):
     (8, 64, 33, 5, 0.05, 4),     # k > 31 rotations
     (8, 200, 2, 1, 0.2, 5),      # minimum k, h == 1 (no derivation)
     (16, 977, 64, 4, 0.02, 6),   # B not a power of two, k == 64
+    (4, 300, 1, 2, 0.1, 7),      # k == 1: one base a window
+    (4, 400, 129, 3, 0.003, 7),  # k > 128: two pieces of the kernel's tables
+    (4, 1200, 1024, 2, 0.0003, 10),  # k past srol's period of 1023
+    (4, 1300, 1025, 4, 0.0003, 10),
 ])
 def test_hash_frames_matches_jax(B, L, k, h, nfrac, seed):
     check_frames(random_codes(B, L, nfrac, seed), k, h)
