@@ -17,14 +17,45 @@
 // What bounds it on the H100: one random 4-byte compare-and-swap per pair
 // into a word array far larger than the L2, each moving a 32-byte sector;
 // a CAS retries only when another thread changed the same word in between.
-// Design: one thread per pair in a grid-stride loop with coalesced pair
-// loads. The new lane value is computed in 64 bits and clamped at
-// counter_max before it is put back in its lane, so a sum never carries
-// into the neighbouring lane; a lane already at counter_max is left alone
-// without a CAS. Saturating adds of non-negative increments compose in any
-// order: min(min(c + a, M) + b, M) = min(c + a + b, M).
+// The new lane value is computed in 64 bits and clamped at counter_max
+// before it is put back in its lane, so a sum never carries into the
+// neighbouring lane; a lane already at counter_max is left alone without a
+// CAS. Saturating adds of non-negative increments compose in any order:
+// min(min(c + a, M) + b, M) = min(c + a + b, M). Two routes
+// (kernels/scatter_add.py picks one by the array's words and the number of
+// pairs):
+//   direct: one thread per pair in a grid-stride loop with coalesced pair
+//     loads, the CAS in L2;
+//   tiled, unit increments only (incrementAll): the tile partition
+//     (tile_partition.cu) groups the positions by 64 KiB tile of the
+//     array; then one block a non-empty tile loads the tile into shared
+//     memory with 16-byte loads, adds 1 to each of its positions with the
+//     same clamped CAS on shared memory, and writes the tile back: a full
+//     sweep of the array in address order. The other design measured (the
+//     direct body over the grouped positions, blocks dispatched in order
+//     so the lines in flight stay in L2) was slower at the counting batch
+//     (PERF.md).
 
-#include "common.cuh"
+#include "tile_partition.cuh"
+
+// counters[p] = min(counters[p] + c, counter_max) on the word at addr
+// (global or shared), the lane at bit sh of lane_mask's width.
+__device__ __forceinline__ void sat_add(unsigned int* addr, unsigned sh,
+                                        uint32_t lane_mask, uint32_t c,
+                                        uint32_t counter_max) {
+    unsigned int old = *((volatile unsigned int*)addr);
+    while (true) {
+        const uint32_t lane = (old >> sh) & lane_mask;
+        if (lane >= counter_max) break;
+        unsigned long long nl = (unsigned long long)lane + c;
+        if (nl > counter_max) nl = counter_max;
+        const unsigned int upd =
+            (old & ~(lane_mask << sh)) | ((uint32_t)nl << sh);
+        const unsigned int seen = atomicCAS(addr, old, upd);
+        if (seen == old) break;
+        old = seen;
+    }
+}
 
 __global__ void __launch_bounds__(BTL_BLOCK)
 scatter_add_kernel(const uint32_t* __restrict__ pos,
@@ -43,21 +74,46 @@ scatter_add_kernel(const uint32_t* __restrict__ pos,
         if (c == 0) continue;
         const long long w = p >> shift;
         if (w >= nwords) continue;
-        const unsigned sh = (p & sub_mask) * bits;
-        unsigned int* addr = &words[w];
-        unsigned int old = *((volatile unsigned int*)addr);
-        while (true) {
-            const uint32_t lane = (old >> sh) & lane_mask;
-            if (lane >= counter_max) break;
-            unsigned long long nl = (unsigned long long)lane + c;
-            if (nl > counter_max) nl = counter_max;
-            const unsigned int upd =
-                (old & ~(lane_mask << sh)) | ((uint32_t)nl << sh);
-            const unsigned int seen = atomicCAS(addr, old, upd);
-            if (seen == old) break;
-            old = seen;
-        }
+        sat_add(&words[w], (p & sub_mask) * bits, lane_mask, c, counter_max);
     }
+}
+
+// The tiled route's apply: block t loads tile t into shared memory, adds
+// 1 at each of its positions there, and writes it back. Each tile has one
+// block, so the array needs no global atomic.
+__global__ void __launch_bounds__(BTL_TILE_THREADS)
+scatter_add_tile_kernel(const uint32_t* __restrict__ pos,
+                        const uint32_t* __restrict__ offsets,
+                        unsigned int* __restrict__ words, long long nwords,
+                        int shift, uint32_t counter_max) {
+    extern __shared__ uint4 tile4[];
+    uint32_t* tile = reinterpret_cast<uint32_t*>(tile4);
+    const long long t = blockIdx.x;
+    const uint32_t lo = offsets[t], hi = offsets[t + 1];
+    if (lo == hi) return;
+    const long long w0 = t << BTL_TILE_SHIFT;
+    const int len = (int)(nwords - w0 < BTL_TILE_WORDS ? nwords - w0
+                                                        : BTL_TILE_WORDS);
+    btl_tile_copy<true>(tile, words + w0, len);
+    __syncthreads();
+    const unsigned bits = 32u >> shift;
+    const unsigned lane_mask = bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
+    const uint32_t sub_mask = (1u << shift) - 1u;
+    for (uint32_t i0 = lo + threadIdx.x; i0 < hi; i0 += 4 * blockDim.x) {
+        uint32_t p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const uint32_t i = i0 + j * blockDim.x;
+            p[j] = i < hi ? pos[i] : BTL_SENTINEL;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if (p[j] != BTL_SENTINEL)
+                sat_add(&tile[(p[j] >> shift) - w0], (p[j] & sub_mask) * bits,
+                        lane_mask, 1u, counter_max);
+    }
+    __syncthreads();
+    btl_tile_copy<false>(tile, words + w0, len);
 }
 
 // pos uint32 [n] (any order, duplicates allowed); inc uint32 [n] or null
@@ -72,5 +128,31 @@ extern "C" int btl_scatter_add(const void* pos, const void* inc, long long n,
                          (cudaStream_t)stream>>>(
         (const uint32_t*)pos, (const uint32_t*)inc, n, (unsigned int*)words,
         nwords, shift, counter_max);
+    return (int)cudaGetLastError();
+}
+
+// The tiled route of unit increments: partition, then apply, all on the
+// given stream. Arguments as btl_scatter_add's with inc null, scratch as
+// btl_tile_partition_run takes it.
+extern "C" int btl_scatter_add_tiled(const void* pos, long long n,
+                                     void* words, long long nwords,
+                                     int shift, unsigned int counter_max,
+                                     void* scratch, int device,
+                                     void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t st = (cudaStream_t)stream;
+    err = btl_tile_partition_run((const uint32_t*)pos, n, nwords, shift,
+                                 (uint32_t*)scratch, st);
+    if (err != cudaSuccess || n == 0) return (int)err;
+    static unsigned long long smem_set = 0;
+    err = btl_allow_tile_smem(scatter_add_tile_kernel, device, &smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const BtlTileScratch s = btl_tile_scratch((uint32_t*)scratch, n, nwords);
+    scatter_add_tile_kernel<<<(unsigned)btl_ntiles(nwords),
+                              BTL_TILE_THREADS,
+                              BTL_TILE_WORDS * sizeof(uint32_t), st>>>(
+        s.pos, s.offsets, (unsigned int*)words, nwords, shift,
+        counter_max);
     return (int)cudaGetLastError();
 }

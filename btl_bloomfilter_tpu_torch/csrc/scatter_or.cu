@@ -8,15 +8,28 @@
 // to stream filter windows through VMEM; Hopper has atomicOr in L2, which
 // takes positions in any order and with duplicates. OR commutes, so the
 // words are bit-identical to the sorted form. There is no overflow path.
+// A position whose word is outside the filter is dropped, as the
+// reference's scatter (mode="drop") drops it.
 //
 // What bounds it on the H100: random 4-byte read-modify-writes into the
 // filter (2**30 bits = 128 MiB, larger than the 50 MB L2), one per position,
-// each touching a 32-byte sector. Design: one thread per position in a
-// grid-stride loop with coalesced position loads; the atomics resolve in
-// L2. A position whose word is outside the filter is dropped, as the
-// reference's scatter (mode="drop") drops it.
+// each moving a 32-byte sector. Two routes (kernels/scatter_or.py picks one
+// by the filter's words and the number of positions):
+//   direct: one thread per position in a grid-stride loop with coalesced
+//     position loads; the atomics resolve in L2. No set-up, so it wins
+//     where the filter sits in L2 or the positions are few.
+//   tiled: the tile partition (tile_partition.cu) groups the positions by
+//     64 KiB tile of the filter; then one block a non-empty tile builds
+//     the tile's new bits in shared memory with shared atomicOr and ORs
+//     them into the filter in address order, one atomicOr per word that
+//     gains a bit: the positions' duplicates and order are gone, and a
+//     warp's 32 consecutive words share 4 sectors. It moves only the
+//     sectors that gain a bit. The other design measured (the direct body
+//     over the grouped positions, blocks dispatched in order so the lines
+//     in flight stay in L2) was slower at every shape the rule sends here
+//     (PERF.md).
 
-#include "common.cuh"
+#include "tile_partition.cuh"
 
 __global__ void __launch_bounds__(BTL_BLOCK)
 scatter_or_kernel(const uint32_t* __restrict__ pos, long long n,
@@ -40,5 +53,69 @@ extern "C" int btl_scatter_or(const void* pos, long long n, void* words,
     if (err != cudaSuccess) return (int)err;
     scatter_or_kernel<<<btl_blocks(n), BTL_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)pos, n, (unsigned int*)words, nwords);
+    return (int)cudaGetLastError();
+}
+
+// The tiled route's apply: block t builds tile t's delta in shared memory,
+// then ORs each nonzero word of it into the filter.
+__global__ void __launch_bounds__(BTL_TILE_THREADS)
+scatter_or_tile_kernel(const uint32_t* __restrict__ grouped,
+                       const uint32_t* __restrict__ offsets,
+                       unsigned int* __restrict__ words, long long nwords) {
+    extern __shared__ uint4 delta4[];
+    uint32_t* delta = reinterpret_cast<uint32_t*>(delta4);
+    const long long t = blockIdx.x;
+    const uint32_t lo = offsets[t], hi = offsets[t + 1];
+    if (lo == hi) return;
+    const long long w0 = t << BTL_TILE_SHIFT;
+    const int len = (int)(nwords - w0 < BTL_TILE_WORDS ? nwords - w0
+                                                        : BTL_TILE_WORDS);
+    for (int i = threadIdx.x; i < BTL_TILE_WORDS / 4; i += blockDim.x)
+        delta4[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+    for (uint32_t i0 = lo + threadIdx.x; i0 < hi; i0 += 4 * blockDim.x) {
+        uint32_t p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const uint32_t i = i0 + j * blockDim.x;
+            p[j] = i < hi ? grouped[i] : BTL_SENTINEL;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if (p[j] != BTL_SENTINEL)
+                atomicOr(&delta[(p[j] >> 5) - w0], 1u << (p[j] & 31));
+    }
+    __syncthreads();
+    // the words that gain a bit, in address order: a warp's atomicOr
+    // (no return, so the block does not wait on them) covers 32
+    // consecutive words
+    unsigned int* g = words + w0;
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+        const uint32_t d = delta[i];
+        if (d) atomicOr(&g[i], d);
+    }
+}
+
+// The tiled route: partition, then apply, all on the given stream. pos
+// uint32 [n]; words uint32 [nwords]; scratch as btl_tile_partition_run
+// takes it.
+extern "C" int btl_scatter_or_tiled(const void* pos, long long n,
+                                    void* words, long long nwords,
+                                    void* scratch, int device,
+                                    void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t st = (cudaStream_t)stream;
+    err = btl_tile_partition_run((const uint32_t*)pos, n, nwords, 5,
+                                 (uint32_t*)scratch, st);
+    if (err != cudaSuccess || n == 0) return (int)err;
+    static unsigned long long smem_set = 0;
+    err = btl_allow_tile_smem(scatter_or_tile_kernel, device, &smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const BtlTileScratch s = btl_tile_scratch((uint32_t*)scratch, n, nwords);
+    scatter_or_tile_kernel<<<(unsigned)btl_ntiles(nwords),
+                             BTL_TILE_THREADS,
+                             BTL_TILE_WORDS * sizeof(uint32_t), st>>>(
+        s.pos, s.offsets, (unsigned int*)words, nwords);
     return (int)cudaGetLastError();
 }

@@ -1,0 +1,108 @@
+// The tile partition shared by the tiled scatters (scatter_or.cu,
+// scatter_add.cu): positions grouped by the tile of the array they write.
+#pragma once
+
+#include "common.cuh"
+
+// Words of a tile of the tiled scatters: 2**14 words = 64 KiB. A block
+// holds one tile in shared memory, so a tile must fit the 227 KB a block
+// can have; at 64 KiB three blocks share an SM and one block's load
+// overlaps another's apply. A 2**30-counter u8 filter (2**28 words) has
+// 16384 tiles. kernels/tile_partition.py reads this line and the next
+// define, so each stays a plain number.
+#define BTL_TILE_SHIFT 14
+
+// Most tiles a partition takes, 2**15: two passes of at most 8 and 7 bits
+// of the tile index (tile_partition.cu).
+#define BTL_MAX_TILES 32768
+
+// Group the live positions of pos uint32 [n] by tile (p >> word_shift) >>
+// BTL_TILE_SHIFT, dropping the sentinel and positions whose word is past
+// nwords. scratch holds btl_tile_partition_scratch(n, nwords) words, laid
+// out as btl_tile_scratch says. Launches every stage on stream and returns
+// the first launch error.
+cudaError_t btl_tile_partition_run(const uint32_t* pos, long long n,
+                                   long long nwords, int word_shift,
+                                   uint32_t* scratch, cudaStream_t stream);
+
+// The tiles of an array of nwords words.
+static inline long long btl_ntiles(long long nwords) {
+    return (nwords + (1LL << BTL_TILE_SHIFT) - 1) >> BTL_TILE_SHIFT;
+}
+
+// A partition's scratch. In order: offsets [P + 1] (P the tile count
+// rounded up to a power of two; offsets[t] is where tile t's positions
+// start, offsets[ntiles] the number of live positions), the grouped
+// positions [n], then the first pass's offsets, its staged positions, and
+// the blocks' bases inside their buckets. words is the total; with scratch
+// null only words is set.
+struct BtlTileScratch {
+    uint32_t* offsets;
+    uint32_t* pos;
+    uint32_t* offsets1;
+    uint32_t* stage;
+    uint32_t* hist;
+    long long words;
+};
+
+BtlTileScratch btl_tile_scratch(uint32_t* scratch, long long n,
+                                long long nwords);
+
+// Words of a tile (BTL_TILE_SHIFT), and the threads of a block that sweeps
+// one.
+#define BTL_TILE_WORDS (1 << BTL_TILE_SHIFT)
+#define BTL_TILE_THREADS 512
+
+// Words a sweep thread moves per step: 8 loads of 16 bytes in flight.
+#define BTL_TILE_UNROLL 8
+
+// Copy the len words of a tile between global memory g and shared memory s
+// (kLoad: g -> s, else s -> g), 16 bytes a load where g is 16-byte aligned
+// (a tile starts at a multiple of 2**BTL_TILE_SHIFT words, so it is when
+// the array is), 8 of them in flight a thread.
+template <bool kLoad>
+__device__ __forceinline__ void btl_tile_copy(uint32_t* s, uint32_t* g,
+                                              int len) {
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+        uint4* s4 = reinterpret_cast<uint4*>(s);
+        uint4* g4 = reinterpret_cast<uint4*>(g);
+        const int nv = len >> 2;
+        for (int i0 = threadIdx.x; i0 < nv;
+             i0 += BTL_TILE_UNROLL * blockDim.x) {
+            uint4 r[BTL_TILE_UNROLL];
+#pragma unroll
+            for (int j = 0; j < BTL_TILE_UNROLL; ++j) {
+                const int i = i0 + j * blockDim.x;
+                if (i < nv) r[j] = kLoad ? g4[i] : s4[i];
+            }
+#pragma unroll
+            for (int j = 0; j < BTL_TILE_UNROLL; ++j) {
+                const int i = i0 + j * blockDim.x;
+                if (i < nv) {
+                    if (kLoad) s4[i] = r[j];
+                    else g4[i] = r[j];
+                }
+            }
+        }
+        done = nv << 2;
+    }
+    for (int i = done + threadIdx.x; i < len; i += blockDim.x) {
+        if (kLoad) s[i] = g[i];
+        else g[i] = s[i];
+    }
+}
+
+// Raise a kernel's dynamic shared memory limit to a tile's bytes (above
+// 48 KiB it must be asked for), once a device; *done holds a bit a device.
+template <typename K>
+static inline cudaError_t btl_allow_tile_smem(K kernel, int device,
+                                              unsigned long long* done) {
+    const unsigned long long bit = 1ULL << (device & 63);
+    if (*done & bit) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BTL_TILE_WORDS * (int)sizeof(uint32_t));
+    if (err == cudaSuccess) *done |= bit;
+    return err;
+}

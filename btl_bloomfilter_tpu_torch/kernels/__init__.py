@@ -1,14 +1,17 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version.
 
   * ``nthash_scan``  - canonical ntHash positions / hash planes
-  * ``scatter_or``   - Bloom insert (atomicOr), and of sorted positions
-    (one atomic per run of equal words)
+  * ``scatter_or``   - Bloom insert: direct (atomicOr) or tiled (after the
+    tile partition), and of sorted positions (one atomic per run of equal
+    words)
   * ``scatter_ring`` - Bloom insert of sorted positions into a delta
   * ``gather_words`` - Bloom query (gather + AND over h)
   * ``gather_counters`` - counting-filter read (packed lanes, min over h;
     all of a window's loads issued together)
-  * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane):
-    incrementAll
+  * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane),
+    direct or tiled: incrementAll
+  * ``tile_partition`` - positions grouped by tile of the array they write,
+    the first stage of the tiled scatters
   * ``conservative_step`` - counting-filter conservative step (gather, min,
     target and a carry-free atomicAdd per lane in one pass): the insert's
     closed form and replay rounds
@@ -27,7 +30,8 @@ Every wrapper counts the launches of its kernel; ``launch_counts`` and
 
 from . import (conservative_step, dma_sweep, gather_counters, gather_words,
                mibf_frame_scan, mibf_rank, nthash_scan, scatter_add,
-               scatter_or, scatter_ring, vmem_sort, window_scatter)
+               scatter_or, scatter_ring, tile_partition, vmem_sort,
+               window_scatter)
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
@@ -44,6 +48,9 @@ KERNELS = {
     "window_scatter": window_scatter.KERNEL,
     "dma_sweep": dma_sweep.KERNEL,
     "conservative_step": conservative_step.KERNEL,
+    "scatter_or_tiled": scatter_or.TILED_KERNEL,
+    "scatter_add_tiled": scatter_add.TILED_KERNEL,
+    "tile_partition": tile_partition.KERNEL,
 }
 
 

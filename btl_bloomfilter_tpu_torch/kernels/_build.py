@@ -33,8 +33,8 @@ SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "gather_counters.cu", "scatter_add.cu", "mibf_rank.cu",
            "mibf_frame_scan.cu", "scatter_or_sorted.cu", "block_sort.cu",
            "window_scatter.cu", "dma_sweep.cu", "conservative_step.cu",
-           "errors.cu")
-HEADERS = ("common.cuh",)
+           "tile_partition.cu", "errors.cu")
+HEADERS = ("common.cuh", "tile_partition.cuh")
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it
 # is -1 in the int32 position tensors.
@@ -135,10 +135,13 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 class CudaKernel:
-    """One C entry point of the kernel library, with a launch counter."""
+    """One C entry point of the kernel library, with a launch counter.
+    ``also``: kernels the entry point launches as well (each launch counts
+    for them too)."""
 
-    def __init__(self, symbol: str, argtypes):
+    def __init__(self, symbol: str, argtypes, also=()):
         self.symbol = symbol
+        self.also = tuple(also)
         # every entry ends with (int device, void* stream)
         self.argtypes = list(argtypes) + [ctypes.c_int, ctypes.c_void_p]
         self.launches = 0
@@ -163,6 +166,8 @@ class CudaKernel:
             msg = library().btl_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+        for k in self.also:
+            k.launches += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

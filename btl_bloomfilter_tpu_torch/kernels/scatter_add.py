@@ -9,7 +9,12 @@ duplicates allowed; ``inc=None`` adds 1 per position). The sentinel
 0xFFFFFFFF, a zero increment and a word index past the array are no-ops;
 no lane carries into its neighbour. It updates ``words`` (int32 [nwords])
 in place and returns it. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises, by one of two routes chosen by
+``route(nwords, npos, weighted)``: ``scatter_add_direct`` (one CAS per
+pair) or, for unit increments only, ``scatter_add_tiled`` (the tile
+partition of ``kernels/tile_partition.py``, then the positions applied tile
+by tile, all in one call of the library). No path of the repo adds weighted
+increments on the card, so only the direct route takes them.
 """
 
 from __future__ import annotations
@@ -19,12 +24,35 @@ import ctypes
 import torch
 
 from ..ops import u64
-from . import _build
+from . import _build, tile_partition
 from ._build import SENTINEL
 
 KERNEL = _build.CudaKernel("btl_scatter_add", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_uint])
+TILED_KERNEL = _build.CudaKernel("btl_scatter_add_tiled", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_uint, ctypes.c_void_p],
+    also=(tile_partition.KERNEL,))
+
+# The route rule's constants, from H100 runs of tools/time_kernels.py's
+# grid (uniform positions; PERF.md section 6): the sweep reads and writes
+# the whole array, so it pays where the pairs are enough to amortise the
+# partition and at least one pair comes for every 16 words. At 3M pairs it
+# wins up to 2**25 words and loses at 2**26; at 2M it loses or ties from
+# 2**23 words (4 a pair) up, where the direct CAS is the faster.
+TILED_MIN_POS = 3 << 20
+TILED_WORDS_PER_POS = 16
+
+
+def route(nwords: int, npos: int, weighted: bool = False) -> str:
+    """"tiled" or "direct": the route a CUDA add of npos pairs into an
+    array of nwords words takes (weighted: the increments are given)."""
+    if (not weighted and TILED_MIN_POS <= npos < 1 << 31
+            and nwords <= TILED_WORDS_PER_POS * npos
+            and tile_partition.ntiles(nwords) <= tile_partition.MAX_TILES):
+        return "tiled"
+    return "direct"
 
 
 def _check(words: torch.Tensor, pos: torch.Tensor, shift: int,
@@ -74,6 +102,17 @@ def scatter_add(words: torch.Tensor, pos: torch.Tensor, shift: int,
     _check(words, pos, shift, counter_max, inc)
     if _build.on_cpu(words, pos, *([] if inc is None else [inc])):
         return scatter_add_plain(words, pos, shift, counter_max, inc)
+    if route(words.numel(), pos.numel(), inc is not None) == "tiled":
+        return scatter_add_tiled(words, pos, shift, counter_max)
+    return scatter_add_direct(words, pos, shift, counter_max, inc)
+
+
+def scatter_add_direct(words: torch.Tensor, pos: torch.Tensor, shift: int,
+                       counter_max: int, inc=None) -> torch.Tensor:
+    """The direct route on a CUDA tensor, whatever the rule says."""
+    _check(words, pos, shift, counter_max, inc)
+    if _build.on_cpu(words, pos, *([] if inc is None else [inc])):
+        return scatter_add_plain(words, pos, shift, counter_max, inc)
     pos = pos.reshape(-1).contiguous()
     if inc is not None:
         inc = inc.reshape(-1).contiguous()
@@ -81,4 +120,23 @@ def scatter_add(words: torch.Tensor, pos: torch.Tensor, shift: int,
         KERNEL.launch(words.device, _build.ptr(pos),
                       None if inc is None else _build.ptr(inc), pos.numel(),
                       _build.ptr(words), words.numel(), shift, counter_max)
+    return words
+
+
+def scatter_add_tiled(words: torch.Tensor, pos: torch.Tensor, shift: int,
+                      counter_max: int) -> torch.Tensor:
+    """The tiled route of unit increments on a CUDA tensor, whatever the
+    rule says."""
+    _check(words, pos, shift, counter_max, None)
+    if _build.on_cpu(words, pos):
+        return scatter_add_plain(words, pos, shift, counter_max)
+    pos = pos.reshape(-1).contiguous()
+    if pos.numel() >= 1 << 31:
+        raise ValueError("the tiled route takes fewer than 2**31 positions")
+    if pos.numel():
+        buf = tile_partition.scratch(pos.numel(), words.numel(),
+                                     words.device)
+        TILED_KERNEL.launch(words.device, _build.ptr(pos), pos.numel(),
+                            _build.ptr(words), words.numel(), shift,
+                            counter_max, _build.ptr(buf))
     return words

@@ -5,6 +5,10 @@ and ``csrc/scatter_or_sorted.cu`` and their plain PyTorch version.
 every position p (int32 holding uint32 bits, any shape, any order,
 duplicates allowed), skipping the sentinel 0xFFFFFFFF and positions past
 the filter. It updates ``words`` (int32 [nwords]) in place and returns it.
+On a CUDA tensor it takes one of two routes, by ``route(nwords, npos)``:
+``scatter_or_direct`` (one atomicOr per position) or ``scatter_or_tiled``
+(the tile partition of ``kernels/tile_partition.py``, then the positions
+applied tile by tile, all in one call of the library).
 
 ``scatter_or_sorted(words, pos_sorted, pos_for_base=None)`` is the same
 insert for sorted positions, the port of the JAX package's
@@ -25,13 +29,35 @@ import ctypes
 import torch
 
 from ..ops import u64
-from . import _build
+from . import _build, tile_partition
 from ._build import SENTINEL
 
 ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong]
 KERNEL = _build.CudaKernel("btl_scatter_or", ARGS)
 SORTED_KERNEL = _build.CudaKernel("btl_scatter_or_sorted", ARGS)
+TILED_KERNEL = _build.CudaKernel("btl_scatter_or_tiled",
+                                 ARGS + [ctypes.c_void_p],
+                                 also=(tile_partition.KERNEL,))
+
+# The route rule's constants, from H100 runs of tools/time_kernels.py's
+# grid (uniform positions; PERF.md section 6): the tiled route pays once the
+# filter outgrows the 50 MB L2 (from 2**24 words, 64 MiB) and the positions
+# are enough to amortise the partition. At 3M positions it wins for 2**24
+# to 2**26 words and ties at 2**27; at 2M it loses (2**25 words aside, by
+# 1.5%). The rule counts sentinels as positions: at bench.py's batch with
+# 2% N (about 53% live) the two routes tie.
+TILED_MIN_WORDS = 1 << 24
+TILED_MIN_POS = 3 << 20
+
+
+def route(nwords: int, npos: int) -> str:
+    """"tiled" or "direct": the route a CUDA insert of npos positions into
+    a filter of nwords words takes."""
+    if (nwords >= TILED_MIN_WORDS and TILED_MIN_POS <= npos < 1 << 31
+            and tile_partition.ntiles(nwords) <= tile_partition.MAX_TILES):
+        return "tiled"
+    return "direct"
 
 
 def _check(words: torch.Tensor, pos: torch.Tensor) -> None:
@@ -69,7 +95,33 @@ def launch(kernel: _build.CudaKernel, words: torch.Tensor,
 def scatter_or(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     if _build.on_cpu(words, pos):
         return scatter_or_plain(words, pos)
+    if route(words.numel(), pos.numel()) == "tiled":
+        return scatter_or_tiled(words, pos)
+    return scatter_or_direct(words, pos)
+
+
+def scatter_or_direct(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The direct route on a CUDA tensor, whatever the rule says."""
+    if _build.on_cpu(words, pos):
+        return scatter_or_plain(words, pos)
     launch(KERNEL, words, pos)
+    return words
+
+
+def scatter_or_tiled(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The tiled route on a CUDA tensor, whatever the rule says."""
+    if _build.on_cpu(words, pos):
+        return scatter_or_plain(words, pos)
+    _check(words, pos)
+    pos = pos.reshape(-1).contiguous()
+    if pos.numel() >= 1 << 31:
+        raise ValueError("the tiled route takes fewer than 2**31 positions")
+    if pos.numel():
+        buf = tile_partition.scratch(pos.numel(), words.numel(),
+                                     words.device)
+        TILED_KERNEL.launch(words.device, _build.ptr(pos), pos.numel(),
+                            _build.ptr(words), words.numel(),
+                            _build.ptr(buf))
     return words
 
 

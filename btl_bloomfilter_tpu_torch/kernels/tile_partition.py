@@ -1,0 +1,117 @@
+"""Tile partition: the CUDA kernel ``csrc/tile_partition.cu`` and its plain
+PyTorch version, the first stage of the tiled scatters
+(``kernels/scatter_or.py``, ``kernels/scatter_add.py``).
+
+``tile_partition(pos, nwords, word_shift)`` groups the live positions p of
+``pos`` (int32 holding uint32 bits, any shape) by tile ``(p >> word_shift)
+>> TILE_SHIFT`` of an array of ``nwords`` words, dropping the sentinel
+0xFFFFFFFF and positions whose word ``p >> word_shift`` is past the array.
+It returns ``(offsets, grouped)``: offsets int32 [ntiles + 1], the
+exclusive scan of the tile counts (``offsets[-1]`` the number of live
+positions); grouped int32 [n], tile t's positions in
+``grouped[offsets[t]:offsets[t + 1]]`` in no set order. Entries of grouped
+from ``offsets[-1]`` on are unspecified (the plain version writes -1).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+
+import torch
+
+from ..ops import u64
+from . import _build
+from ._build import SENTINEL
+
+
+def _define(name: str) -> int:
+    """A numeric ``#define`` of ``csrc/tile_partition.cuh``: the tile
+    constants are written there once, with their reasons."""
+    with open(os.path.join(_build.CSRC, "tile_partition.cuh")) as f:
+        return int(re.search(rf"^#define {name} (\d+)$", f.read(),
+                             re.M).group(1))
+
+
+# Words of a tile of the tiled scatters, as a shift, and the most tiles a
+# partition takes.
+TILE_SHIFT = _define("BTL_TILE_SHIFT")
+MAX_TILES = _define("BTL_MAX_TILES")
+
+KERNEL = _build.CudaKernel("btl_tile_partition", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p])
+
+_scratch_words = None
+
+
+def ntiles(nwords: int, tile_shift: int = TILE_SHIFT) -> int:
+    return -(-nwords >> tile_shift)
+
+
+def padded_tiles(nwords: int) -> int:
+    """The tile count rounded up to a power of two: the length, less one,
+    of the offsets at the head of the scratch."""
+    return 1 << (ntiles(nwords) - 1).bit_length()
+
+
+def scratch(n: int, nwords: int, device) -> torch.Tensor:
+    """One int32 buffer as ``btl_tile_partition_run`` takes it: offsets
+    [padded_tiles + 1], grouped positions [n], then the partition's own
+    working space."""
+    global _scratch_words
+    if _scratch_words is None:
+        fn = _build.library().btl_tile_partition_scratch
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+        _scratch_words = fn
+    return torch.empty(_scratch_words(n, nwords), dtype=torch.int32,
+                       device=device)
+
+
+def _check(pos: torch.Tensor, nwords: int, word_shift: int,
+           tile_shift: int) -> int:
+    if pos.dtype != torch.int32:
+        raise TypeError("pos must be torch.int32 (uint32 bits)")
+    if not 0 <= word_shift < 32 or not 0 <= tile_shift < 32:
+        raise ValueError("word_shift and tile_shift must be in [0, 32)")
+    nt = ntiles(nwords, tile_shift)
+    if not 1 <= nt <= MAX_TILES:
+        raise ValueError(f"{nt} tiles: a partition takes 1 to {MAX_TILES}")
+    if pos.numel() >= 1 << 31:
+        raise ValueError("a partition takes fewer than 2**31 positions")
+    return nt
+
+
+def tile_partition_plain(pos: torch.Tensor, nwords: int, word_shift: int,
+                         tile_shift: int = TILE_SHIFT):
+    """A stable argsort on the tile index. ``tile_shift`` other than
+    TILE_SHIFT serves the CPU models of the tiled routes at small sizes."""
+    nt = _check(pos, nwords, word_shift, tile_shift)
+    flat = pos.reshape(-1)
+    p = u64.from_u32_bits(flat)
+    keep = (p != SENTINEL) & ((p >> word_shift) < nwords)
+    tile = (p[keep] >> word_shift) >> tile_shift
+    order = torch.argsort(tile, stable=True)
+    offsets = torch.zeros(nt + 1, dtype=torch.int64, device=pos.device)
+    offsets[1:] = torch.cumsum(torch.bincount(tile, minlength=nt), 0)
+    grouped = torch.full_like(flat, -1)
+    grouped[:tile.numel()] = flat[keep][order]
+    return offsets.to(torch.int32), grouped
+
+
+def tile_partition(pos: torch.Tensor, nwords: int, word_shift: int):
+    nt = _check(pos, nwords, word_shift, TILE_SHIFT)
+    if _build.on_cpu(pos):
+        return tile_partition_plain(pos, nwords, word_shift)
+    pos = pos.reshape(-1).contiguous()
+    n = pos.numel()
+    buf = scratch(n, nwords, pos.device)
+    KERNEL.launch(pos.device, _build.ptr(pos), n, nwords, word_shift,
+                  _build.ptr(buf))
+    at = padded_tiles(nwords) + 1
+    return buf[:nt + 1], buf[at:at + n]

@@ -12,8 +12,9 @@ each window (the load/store floor); ``scatter`` ORs the chunks' positions
 into the window in shared memory, and stands for both of the JAX probe's
 MXU formulations, ``rowmaj`` and ``lanemaj``. A position no chunk of its
 window reaches is dropped: the popcount line says whether ``slots``
-chunks covered every window. The ``atomicOr`` insert (``kernels/
-scatter_or.py``) is timed on the same positions.
+chunks covered every window. The ``atomicOr`` insert's direct route
+(``kernels/scatter_or.py: scatter_or_direct``) is timed on the same
+positions.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ def main(argv=None) -> dict:
     idx, pos, words = make_inputs(args.log2_size, args.n, args.slots,
                                   device=dev)
     nwords, nchunks = words.numel(), args.n // CHUNK
-    expect = scatter_or.scatter_or(
+    expect = scatter_or.scatter_or_direct(
         torch.zeros(nwords, dtype=torch.int32, device=dev), pos)
     expc = popcount(expect)
     res = {"ms": {}}
@@ -111,9 +112,9 @@ def main(argv=None) -> dict:
         print(f"{variant} slots={args.slots}: {res['ms'][variant]:.4f} ms",
               flush=True)
     wk = torch.zeros(nwords, dtype=torch.int32, device=dev)
-    first_call(lambda: scatter_or.scatter_or(wk, pos), dev)
-    res["ms"]["scatter_or"] = time_ms(lambda: scatter_or.scatter_or(wk, pos),
-                                      args.reps, dev)
+    first_call(lambda: scatter_or.scatter_or_direct(wk, pos), dev)
+    res["ms"]["scatter_or"] = time_ms(
+        lambda: scatter_or.scatter_or_direct(wk, pos), args.reps, dev)
     print(f"scatter_or (atomicOr) on the same positions: "
           f"{res['ms']['scatter_or']:.4f} ms", flush=True)
     return res

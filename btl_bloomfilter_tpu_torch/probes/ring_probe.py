@@ -9,8 +9,8 @@ bits, 512 reads x 2048 bases): the ntHash kernel's positions, an unsigned
 either the delta form (``kernels/scatter_ring.py``: a zeros delta and a
 separate OR) or the in-place form (``kernels/scatter_or.py:
 scatter_or_sorted``). The main path (``kmer_bloom.insert_seq``: positions,
-then the unsorted ``atomicOr`` kernel) runs beside them, and the three
-filters must be identical. The kernels never overflow on this hardware, so
+then ``scatter_or`` by the route its rule picks) runs beside them, and the
+three filters must be identical. The kernels never overflow on this hardware, so
 the step needs no re-apply. On a GPU each form's step is also profiled:
 device busy time, idle share and largest kernels under ``torch.profiler``.
 """

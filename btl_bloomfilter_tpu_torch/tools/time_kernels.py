@@ -2,7 +2,7 @@
 (a parent commit and a change) on one GPU in one call.
 
     python btl_bloomfilter_tpu_torch/tools/time_kernels.py [--tree DIR]
-        [--label NAME] [--kernels nthash_scan,mibf_frame_scan,dma_sweep]
+        [--label NAME] [--kernels nthash_scan,scatter_or,...]
 
 Imports ``btl_bloomfilter_tpu_torch`` from DIR (default: the tree this file
 is in), builds its kernels, and prints one JSON line with the card, the
@@ -17,7 +17,29 @@ queued``). The kernels it can time (``CALLS``):
     it (``tools/profile_mibf.py``: 256 reads x 2048 bases, 2018 frames of 4
     slots);
   * ``dma_sweep``: each copy sweep of ``probes/partition_probe.py``, and
-    ``copy_`` of the same tensor beside it.
+    ``copy_`` of the same tensor beside it;
+  * ``scatter_or``: the Bloom insert at bench.py's batch (512 x 2048 ACGT
+    reads, k=31, h=4: 4,132,864 positions into 2**30 bits), at
+    ``nthash_scan``'s batch with 2% N (the same slots, about 53% of them
+    live; the rest sentinels), and at MIBF
+    phase 1's two shapes (bench.py's config: 4,121,208 positions into
+    2**28 bits; chip_smoke.py's 7c: 1,048,456 into 96,817,664 bits, both
+    uniform random positions as the hash gives them); the public wrapper,
+    each route where the tree has them, and the whole insert
+    step (``kmer_bloom.insert_seq``) at the bench batch;
+  * ``scatter_add``: incrementAll at the counting bench batch (3072 x 2048
+    ACGT reads: 24,792,576 unit adds into 2**30 u8 counters), the wrapper,
+    each route, and ``counting.insert_all`` of the batch;
+  * ``tile_partition``: the partition alone at those two bench batches;
+  * ``scatter_or_grid``, ``scatter_add_grid``: each route of the two
+    scatters over a grid of array words and uniform random positions, the
+    data the route rules' constants come from.
+
+Every scatter is timed from a fixed start: its array is zeroed before each
+repetition, outside the events (``timing.median_ms``'s ``setup``). With
+``--profile`` each call's device time by kernel under ``torch.profiler``
+(``tools/profile_mibf.py``'s ``profile``, 10 calls) joins the line, as
+``name kernels``: [kernel, ms a call, launches a call].
 
 Run it with the parent's tree and the change's in turns (parent, change,
 change, parent) to compare the two on one card.
@@ -96,9 +118,133 @@ def sweep_calls(dev) -> dict:
     return out
 
 
-# kernel name -> the calls that time it, {label: call}
+def acgt_positions(dev, rows: int, log2_bits: int) -> torch.Tensor:
+    """Positions int32 [4, rows, 2018] of rows x 2048 ACGT reads (bench.py's
+    codes, seed 0), k=31, h=4, into 2**log2_bits counters or bits."""
+    from btl_bloomfilter_tpu_torch.kernels import nthash_scan
+
+    codes = np.random.default_rng(0).integers(0, 4, size=(rows, 2048),
+                                              dtype=np.uint8)
+    pos, _s, _v = nthash_scan.positions_planes(
+        torch.from_numpy(codes).to(dev), 31, 4, 1 << log2_bits)
+    return pos
+
+
+def uniform_positions(dev, n: int, limit: int, seed: int = 1):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, limit, size=n, dtype=np.int64).astype(np.uint32)
+        .view(np.int32)).to(dev)
+
+
+def route_calls(label: str, words: torch.Tensor, pos: torch.Tensor,
+                kind: str, public: bool = True) -> dict:
+    """The public wrapper and, where the tree has them, each route of the
+    Bloom insert (kind "or") or the unit add into u8 counters (kind "add"),
+    each as (call, setup) from zeroed words, and the route the rule
+    takes."""
+    from btl_bloomfilter_tpu_torch.kernels import scatter_add, scatter_or
+
+    mod = scatter_or if kind == "or" else scatter_add
+    args = () if kind == "or" else (2, 255)
+    name = "scatter_or" if kind == "or" else "scatter_add"
+    zero = words.zero_
+    out = {}
+    if public:
+        out[f"{name} {label}"] = (
+            lambda: getattr(mod, name)(words, pos, *args), zero)
+    if hasattr(mod, f"{name}_tiled"):
+        direct, tiled = getattr(mod, f"{name}_direct"), getattr(
+            mod, f"{name}_tiled")
+        out[f"{name} {label} direct"] = (lambda: direct(words, pos, *args),
+                                         zero)
+        out[f"{name} {label} tiled"] = (lambda: tiled(words, pos, *args),
+                                        zero)
+        out[f"{name} {label} route"] = mod.route(words.numel(), pos.numel())
+    return out
+
+
+def scatter_or_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.models import bloom, kmer_bloom
+
+    out = {}
+    for label, words, pos in (
+            ("bloom", torch.zeros(1 << 25, dtype=torch.int32, device=dev),
+             acgt_positions(dev, 512, 30)),
+            ("bloom 2% N", torch.zeros(1 << 25, dtype=torch.int32,
+                                       device=dev),
+             hash_calls(dev)["nthash_scan"]()[0]),
+            ("mibf 7b", torch.zeros(1 << 23, dtype=torch.int32, device=dev),
+             uniform_positions(dev, 63 * (16384 - 30) * 4, 1 << 28)),
+            ("mibf 7c", torch.zeros(96817664 // 32, dtype=torch.int32,
+                                    device=dev),
+             uniform_positions(dev, (262144 - 30) * 4, 96817664))):
+        out.update(route_calls(label, words, pos, "or"))
+    codes = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, size=(512, 2048), dtype=np.uint8)).to(dev)
+    bf = bloom.create(1 << 30, 4, 31, device=dev)
+    out["bloom insert step"] = (lambda: kmer_bloom.insert_seq(bf, codes),
+                                bf.words.zero_)
+    return out
+
+
+def scatter_add_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import nthash_scan
+    from btl_bloomfilter_tpu_torch.models import counting
+
+    words = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
+    out = route_calls("counting", words, acgt_positions(dev, 3072, 30),
+                      "add")
+    codes = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, size=(3072, 2048), dtype=np.uint8)).to(dev)
+    hashes, _s, valid = nthash_scan.hash_frames_planes(codes, 31, 4)
+    hashes = hashes.movedim(0, -1)
+    cbf = counting.create(1 << 30, 4, 31, 1, counter_width=1, device=dev)
+    out["counting insert_all"] = (
+        lambda: counting.insert_all(cbf, hashes, valid), cbf.counters.zero_)
+    return out
+
+
+def partition_calls(dev) -> dict:
+    try:
+        from btl_bloomfilter_tpu_torch.kernels import tile_partition
+    except ImportError:         # a tree from before the partition
+        return {}
+    out = {}
+    for label, pos, nwords, shift in (
+            ("bloom", acgt_positions(dev, 512, 30), 1 << 25, 5),
+            ("counting", acgt_positions(dev, 3072, 30), 1 << 28, 2)):
+        out[f"tile_partition {label}"] = (
+            lambda p=pos, w=nwords, s=shift: tile_partition.tile_partition(
+                p, w, s), None)
+    return out
+
+
+GRID_WORDS = [1 << e for e in range(20, 29)]
+GRID_POS = [1 << 16, 1 << 18, 1 << 20, 3 << 19, 2 << 20, 3 << 20, 1 << 22,
+            1 << 24]
+
+
+def grid_calls(dev, kind: str) -> dict:
+    out = {}
+    words = torch.zeros(GRID_WORDS[-1], dtype=torch.int32, device=dev)
+    per = 32 if kind == "or" else 4
+    for npos in GRID_POS:
+        for nwords in GRID_WORDS:
+            if nwords * per > 1 << 32:      # past uint32 positions
+                continue
+            pos = uniform_positions(dev, npos, nwords * per, seed=npos)
+            out.update(route_calls(f"{nwords}w {npos}p", words[:nwords], pos,
+                                   kind, public=False))
+    return out
+
+
+# kernel name -> the calls that time it, {label: call or (call, setup)};
+# a str value is recorded as it is
 CALLS = {"nthash_scan": hash_calls, "mibf_frame_scan": frame_scan_calls,
-         "dma_sweep": sweep_calls}
+         "dma_sweep": sweep_calls, "scatter_or": scatter_or_calls,
+         "scatter_add": scatter_add_calls, "tile_partition": partition_calls,
+         "scatter_or_grid": lambda dev: grid_calls(dev, "or"),
+         "scatter_add_grid": lambda dev: grid_calls(dev, "add")}
 
 
 def main(argv=None) -> None:
@@ -106,8 +252,11 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--label", default="")
-    ap.add_argument("--kernels", default=",".join(CALLS),
+    ap.add_argument("--kernels", default=",".join(
+        k for k in CALLS if not k.endswith("_grid")),
                     help="comma-separated, of: " + ", ".join(CALLS))
+    ap.add_argument("--profile", action="store_true",
+                    help="add each call's device time by kernel")
     args = ap.parse_args(argv)
     names = args.kernels.split(",")
     unknown = [n for n in names if n not in CALLS]
@@ -127,9 +276,20 @@ def main(argv=None) -> None:
     out = {"label": args.label, "tree": args.tree, "card": card}
     torch.cuda._sleep(timing.QUEUE_CYCLES * 20)  # the card at its clocks
     for name in names:
-        for label, fn in CALLS[name](dev).items():
-            t = timing.kernel_times(fn)
+        for label, call in CALLS[name](dev).items():
+            if isinstance(call, str):
+                out[label] = call
+                continue
+            fn, setup = call if isinstance(call, tuple) else (call, None)
+            t = timing.kernel_times(fn, setup=setup)
             out[label], out[label + " queued"] = t.issued, t.card
+            if args.profile:
+                from btl_bloomfilter_tpu_torch.tools.profile_mibf import \
+                    profile
+                if setup is not None:
+                    setup()
+                out[label + " kernels"] = profile(fn, 10)[2]
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 

@@ -27,17 +27,23 @@ QUEUE_CYCLES = 20_000_000
 
 
 def median_ms(fn, reps: int = REPS, inner: int = INNER,
-              queued: bool = False) -> float:
+              queued: bool = False, setup=None) -> float:
     """Milliseconds per call: the median over reps of CUDA-event time
     around ``inner`` back-to-back calls, divided by ``inner``, after a
     warm-up call. Back-to-back calls let the host issue the next call while
     the card runs this one, as a batch loop does. With ``queued`` the card
     first spins for QUEUE_CYCLES while the host queues the calls, so the
-    events time the card's work and not the host's issue of it."""
+    events time the card's work and not the host's issue of it. ``setup``,
+    if given, runs before the warm-up and before each repetition, outside
+    the events (to restore a fixed start state)."""
+    if setup is not None:
+        setup()
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         if queued:
             torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -61,7 +67,9 @@ class KernelTimes:
         return f"{self.issued:{spec}} (card {self.card:{spec}})"
 
 
-def kernel_times(fn, reps: int = REPS, inner: int = INNER) -> KernelTimes:
-    """``fn`` timed as issued and with its calls queued."""
-    return KernelTimes(median_ms(fn, reps, inner),
-                       median_ms(fn, reps, inner, queued=True))
+def kernel_times(fn, reps: int = REPS, inner: int = INNER,
+                 setup=None) -> KernelTimes:
+    """``fn`` timed as issued and with its calls queued (``setup`` as
+    median_ms takes it)."""
+    return KernelTimes(median_ms(fn, reps, inner, setup=setup),
+                       median_ms(fn, reps, inner, queued=True, setup=setup))

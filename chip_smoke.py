@@ -13,16 +13,20 @@ counters, batches of 3072 reads x 2048 bases):
   1. device: card name and power limit, kernel build time;
   2. each kernel against its plain PyTorch version on the card, bitwise, at
      filter sizes 2**30 and 2**32-64 (not a power of two); ntHash also at
-     k=129 and k=1 in both modes;
+     k=129 and k=1 in both modes; the Bloom insert's two routes (direct and
+     tiled) and the tile partition at both sizes on the
+     2%-N batch and on bench.py's ACGT batch; the kernels' times on the
+     ACGT batch (4,132,864 positions), each scatter from a zeroed filter;
   3. the main path through api.BloomPipeline: 16 batches inserted, the same
      reads queried (every valid window must hit), 4 fresh batches queried
      (hit fraction inside the FPR band), the .bf store/load round trip, the
      golden .bf of the reference's README example, and the launch counts of
-     all three kernels;
+     its kernels: the inserts took the route the rule names;
   4. the write_bloom / test_bloom CLIs on a small multi-FASTA;
   5. insert and query k-mers/s, kernel path against plain path;
   6. the counting filter:
-     a. gather_counters, scatter_add (unit and weighted) and
+     a. gather_counters, scatter_add (unit and weighted, each route), the
+        tile partition (increments as values) and
         conservative_step (the closed-form rows of the batch's
         decomposition, ungrouped and grouped over a batch whose reads all
         appear twice, and its first replay round, on random words) against
@@ -37,12 +41,14 @@ counters, batches of 3072 reads x 2048 bases):
         contains_seq: 4 batches inserted (every valid window reads >= 1
         and hits), one inserted again (its windows read >= 2), 2 fresh
         batches queried (hit fraction under 3 * fpr + 1e-5), one batch
-        put into a second filter by incrementAll (counting.insert_all),
-        and the launch counts of the kernels it runs;
+        put by incrementAll (counting.insert_all) into a second filter and
+        128 of its reads into a 2**24-counter one, and the launch counts of
+        the kernels it runs: each insert_all took the route the rule names;
      d. a counting .bf store/load round trip and the three golden counting
         .bf files rebuilt on the card;
      e. counting insert and query k-mers/s and per-kernel times, kernel
-        path against plain path; gather_counters' hit mode on inserted
+        path against plain path (scatter_add's routes and the partition
+        alone, from zeroed counters); gather_counters' hit mode on inserted
         (hit-heavy) and fresh (miss-heavy) reads; the ungrouped insert's four stages (hash, decompose,
         closed form, replay) on the host clock and its device idle share
         under torch.profiler;
@@ -60,7 +66,8 @@ counters, batches of 3072 reads x 2048 bases):
         MIBFQuerySupport.query_many at the size users build
         (mibf_construct.create for 64 x 262,144 bases at occupancy 0.5):
         the fraction of reads whose top hit is their source (>= 0.95) and
-        the launch counts of the four kernels it runs;
+        the launch counts of the kernels it runs (phase 1's inserts by the
+        route the rule names);
      d. the .mibf / .sdsl round trip of that filter, and the build_mibf /
         classify CLIs on a small multi-FASTA;
      e. MIBF construct and classify rates under bench.py's keys and
@@ -72,7 +79,7 @@ counters, batches of 3072 reads x 2048 bases):
      a. ring_probe: the Bloom insert step at 2**30 bits and 512 x 2048
         (hash, unsigned sort, in-place dedupe) through the delta and the
         in-place sorted scatters, and the main path; the three filters
-        equal;
+        equal; the direct route of scatter_or timed on the same positions;
      b. vmem_sort_probe: the 2048-key block sort of 4 * 2**20 keys;
      c. partition_probe: the 1024-key chunk sort of 2**22 keys and the four
         copy sweeps;
@@ -118,6 +125,8 @@ K_EDGES = (129, 1)       # k past one piece of the hash kernel's tables, and 1
 B, L = 512, 2048
 CB = 3072                # counting batch (bench.py:158)
 C_BYTES = 1 << 30        # counting filter: 2**30 one-byte counters
+C_SMALL_BYTES = 1 << 24  # a small counting filter, and the reads put into
+C_SMALL_ROWS = 128       # it by insert_all (its direct route)
 C_WIDTHS = (1, 2, 4)
 N_C_INSERT, N_C_FRESH = 4, 2
 C_REPS, C_INNER = 3, 3
@@ -236,6 +245,45 @@ def sector_floors(floors: dict, what: str, card_line: str) -> None:
         + f" ({card_line})")
 
 
+def partition_err(what: str, got, ref, word_shift: int) -> int:
+    """The tile partition against its plain version: the offsets bitwise,
+    every grouped position inside its run's tile, and the grouped positions
+    equal as a multiset; the order inside a tile is free."""
+    from btl_bloomfilter_tpu_torch.kernels import tile_partition
+
+    err = require_equal(f"{what} offsets", got[0], ref[0])
+    total = int(got[0][-1])
+    counts = (got[0][1:] - got[0][:-1]).long()
+    tiles = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    require_equal(f"{what} tiles", (unsigned(got[1][:total]) >> word_shift)
+                  >> tile_partition.TILE_SHIFT, tiles)
+
+    def canon(offsets, grouped):
+        return torch.sort(unsigned(grouped[:total])).values
+
+    return max(err, require_equal(f"{what} grouped", canon(*got),
+                                  canon(*ref)))
+
+
+# the kernel each route of the two scatters launches, by record name
+ROUTED = {"scatter_or": {"direct": "scatter_or", "tiled": "scatter_or_tiled"},
+          "scatter_add": {"direct": "scatter_add",
+                          "tiled": "scatter_add_tiled"}}
+
+
+def require_routes(what: str, launches: dict, kernel: str, calls) -> None:
+    """Check that the launch counts of kernel's two routes (and of the tile
+    partition) are those of ``calls``, a list of the routes the rule named
+    for each call on the path."""
+    for route, name in ROUTED[kernel].items():
+        want = sum(1 for c in calls if c == route)
+        if launches[name] != want:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, the route rule names it for "
+                                 f"{want} of {len(calls)} calls")
+
+
 def counting_phases(dev: torch.device, card_line: str):
     """Phase 6: the counting filter on the card. Returns (err, ms,
     launches, bounds) for gather_counters, scatter_add and
@@ -244,13 +292,15 @@ def counting_phases(dev: torch.device, card_line: str):
     from btl_bloomfilter_tpu_torch.io import bf_format
     from btl_bloomfilter_tpu_torch.kernels import (_build, conservative_step,
                                                    gather_counters,
-                                                   nthash_scan, scatter_add)
+                                                   nthash_scan, scatter_add,
+                                                   tile_partition)
     from btl_bloomfilter_tpu_torch.models import counting
     from btl_bloomfilter_tpu_torch.ops import nthash_tables, u64
     from btl_bloomfilter_tpu_torch.ops.replay import replay_depth
 
     plain = dict(step=conservative_step.conservative_step_plain)
-    err = {"gather_counters": 0, "scatter_add": 0, "conservative_step": 0}
+    err = {"gather_counters": 0, "scatter_add": 0, "scatter_add_tiled": 0,
+           "tile_partition": 0, "conservative_step": 0}
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 
@@ -299,13 +349,25 @@ def counting_phases(dev: torch.device, card_line: str):
         inc = torch.where(big, torch.randint(
             -(1 << 31), 1 << 31, pos.shape, dtype=torch.int32, device=dev,
             generator=gen), inc)
-        for what, c in (("unit", None), ("weighted", inc)):
-            wk = scatter_add.scatter_add(words.clone(), pos, shift, cmax, c)
-            wp = scatter_add.scatter_add_plain(words.clone(), pos, shift,
-                                               cmax, c)
-            err["scatter_add"] = max(err["scatter_add"], require_equal(
-                f"width {width} scatter_add {what}", wk, wp))
-            del wk, wp
+        # unit adds by each route; weighted ones take the direct route
+        wp = scatter_add.scatter_add_plain(words.clone(), pos, shift, cmax)
+        for route, name in ROUTED["scatter_add"].items():
+            fn = getattr(scatter_add, f"scatter_add_{route}")
+            err[name] = max(err[name], require_equal(
+                f"width {width} scatter_add unit {route}",
+                fn(words.clone(), pos, shift, cmax), wp))
+        err["scatter_add"] = max(err["scatter_add"], require_equal(
+            f"width {width} scatter_add weighted direct",
+            scatter_add.scatter_add_direct(words.clone(), pos, shift, cmax,
+                                           inc),
+            scatter_add.scatter_add_plain(words.clone(), pos, shift, cmax,
+                                          inc)))
+        del wp
+        err["tile_partition"] = max(err["tile_partition"], partition_err(
+            f"width {width} tile_partition",
+            tile_partition.tile_partition(pos, cbf.nwords, shift),
+            tile_partition.tile_partition_plain(pos, cbf.nwords, shift),
+            shift))
         tpos, _s, _v = nthash_scan.positions_planes(twice, K, H, size)
         steps = []
         for what, fpos, group in (("ungrouped", pos, False),
@@ -346,8 +408,10 @@ def counting_phases(dev: torch.device, card_line: str):
             nz = int((wk != 0).sum())
             del wk, wp, bpos, p, v
         log(f"[6a] width {width}: gather_counters (vals, min, hit), "
-            f"scatter_add (unit, weighted), conservative_step and the "
-            f"conservative insert of "
+            f"scatter_add (unit: direct and tiled, the rule's route "
+            f"{scatter_add.route(cbf.nwords, pos.numel())}; weighted: "
+            f"direct), tile_partition, "
+            f"conservative_step and the conservative insert of "
             f"two {CB}x{L} batches (grouped and not) kernel == plain "
             f"(bitwise); {nz} nonzero words after the insert")
         del cbf, pos
@@ -405,25 +469,55 @@ def counting_phases(dev: torch.device, card_line: str):
         hit, valid = counting.contains_seq(cbf, c)
         f_valid += int(valid.sum())
         f_hit += int(hit.sum())
-    # incrementAll of one batch into a second filter
-    cbf_all = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
+    # incrementAll of one batch into a second filter, and of its first
+    # C_SMALL_ROWS reads into a small one
+    all_ok, all_routes, all_cbfs = True, [], []
     hashes, _s, hvalid = nthash_scan.hash_frames_planes(
         torch.from_numpy(batches[0]).to(dev), K, H)
     hashes = hashes.movedim(0, -1)
-    counting.insert_all(cbf_all, hashes, hvalid)
-    all_ok = bool((counting.min_count(cbf_all, hashes)[hvalid] >= 1).all())
+    for nbytes, rows in ((C_BYTES, CB), (C_SMALL_BYTES, C_SMALL_ROWS)):
+        cbf_all = counting.create(nbytes, H, K, 1, counter_width=1,
+                                  device=dev)
+        hs, hv = hashes[:rows], hvalid[:rows]
+        counting.insert_all(cbf_all, hs, hv)
+        all_ok &= bool((counting.min_count(cbf_all, hs)[hv] >= 1).all())
+        all_routes.append(scatter_add.route(cbf_all.nwords, hs.numel()))
+        all_cbfs.append((cbf_all, rows))
+        del cbf_all, hs, hv
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
     log(f"[6c] launches on the counting main path: {launches}")
     if not all_ok:
         raise AssertionError("a valid window put in by insert_all reads 0")
-    del cbf_all, hashes, hvalid
-    for name in ("nthash_scan", "gather_counters", "conservative_step",
-                 "scatter_add"):
+    # each insert_all against the same call with scatter_add's plain
+    # version, at the shape the main path gave each route
+    for (cbf_all, rows), route in zip(all_cbfs, all_routes):
+        ref = counting.create(cbf_all.size, H, K, 1, counter_width=1,
+                              device=dev)
+        saved = scatter_add.scatter_add
+        scatter_add.scatter_add = scatter_add.scatter_add_plain
+        try:
+            counting.insert_all(ref, hashes[:rows], hvalid[:rows])
+        finally:
+            scatter_add.scatter_add = saved
+        name = ROUTED["scatter_add"][route]
+        err[name] = max(err[name], require_equal(
+            f"[6c] insert_all of {rows} reads into {cbf_all.size} counters "
+            f"({route})", cbf_all.counters, ref.counters))
+        del ref
+    del hashes, hvalid, all_cbfs, cbf_all
+    for name in ("nthash_scan", "gather_counters", "conservative_step"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the counting "
                                  f"main path: {launches}")
+    require_routes("[6c] insert_all", launches, "scatter_add", all_routes)
+    if launches["tile_partition"] != all_routes.count("tiled"):
+        raise AssertionError("[6c] tile_partition launches != the tiled "
+                             "insert_all calls")
+    log(f"[6c] insert_all of {CB} reads into 2**30 u8 counters and of "
+        f"{C_SMALL_ROWS} into {C_SMALL_BYTES} took the routes the rule "
+        f"names: {all_routes}")
     bound = 3 * counting.fpr(cbf) + 1e-5
     frac = f_hit / f_valid
     log(f"[6c] inserted {N_C_INSERT}+1 batches of {CB}x{L} ({n_valid} valid "
@@ -526,6 +620,11 @@ def counting_phases(dev: torch.device, card_line: str):
     (cpos, cc), _ = step_inputs(pos, False)
     c_live = int((cpos[0] != -1).sum())
     cw_k, cw_p = wk.clone(), wk.clone()
+    # incrementAll's times from zeroed counters, restored before each
+    # repetition: no timed call finds its lanes saturated
+    wz = torch.zeros_like(wk)
+    add_plain = median_ms(lambda: scatter_add.scatter_add_plain(
+        words_p, pos, 2, cmax), C_REPS, C_INNER)
     ms = {
         "gather_counters": (
             kernel_times(lambda: gather_counters.gather_counters(
@@ -533,16 +632,19 @@ def counting_phases(dev: torch.device, card_line: str):
             median_ms(lambda: gather_counters.gather_counters_plain(
                 wk, pos, 2, "hit", 1))),
         "scatter_add": (
-            kernel_times(lambda: scatter_add.scatter_add(wk, pos, 2,
-                                                         cmax)),
-            median_ms(lambda: scatter_add.scatter_add_plain(words_p, pos, 2,
-                                                            cmax))),
+            kernel_times(lambda: scatter_add.scatter_add_direct(
+                wz, pos, 2, cmax), setup=wz.zero_), add_plain),
+        "scatter_add_tiled": (
+            kernel_times(lambda: scatter_add.scatter_add_tiled(
+                wz, pos, 2, cmax), setup=wz.zero_), add_plain),
         "conservative_step": (
             kernel_times(lambda: conservative_step.conservative_step(
                 cw_k, cpos, cc, 2, cmax)),
             median_ms(lambda: conservative_step.conservative_step_plain(
                 cw_p, cpos, cc, 2, cmax), C_REPS, C_INNER)),
     }
+    part_ms = kernel_times(lambda: tile_partition.tile_partition(
+        pos, cbf.nwords, 2))
     n_words = distinct_words(pos, 2)
     bounds = {
         # positions in, hits out; each distinct word read once
@@ -550,6 +652,7 @@ def counting_phases(dev: torch.device, card_line: str):
                                     + 4 * n_words),
         # positions in; each distinct word read and written once
         "scatter_add": bound_ms(4 * pos.numel() + 8 * n_words),
+        "scatter_add_tiled": bound_ms(4 * pos.numel() + 8 * n_words),
         # slot 0 of every frame in; the other slots and c of each live
         # frame in (a frame whose slot 0 is the sentinel stops there); each
         # distinct word of a live frame read and written once
@@ -560,6 +663,7 @@ def counting_phases(dev: torch.device, card_line: str):
     sector_floors({
         "gather_counters": 4 * pos.numel() + pos[0].numel() + 32 * n_sect,
         "scatter_add": 4 * pos.numel() + 64 * n_sect,
+        "scatter_add full sweep": 4 * pos.numel() + 8 * cbf.nwords,
         "conservative_step": 4 * cpos.shape[1] + (
             4 * (cpos.shape[0] - 1) + 8) * c_live
             + 64 * distinct_words(cpos, 5)}, "6e", card_line)
@@ -569,7 +673,10 @@ def counting_phases(dev: torch.device, card_line: str):
             f"counters; {card_line})")
     log(f"[6e] conservative_step at the closed form: "
         f"{c_live} live of {cpos.shape[1]} frames")
-    del cw_k, cw_p, words_p, cpos, cc, fpos
+    log(f"[6e] {pos.numel()} unit adds from zeroed counters: tile_partition "
+        f"alone {part_ms:.4f} ms; the rule's route: "
+        f"{scatter_add.route(cbf.nwords, pos.numel())} ({card_line})")
+    del cw_k, cw_p, words_p, cpos, cc, fpos, wz
 
     # the ungrouped insert by stage, on a fresh filter, and its idle share
     cbf_s = counting.create(C_BYTES, H, K, 1, counter_width=1, device=dev)
@@ -660,7 +767,7 @@ def mibf_phases(dev: torch.device, card_line: str):
     from btl_bloomfilter_tpu_torch import api, kernels
     from btl_bloomfilter_tpu_torch.io import mibf_format
     from btl_bloomfilter_tpu_torch.kernels import (_build, mibf_frame_scan,
-                                                   mibf_rank)
+                                                   mibf_rank, scatter_or)
     from btl_bloomfilter_tpu_torch.models import (mibf, mibf_construct,
                                                   mibf_query)
     from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
@@ -857,11 +964,18 @@ def mibf_phases(dev: torch.device, card_line: str):
     peak = torch.cuda.max_memory_allocated()
     m = pipe.m
     log(f"[7c] launches on the MIBF main path: {launches}")
-    for name in ("nthash_scan", "scatter_or", "mibf_rank",
-                 "mibf_frame_scan"):
+    for name in ("nthash_scan", "mibf_rank", "mibf_frame_scan"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the MIBF main "
                                  f"path: {launches}")
+    # phase 1: one insert of each reference's (L - k + 1) x h positions
+    p1_route = scatter_or.route(pipe.m.bv_words.numel(),
+                                (U_REF_L - K + 1) * H)
+    require_routes("[7c] phase 1", launches, "scatter_or",
+                   [p1_route] * U_REFS)
+    log(f"[7c] phase 1's {U_REFS} inserts took the route the rule names "
+        f"for {(U_REF_L - K + 1) * H} positions into "
+        f"{pipe.m.bv_words.numel()} words: {p1_route}")
     correct = sum(1 for r, s in zip(res, srcs) if r and r[0].id == s + 1)
     log(f"[7c] {U_REFS} x {U_REF_L} bases: bit vector {m.size} bits, "
         f"d_size {m.d_size} (occupancy {m.d_size / m.size:.4f}), "
@@ -1015,7 +1129,10 @@ def probe_phases(dev: torch.device, card_line: str):
                              device=dev, generator=gen)
 
     # ---- 8a. ring probe: the insert step through the sorted scatters -----
-    res = drive("8a", ring_probe.main, ("nthash_scan", "scatter_or",
+    # the probe's main path inserts through the route the rule names
+    main_route = ROUTED["scatter_or"][scatter_or.route(MAIN_SIZE // 32,
+                                                       H * B * W)]
+    res = drive("8a", ring_probe.main, ("nthash_scan", main_route,
                                         "scatter_or_sorted",
                                         "scatter_or_sorted_delta"))
     for label in ("delta ring", "in-place"):
@@ -1047,9 +1164,10 @@ def probe_phases(dev: torch.device, card_line: str):
     bounds["scatter_or_sorted_delta"] = bound_ms(4 * n_pos
                                                  + 8 * start.numel())
     pos, _s, _v = nthash_scan.positions_planes(res["codes"], K, H, MAIN_SIZE)
-    unsorted_ms = kernel_times(lambda: scatter_or.scatter_or(words_k,
-                                                             pos))
-    sorted_ms = kernel_times(lambda: scatter_or.scatter_or(words_k, pos_d))
+    unsorted_ms = kernel_times(lambda: scatter_or.scatter_or_direct(
+        words_k, pos))
+    sorted_ms = kernel_times(lambda: scatter_or.scatter_or_direct(words_k,
+                                                                  pos_d))
     prep_ms = median_ms(lambda: ring_probe.sorted_positions(res["codes"],
                                                             MAIN_SIZE))
     log(f"[8a] scatter_or_sorted and scatter_or_sorted_delta at the step's "
@@ -1059,7 +1177,8 @@ def probe_phases(dev: torch.device, card_line: str):
         log(f"[8a] {name}: kernel {ms[name][0]:.4f} ms, plain "
             f"{ms[name][1]:.4f} ms, bound {bounds[name]:.4f} ms "
             f"({card_line})")
-    log(f"[8a] scatter_or (atomicOr) on the same positions unsorted "
+    log(f"[8a] scatter_or (atomicOr, the direct route) on the same "
+        f"positions unsorted "
         f"{unsorted_ms:.4f} ms, sorted {sorted_ms:.4f} ms; hash + sort + "
         f"dedupe {prep_ms:.4f} ms ({card_line})")
     del res, start, words_k, words_p, pos_d, pos_s, pos
@@ -1144,8 +1263,9 @@ def probe_phases(dev: torch.device, card_line: str):
     log(f"[8d] window_scatter (scatter and null) kernel == plain (bitwise); "
         f"every position applied with {idx.shape[0]} slots: "
         f"{res['complete']}; null {res['ms']['null']:.4f} ms, scatter "
-        f"{res['ms']['scatter']:.4f} ms, scatter_or (atomicOr) on the same "
-        f"positions {res['ms']['scatter_or']:.4f} ms ({card_line})")
+        f"{res['ms']['scatter']:.4f} ms, scatter_or (atomicOr, the direct "
+        f"route) on the same positions {res['ms']['scatter_or']:.4f} ms "
+        f"({card_line})")
     del idx, pos, words, start
     torch.cuda.empty_cache()
 
@@ -1174,7 +1294,7 @@ def probe_phases(dev: torch.device, card_line: str):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     log(f"[8e] launches: { {k: v for k, v in counts.items() if v} }")
-    for name in ("nthash_scan", "gather_words", "scatter_or"):
+    for name in ("nthash_scan", "gather_words", main_route):
         if counts[name] < 1:
             raise AssertionError(f"{name} never launched in 8e: {counts}")
     with plain_kernels():
@@ -1205,7 +1325,8 @@ def main() -> None:
     from btl_bloomfilter_tpu_torch import api, kernels
     from btl_bloomfilter_tpu_torch.io import bf_format
     from btl_bloomfilter_tpu_torch.kernels import (_build, gather_words,
-                                                   nthash_scan, scatter_or)
+                                                   nthash_scan, scatter_or,
+                                                   tile_partition)
     from btl_bloomfilter_tpu_torch.models import bloom, kmer_bloom
 
     dev = torch.device("cuda", 0)
@@ -1226,7 +1347,13 @@ def main() -> None:
     # ---- 2. kernels against their plain versions ------------------------
     rng = np.random.default_rng(SEED)
     codes = torch.from_numpy(make_codes(rng)).to(dev)
-    err = {"nthash_scan": 0, "scatter_or": 0, "gather_words": 0}
+    # bench.py's Bloom batch, ACGT only (phase 5 inserts the same codes)
+    acgt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, size=(B, L), dtype=np.uint8)).to(dev)
+    err = {"nthash_scan": 0, "scatter_or": 0, "scatter_or_tiled": 0,
+           "tile_partition": 0, "gather_words": 0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
 
     hk = nthash_scan.hash_frames_planes(codes, K, H)
     hp = nthash_scan.hash_frames_planes_plain(codes, K, H)
@@ -1285,48 +1412,106 @@ def main() -> None:
             f"kernel == plain (bitwise); valid {int(valid.sum())}/{valid.numel()}, "
             f"hits {int(hit_k.sum())}, words set "
             f"{bloom.get_pop(bf_k)} bits")
-        del bf_k, words_p, hit_k, hit_p, pk, pp, pos, half
+        del bf_k, words_p, hit_k, hit_p, pk, pp, half
+        # each route of the insert and the tile partition, on a filter with
+        # bits set, at the 2%-N batch and at bench.py's ACGT batch
+        nwords = (size + 31) // 32
+        start = torch.randint(-(1 << 31), 1 << 31, (nwords,),
+                              dtype=torch.int32, device=dev,
+                              generator=gen) & 0x01010101
+        apos = nthash_scan.positions_planes(acgt, K, H, size)[0]
+        for label, bpos in (("2% N", pos), ("ACGT", apos)):
+            ref = scatter_or.scatter_or_plain(start.clone(), bpos)
+            for route, name in ROUTED["scatter_or"].items():
+                fn = getattr(scatter_or, f"scatter_or_{route}")
+                err[name] = max(err[name], require_equal(
+                    f"size {size} {label} scatter_or {route}",
+                    fn(start.clone(), bpos), ref))
+            err["tile_partition"] = max(err["tile_partition"], partition_err(
+                f"size {size} {label} tile_partition",
+                tile_partition.tile_partition(bpos, nwords, 5),
+                tile_partition.tile_partition_plain(bpos, nwords, 5), 5))
+            del ref
+        log(f"[2] size {size}: scatter_or direct and tiled, and "
+            f"tile_partition ({tile_partition.ntiles(nwords)} "
+            f"tiles of {1 << tile_partition.TILE_SHIFT} words), kernel == "
+            f"plain (bitwise; the partition's order inside a tile is free) "
+            f"at the 2%-N batch and the ACGT batch; the rule's route for "
+            f"{pos.numel()} positions: "
+            f"{scatter_or.route(nwords, pos.numel())}")
+        del start, apos, pos
         torch.cuda.empty_cache()
 
-    # per-kernel times at the main-path shape (size 2**30)
-    pos, _s, _v = nthash_scan.positions_planes(codes, K, H, MAIN_SIZE)
-    words_k = torch.zeros((MAIN_SIZE + 31) // 32, dtype=torch.int32,
-                          device=dev)
+    # per-kernel times at the main path's shape: bench.py's ACGT batch into
+    # 2**30 bits (the 2%-N batch has about 53% live positions); each
+    # scatter from a zeroed filter
+    pos, _s, _v = nthash_scan.positions_planes(acgt, K, H, MAIN_SIZE)
+    nwords = MAIN_SIZE // 32
+    words_k = torch.zeros(nwords, dtype=torch.int32, device=dev)
     words_p = words_k.clone()
+    or_plain = median_ms(lambda: scatter_or.scatter_or_plain(words_p, pos))
     ms = {
         "nthash_scan": (
             kernel_times(lambda: nthash_scan.positions_planes(
-                codes, K, H, MAIN_SIZE)),
+                acgt, K, H, MAIN_SIZE)),
             median_ms(lambda: nthash_scan.positions_planes_plain(
-                codes, K, H, MAIN_SIZE))),
+                acgt, K, H, MAIN_SIZE))),
         "scatter_or": (
-            kernel_times(lambda: scatter_or.scatter_or(words_k, pos)),
-            median_ms(lambda: scatter_or.scatter_or_plain(words_p, pos))),
-        "gather_words": (
-            kernel_times(lambda: gather_words.gather_words(words_k, pos)),
-            median_ms(lambda: gather_words.gather_words_plain(words_p,
-                                                              pos))),
+            kernel_times(lambda: scatter_or.scatter_or_direct(words_k, pos),
+                         setup=words_k.zero_), or_plain),
+        "scatter_or_tiled": (
+            kernel_times(lambda: scatter_or.scatter_or_tiled(words_k, pos),
+                         setup=words_k.zero_), or_plain),
+        "tile_partition": (
+            kernel_times(lambda: tile_partition.tile_partition(pos, nwords,
+                                                               5)),
+            median_ms(lambda: tile_partition.tile_partition_plain(
+                pos, nwords, 5))),
     }
+    scatter_or.scatter_or(words_k, pos)     # every query below hits
+    ms["gather_words"] = (
+        kernel_times(lambda: gather_words.gather_words(words_k, pos)),
+        median_ms(lambda: gather_words.gather_words_plain(words_p, pos)))
     n_words = distinct_words(pos, 5)
+    live = int((pos != -1).sum())
     bounds = {
         # codes in; positions, strand and valid out
-        "nthash_scan": bound_ms(codes.numel() + 4 * pos.numel()
+        "nthash_scan": bound_ms(acgt.numel() + 4 * pos.numel()
                                 + 2 * pos[0].numel()),
         # positions in; each distinct word read and written once
         "scatter_or": bound_ms(4 * pos.numel() + 8 * n_words),
+        "scatter_or_tiled": bound_ms(4 * pos.numel() + 8 * n_words),
+        # positions in; the live ones and the tile offsets out
+        "tile_partition": bound_ms(4 * pos.numel() + 4 * live + 4 * (
+            tile_partition.ntiles(nwords) + 1)),
         # positions in, hits out; each distinct word read once
         "gather_words": bound_ms(4 * pos.numel() + pos[0].numel()
                                  + 4 * n_words)}
     n_sect = distinct_words(pos, 8)
     sector_floors({
         "scatter_or": 4 * pos.numel() + 64 * n_sect,
+        "scatter_or full sweep": 4 * pos.numel() + 8 * nwords,
         "gather_words": 4 * pos.numel() + pos[0].numel() + 32 * n_sect},
         "2", card_line)
     for name, (tk, tp) in ms.items():
         log(f"[2] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
-            f"{bounds[name]:.4f} ms ({B}x{L}, k={K}, h={H}, size 2**30; "
-            f"{card_line})")
-    del words_k, words_p, pos
+            f"{bounds[name]:.4f} ms ({B}x{L} ACGT, {pos.numel()} positions, "
+            f"k={K}, h={H}, size 2**30; {card_line})")
+    log(f"[2] the rule's route at that batch: "
+        f"{scatter_or.route(nwords, pos.numel())}")
+    # both routes on the 2%-N batch too, the reads the CLIs take: the rule
+    # counts its sentinels as positions
+    npos = nthash_scan.positions_planes(codes, K, H, MAIN_SIZE)[0]
+    n_times = {route: kernel_times(
+        lambda fn=getattr(scatter_or, f"scatter_or_{route}"): fn(words_k,
+                                                                 npos),
+        setup=words_k.zero_) for route in ROUTED["scatter_or"]}
+    log(f"[2] scatter_or at the 2%-N batch ({int((npos != -1).sum())} live "
+        f"of {npos.numel()} positions, size 2**30): " + ", ".join(
+            f"{r} {t:.4f} ms" for r, t in n_times.items())
+        + f"; the rule's route {scatter_or.route(nwords, npos.numel())} "
+        f"({card_line})")
+    del words_k, words_p, pos, npos
     torch.cuda.empty_cache()
 
     # ---- 3. the main path ----------------------------------------------
@@ -1353,10 +1538,15 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"[3] launches on the main path: {launches}")
-    for name in ("nthash_scan", "scatter_or", "gather_words"):
+    for name in ("nthash_scan", "gather_words"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the main path: "
                                  f"{launches}")
+    route = scatter_or.route(MAIN_SIZE // 32, H * B * W)
+    require_routes("[3] the Bloom insert", launches, "scatter_or",
+                   [route] * N_INSERT)
+    log(f"[3] the {N_INSERT} inserts took the route the rule names for "
+        f"{H * B * W} positions into 2**30 bits: {route}")
     bf = pipe.bf
     same_frac = n_hit / n_valid
     fresh_frac = f_hit / f_valid
@@ -1463,11 +1653,14 @@ def main() -> None:
 
     # ---- 6. the counting filter -------------------------------------------
     c_err, c_ms, c_launches, c_bounds = counting_phases(dev, card_line)
-    err.update(c_err)
+    for name, e in c_err.items():
+        err[name] = max(err.get(name, 0), e)
     ms.update(c_ms)
     bounds.update(c_bounds)
-    for name in c_err:
+    for name in ("gather_counters", "scatter_add", "scatter_add_tiled",
+                 "conservative_step"):
         launches[name] = c_launches[name]
+    launches["tile_partition"] += c_launches["tile_partition"]
 
     # ---- 7. the multi-index Bloom filter ----------------------------------
     m_err, m_ms, m_launches, m_bounds = mibf_phases(dev, card_line)
@@ -1476,6 +1669,9 @@ def main() -> None:
     bounds.update(m_bounds)
     for name in m_err:
         launches[name] = m_launches[name]
+    # the Bloom insert runs on two main paths: phase 3's and MIBF phase 1
+    for name in ("scatter_or", "scatter_or_tiled", "tile_partition"):
+        launches[name] += m_launches[name]
 
     # ---- 8. the probes and insert_and_check ------------------------------
     p_err, p_ms, p_launches, p_bounds, library = probe_phases(dev, card_line)
@@ -1533,7 +1729,23 @@ def main() -> None:
          "replaces": "btl_bloomfilter_tpu/models/counting.py:699 and "
                      "btl_bloomfilter_tpu/models/counting.py:389, on the "
                      "path of btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
+        {"name": "scatter_or_tiled", "route": "cuda",
+         "source": src + "scatter_or.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_ring.py:480"},
+        {"name": "scatter_add_tiled", "route": "cuda",
+         "source": src + "scatter_add.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
+        {"name": "tile_partition", "route": "cuda",
+         "source": src + "tile_partition.cu",
+         "replaces": "btl_bloomfilter_tpu/models/bloom.py:209 and "
+                     "btl_bloomfilter_tpu/models/counting.py:1094: the "
+                     "sorts ahead of "
+                     "btl_bloomfilter_tpu/kernels/scatter_ring.py:480 and "
+                     "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
     ]}
+    idle = [r["name"] for r in record["kernels"] if launches[r["name"]] < 1]
+    if idle:
+        raise AssertionError(f"never launched on their main paths: {idle}")
     for r in record["kernels"]:
         # library: torch.sort on the block view for the sorts, copy_ for the
         # sweep; no single PyTorch call computes the other functions

@@ -18,7 +18,7 @@ from btl_bloomfilter_tpu_torch import kernels
 from btl_bloomfilter_tpu_torch.kernels import (conservative_step,
                                                gather_counters, gather_words,
                                                nthash_scan, scatter_add,
-                                               scatter_or)
+                                               scatter_or, tile_partition)
 from btl_bloomfilter_tpu_torch.models import bloom, counting, kmer_bloom
 from btl_bloomfilter_tpu_torch.ops import u64
 from btl_bloomfilter_tpu_torch.probes import partition_probe
@@ -123,7 +123,9 @@ def test_kmer_bloom_on_cuda_matches_cpu(dev):
     assert torch.equal(kmer_bloom.contains_kmers(bf_gpu, kmers).cpu(),
                        kmer_bloom.contains_kmers(bf_cpu, kmers))
     counts = kernels.launch_counts()
+    # a 1,000,000-bit filter takes the direct route
     assert counts["nthash_scan"] == 3 and counts["scatter_or"] == 1
+    assert counts["scatter_or_tiled"] == counts["tile_partition"] == 0
     assert counts["gather_words"] == 2
 
 
@@ -280,6 +282,198 @@ def test_scatter_add_saturates_without_touching_neighbours(dev, shift):
     scatter_add.scatter_add(words, pos, shift, cmax, inc)
     lanes[1] = cmax
     assert torch.equal(words, packed(lanes))
+
+
+# ---------------------------------------------------------------------------
+# the tile partition and the tiled routes of the two scatters
+# ---------------------------------------------------------------------------
+
+def edge_positions(kind, nwords, word_shift, rng, n=60_000):
+    """uint64 positions of one edge case for an array of nwords words."""
+    sent = 0xFFFFFFFF
+    limit = min((nwords << word_shift) + 5000, 1 << 32)
+    if kind == "empty":
+        return np.zeros(0, np.uint64)
+    if kind == "all_sentinels":
+        return np.full(1000, sent, np.uint64)
+    pos = rng.integers(0, limit, size=n, dtype=np.uint64)
+    pos[rng.random(n) < 0.05] = sent
+    if kind == "hot":             # one counter or bit repeated many times
+        pos[:5000] = pos[7]
+    if kind == "last_tile":       # all in the ragged last tile
+        first = ((nwords - 1) >> tile_partition.TILE_SHIFT) \
+            << tile_partition.TILE_SHIFT
+        pos = rng.integers(first << word_shift, nwords << word_shift,
+                           size=n, dtype=np.uint64)
+    return pos
+
+
+def canonical(offsets, grouped):
+    """(offsets, the live head sorted): the tile grouping with the free
+    order inside a tile taken out."""
+    total = int(offsets[-1])
+    return offsets, torch.sort(grouped[:total].to(torch.int64)
+                               & 0xFFFFFFFF).values
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "all_sentinels", "hot",
+                                  "last_tile"])
+@pytest.mark.parametrize("nwords,word_shift", [
+    (1, 5), (37, 2), ((1 << 20) + 3, 5), ((1 << 20) + 3, 2),
+    ((1 << 27) - 2, 5), (1 << 15, 0), ((1 << 20) + 3, 0),
+    (tile_partition.MAX_TILES << tile_partition.TILE_SHIFT, 0),
+    ((tile_partition.MAX_TILES << tile_partition.TILE_SHIFT) - 7, 2)])
+def test_tile_partition_kernel_matches_plain(dev, kind, nwords, word_shift):
+    """One pass (up to 256 tiles) and two, up to MAX_TILES tiles."""
+    rng = np.random.default_rng(nwords + word_shift)
+    pos = edge_positions(kind, nwords, word_shift, rng)
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    before = tile_partition.KERNEL.launches
+    got = tile_partition.tile_partition(pos, nwords, word_shift)
+    ref = tile_partition.tile_partition_plain(pos, nwords, word_shift)
+    assert tile_partition.KERNEL.launches == before + 1
+    g_off, g_key = canonical(*got)
+    r_off, r_key = canonical(*ref)
+    assert torch.equal(g_off, r_off) and torch.equal(g_key, r_key)
+    # every position sits in its tile's run
+    total = int(g_off[-1])
+    tiles = torch.repeat_interleave(
+        torch.arange(g_off.numel() - 1, device=dev),
+        (g_off[1:] - g_off[:-1]).long())
+    p = got[1][:total].to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal((p >> word_shift) >> tile_partition.TILE_SHIFT, tiles)
+
+
+ROUTES = {"direct": (scatter_or.scatter_or_direct, scatter_or.KERNEL,
+                     scatter_add.scatter_add_direct),
+          "tiled": (scatter_or.scatter_or_tiled, scatter_or.TILED_KERNEL,
+                    scatter_add.scatter_add_tiled)}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("kind", ["random", "empty", "all_sentinels", "hot",
+                                  "last_tile"])
+@pytest.mark.parametrize("nwords", [1, 37, (1 << 20) + 3, (1 << 27) - 2])
+def test_scatter_or_routes_match_plain(dev, route, kind, nwords):
+    rng = np.random.default_rng(nwords + 7)
+    pos = edge_positions(kind, nwords, 5, rng)
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    start = (random_words(nwords, 3) & 0x01010101).to(dev)
+    fn, kernel, _ = ROUTES[route]
+    before = kernel.launches
+    got = fn(start.clone(), pos)
+    ref = scatter_or.scatter_or_plain(start.clone(), pos)
+    assert torch.equal(got, ref)
+    assert kernel.launches == before + int(pos.numel() > 0)
+
+
+def test_tiled_scatters_on_unaligned_words(dev):
+    """An array view 4 bytes past a 16-byte boundary: the add's sweep loads
+    and stores its tiles 4 bytes at a time."""
+    rng = np.random.default_rng(5)
+    nwords = (1 << 16) + 9
+    backing = torch.zeros(nwords + 1, dtype=torch.int32, device=dev)
+    words = backing[1:]
+    pos = torch.from_numpy(rng.integers(0, nwords * 32, size=50_000)
+                           .astype(np.uint32).view(np.int32)).to(dev)
+    scatter_or.scatter_or_tiled(words, pos)
+    ref = scatter_or.scatter_or_plain(torch.zeros(nwords, dtype=torch.int32,
+                                                  device=dev), pos)
+    assert torch.equal(words, ref) and int(backing[0]) == 0
+    backing.zero_()
+    pos = torch.from_numpy(rng.integers(0, nwords, size=50_000)
+                           .astype(np.uint32).view(np.int32)).to(dev)
+    scatter_add.scatter_add_tiled(words, pos, 0, 0xFFFFFFFF)
+    ref = scatter_add.scatter_add_plain(torch.zeros_like(ref), pos, 0,
+                                        0xFFFFFFFF)
+    assert torch.equal(words, ref) and int(backing[0]) == 0
+
+
+def test_scatter_or_rule_takes_the_tiled_route_on_the_card(dev):
+    nwords, npos = 1 << 25, 1 << 22
+    assert scatter_or.route(nwords, npos) == "tiled"
+    rng = np.random.default_rng(9)
+    pos = torch.from_numpy(rng.integers(0, nwords * 32, size=npos)
+                           .astype(np.uint32).view(np.int32)).to(dev)
+    words = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    kernels.reset_launch_counts()
+    scatter_or.scatter_or(words, pos)
+    counts = kernels.launch_counts()
+    assert counts["scatter_or_tiled"] == counts["tile_partition"] == 1
+    assert counts["scatter_or"] == 0
+    assert torch.equal(words, scatter_or.scatter_or_plain(
+        torch.zeros_like(words), pos))
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("nwords", [1, 37, (1 << 18) + 5])
+@pytest.mark.parametrize("kind", ["random", "hot", "last_tile"])
+def test_scatter_add_routes_match_plain(dev, route, shift, nwords, kind):
+    """Unit adds by each route, a hot counter driven past counter_max;
+    weighted ones (full uint32 increments with zeros among them) by the
+    direct route, the only one that takes them."""
+    rng = np.random.default_rng(nwords * 3 + shift)
+    cmax = (1 << (32 >> shift)) - 1
+    start = random_words(nwords, nwords).to(dev)
+    pos = edge_positions(kind, nwords, shift, rng)
+    n = pos.size
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    inc = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+    inc[rng.random(n) < 0.3] = rng.integers(0, 4, size=1)[0]
+    inc = torch.from_numpy(inc.astype(np.uint32).view(np.int32)).to(dev)
+    for c in (None, inc) if route == "direct" else (None,):
+        got = ROUTES[route][2](start.clone(), pos, shift, cmax,
+                               *(() if c is None else (c,)))
+        ref = scatter_add.scatter_add_plain(start.clone(), pos, shift, cmax,
+                                            c)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+def test_scatter_add_tiled_saturates_without_touching_neighbours(dev, shift):
+    per, bits = 1 << shift, 32 >> shift
+    cmax = (1 << bits) - 1
+    nwords = (1 << 16) + 3
+    words = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    # 20000 unit adds onto counter 1, 300 onto the last counter
+    last = (nwords << shift) - 1
+    pos = torch.tensor([1] * 20000 + [last] * 300, dtype=torch.int32,
+                       device=dev)
+    scatter_add.scatter_add_tiled(words, pos, shift, cmax)
+    ref = scatter_add.scatter_add_plain(torch.zeros_like(words), pos, shift,
+                                        cmax)
+    assert torch.equal(words, ref)
+    lanes = words.cpu().numpy().view({0: "<u4", 1: "<u2", 2: "<u1"}[shift])
+    assert lanes[1] == min(20000, cmax) and lanes[last] == min(300, cmax)
+    assert np.count_nonzero(lanes) == 2
+
+
+def test_scatter_add_rule_takes_the_tiled_route_on_the_card(dev):
+    nwords, npos = 1 << 26, 1 << 22
+    assert scatter_add.route(nwords, npos) == "tiled"
+    rng = np.random.default_rng(10)
+    pos = torch.from_numpy(rng.integers(0, nwords * 4, size=npos)
+                           .astype(np.uint32).view(np.int32)).to(dev)
+    words = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    kernels.reset_launch_counts()
+    scatter_add.scatter_add(words, pos, 2, 255)
+    counts = kernels.launch_counts()
+    assert counts["scatter_add_tiled"] == counts["tile_partition"] == 1
+    assert counts["scatter_add"] == 0
+    assert torch.equal(words, scatter_add.scatter_add_plain(
+        torch.zeros_like(words), pos, 2, 255))
+    # weighted adds at the same shape take the direct route
+    assert scatter_add.route(nwords, npos, weighted=True) == "direct"
+    inc = torch.from_numpy(rng.integers(0, 3, size=npos).astype(np.int32)
+                           ).to(dev)
+    kernels.reset_launch_counts()
+    got = scatter_add.scatter_add(words.clone(), pos, 2, 255, inc)
+    counts = kernels.launch_counts()
+    assert counts["scatter_add"] == 1
+    assert counts["scatter_add_tiled"] == counts["tile_partition"] == 0
+    assert torch.equal(got, scatter_add.scatter_add_plain(
+        words.clone(), pos, 2, 255, inc))
 
 
 def cbf_stream(n, h, size_bytes, repeat, width, seed):
@@ -727,7 +921,9 @@ def test_insert_and_check_on_cuda_matches_cpu(dev, form):
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
     counts = kernels.launch_counts()
+    # a 50,000-bit filter takes the direct route
     assert counts["gather_words"] == 2 and counts["scatter_or"] == 2
+    assert counts["scatter_or_tiled"] == 0
     if form == "insert_and_check_sequential":
         again = valid[20:] & valid[:20]     # both copies valid
         assert bool(out[0][1][1][20:][again].all())

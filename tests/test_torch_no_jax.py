@@ -17,6 +17,7 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.models.counting, "
             "btl_bloomfilter_tpu_torch.kernels.gather_counters, "
             "btl_bloomfilter_tpu_torch.kernels.scatter_add, "
+            "btl_bloomfilter_tpu_torch.kernels.tile_partition, "
             "btl_bloomfilter_tpu_torch.kernels.conservative_step, "
             "btl_bloomfilter_tpu_torch.kernels.mibf_rank, "
             "btl_bloomfilter_tpu_torch.kernels.mibf_frame_scan, "
