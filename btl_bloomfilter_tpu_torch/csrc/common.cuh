@@ -13,9 +13,13 @@
 // Threads per block of every kernel here.
 #define BTL_BLOCK 256
 
-// Select the device the tensors live on, so the launch cannot land on
-// another card than the stream's.
+// Make sure the launch lands on the card the tensors live on. The wrapper
+// makes that device current before the call (kernels/_build.py), so this
+// only reads the current device; it sets it where a caller did not.
 static inline cudaError_t btl_set_device(int device) {
+    int cur;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err != cudaSuccess || cur == device) return err;
     return cudaSetDevice(device);
 }
 

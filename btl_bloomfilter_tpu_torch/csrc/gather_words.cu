@@ -13,6 +13,11 @@
 // sector. Design: one thread per window in a grid-stride loop; the h
 // position loads are coalesced across the warp (plane-major [h, B, W]); a
 // window stops loading at its first clear bit, so misses cost fewer loads.
+// Measured on the H100 at bench.py's batch (PERF.md), this chain of loads
+// already runs faster than torch's words[idx] over the same word indices,
+// and a redesign with four windows a thread, slot 0 first and the other
+// planes' loads issued together, ran no faster (one window a thread) or
+// slower (four): random-sector DRAM throughput bounds it, not the chain.
 // Semantics follow the reference: a window whose slot-0 position is the
 // sentinel is False; a sentinel in another slot reads bit 0; a word index
 // past the filter is clamped to the last word, as an XLA gather clamps.

@@ -7,49 +7,59 @@
 // The TPU kernel walks 128-lane column blocks in order, carrying a prefix-
 // XOR from block to block, because the TPU has no 64-bit integers and
 // favours long vector scans. CUDA blocks run in no order, so nothing is
-// carried here: each thread computes its own window directly,
+// carried from block to block: each thread takes a run of R consecutive
+// windows and rolls its hashes along the run with ntHash's recurrence,
 //
-//   fh(p) = XOR_j srol^{k-1-j}(seed(s[p+j])),  rh(p) = XOR_j srol^{j}(rcseed(s[p+j]))
+//   fh(p+1) = srol(fh(p)) ^ srol^k(seed(s[p])) ^ seed(s[p+k])
+//   rh(p+1) = sror(rh(p)) ^ sror(rcseed(s[p])) ^ srol^(k-1)(rcseed(s[p+k]))
 //
-// from per-block tables of the pre-rotated seeds (5 codes x k offsets, in
-// shared memory), with native uint64_t arithmetic. Any k >= 1: the block
-// walks the k offsets in pieces of KPIECE, rebuilding the two tables and
-// the code tile for each piece, so shared memory stays at 10,623 bytes
-// whatever k is. srol^t has period lcm(33, 31) = 1023 in t, which the
-// exponents k - 1 - j and j pass for k > 1023.
+// (srol: ntHash's split rotation, the low 33 and the high 31 bits rotating
+// independently; sror its inverse). The two XOR terms of a step depend only
+// on the pair (out, in) of base codes, so the host builds them once per k
+// as two 5 x 5 tables (kernels/nthash_scan.py roll_tables; N's seed is 0),
+// and the kernel keeps them in shared memory. A run's first window is
+// rolled in from the all-N window (hashes 0) with k steps whose out-base is
+// N: the same step, with no table by offset, so any k takes one code path.
 //
-// What bounds it on the H100: the output. At 512 reads x 2048 bases, k=31,
-// h=4, it writes 16 B of positions (or 32 B of hashes) plus 2 B of flags per
-// window against 1 B of codes read. The 2k shared-memory table lookups per
-// window are the compute side. Design: one block per (read, 256-window
-// tile); the tile's codes are staged in shared memory, once for k <= 128;
-// thread t writes window t of the tile, so every store of every h-plane is
-// coalesced. The mod by a non-power-of-two size is a Barrett multiply
-// (magic from the host), a mask for a power of two.
+// What bounds it on the H100: at 512 reads x 2048 bases, k=31, h=4, it
+// writes 16 B of positions (or 32 B of hashes) plus 2 B of flags per window
+// against 1 B of codes read: 0.0059 ms at 3.35 TB/s. The earlier design
+// computed every window from nothing, k code loads and 2k table loads from
+// shared memory a window, and the load units bounded it at 4.8x that. A
+// roll step is two table loads and two split rotations, so a window costs
+// (k + R - 1) / R steps. Codes are read from global memory four to a load
+// (R is a multiple of 4, so every lane of a block has the same alignment
+// and the reload branch is uniform). The stores stay coalesced: a block
+// hashes a tile of 2048 windows of one read in 2048 / R runs, stages their
+// canonical hashes and flags in shared memory, then thread t derives and
+// writes windows t, t + 2048 / R, ..., every plane's store contiguous
+// across the warp. The mod by a non-power-of-two size is
+// a Barrett multiply (magic from the host), a mask for a power of two.
+
+#include <cstring>
 
 #include "common.cuh"
 
-#define KPIECE 128                   // offsets per table piece
-#define NUM_CODES 5
-
-__constant__ uint64_t kSeeds[4] = {
-    0x3C8BFBB395C60474ULL,   // A
-    0x3193C18562A02B4CULL,   // C
-    0x20323ED082572324ULL,   // G
-    0x295549F54BE24456ULL,   // T
-};
 #define MULTI_SEED 0x90B45D39FB6DA1FAULL
 #define MULTI_SHIFT 27
+#define CODE_N 4
 
-// ntHash's split rotation to the power t: the low 33 and the high 31 bits
-// rotate independently.
-__device__ __forceinline__ uint64_t srol_pow(uint64_t v, unsigned t) {
-    const uint64_t mask33 = (1ULL << 33) - 1;
-    unsigned t33 = t % 33, t31 = t % 31;
-    uint64_t lo = v & mask33, hi = v >> 33;
-    if (t33) lo = ((lo << t33) | (lo >> (33 - t33))) & mask33;
-    if (t31) hi = ((hi << t31) | (hi >> (31 - t31))) & 0x7FFFFFFFULL;
-    return (hi << 33) | lo;
+// The roll's XOR terms by (out, in) code pair, index out * 5 + in.
+struct RollTables {
+    uint64_t f[25];   // srol^k(seed(out)) ^ seed(in)
+    uint64_t r[25];   // sror(rcseed(out)) ^ srol^(k-1)(rcseed(in))
+};
+
+// srol and sror: the low 33 and the high 31 bits rotate by one, each on
+// its own.
+__device__ __forceinline__ uint64_t srol1(uint64_t v) {
+    return ((v << 1) & ~(1ULL << 33)) | ((v >> 32) & 1ULL)
+           | ((v >> 30) & (1ULL << 33));
+}
+
+__device__ __forceinline__ uint64_t sror1(uint64_t v) {
+    return ((v >> 1) & ~(1ULL << 32)) | ((v & 1ULL) << 32)
+           | ((v & (1ULL << 33)) << 30);
 }
 
 // v % size for size < 2**32: a mask when magic == 0 (size a power of two),
@@ -63,99 +73,146 @@ __device__ __forceinline__ uint32_t mod_size(uint64_t v, uint64_t size,
     return (uint32_t)r;
 }
 
-// PIECES is false for k <= KPIECE: one piece, compiled as a straight line
-// so that short k keeps the per-window cost of a kernel with one table.
-template <bool PIECES>
+// Base codes in order from a byte address, read four to an aligned 32-bit
+// load; the next word is loaded only when the bytes are needed, so no load
+// reaches past the word that holds the last code read.
+struct CodeReader {
+    const uint32_t* w;
+    uint32_t cur;
+    int sh;
+
+    __device__ __forceinline__ explicit CodeReader(const uint8_t* p) {
+        const uintptr_t a = (uintptr_t)p;
+        w = (const uint32_t*)(a & ~(uintptr_t)3);
+        sh = (int)(a & 3) * 8;
+        cur = __ldg(w);
+    }
+
+    __device__ __forceinline__ int next() {
+        if (sh == 32) {
+            cur = __ldg(++w);
+            sh = 0;
+        }
+        const uint32_t c = (cur >> sh) & 0xFFu;
+        sh += 8;
+        return c < 4 ? (int)c : CODE_N;
+    }
+};
+
+// Windows a block: one tile of TILE windows of a read, in TILE / R runs.
+#define TILE 2048
+
+// One block per (read, tile); thread t < TILE / R rolls the tile's windows
+// t*R .. t*R + R - 1, then every thread derives and writes windows.
+template <int R>
 __global__ void __launch_bounds__(BTL_BLOCK)
 nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
                    long long L, int k, int h, long long W,
                    long long tiles_per_row, int positions_mode,
-                   uint64_t size, uint64_t magic, int shift,
+                   uint64_t size, uint64_t magic, int shift, RollTables tab,
                    void* __restrict__ out, bool* __restrict__ strand,
                    bool* __restrict__ valid) {
-    __shared__ uint64_t tf[KPIECE * NUM_CODES];
-    __shared__ uint64_t tr[KPIECE * NUM_CODES];
-    __shared__ uint8_t sc[BTL_BLOCK + KPIECE - 1];
+    constexpr int NT = TILE / R;     // runs a tile, at most BTL_BLOCK
+    // run r of thread t at s_canon[r * STRIDE + t]: the roll's stores are
+    // contiguous across a warp, and the padding puts the emit phase's
+    // loads (16 lanes on the R runs of one thread) in distinct banks
+    constexpr int STRIDE = NT + 1;
+    __shared__ uint64_t s_f[25], s_r[25];
+    __shared__ uint64_t s_canon[R * STRIDE];
+    __shared__ uint64_t s_flags[NT];   // 2 bits a window: strand, ok
+
+    if (threadIdx.x < 25) {
+        s_f[threadIdx.x] = tab.f[threadIdx.x];
+        s_r[threadIdx.x] = tab.r[threadIdx.x];
+    }
+    __syncthreads();
 
     const long long b = blockIdx.x / tiles_per_row;
-    const long long p0 = (blockIdx.x % tiles_per_row) * BTL_BLOCK;
-    const long long p = p0 + threadIdx.x;
-    const uint8_t* row = codes + b * L + p0;
+    const long long p0 = (blockIdx.x % tiles_per_row) * TILE;
+    const long long p = p0 + (long long)threadIdx.x * R;
+    const uint8_t* row = codes + b * L;
 
-    uint64_t fh = 0, rh = 0;
-    int n_count = 0;
-    for (int j0 = 0; j0 < (PIECES ? k : 1); j0 += KPIECE) {
-        const int kp = !PIECES ? k : k - j0 < KPIECE ? k - j0 : KPIECE;
-        if (PIECES && j0) __syncthreads();   // the last piece's tables read
-        // tf[j][c] = srol^{k-1-j}(seed c), tr[j][c] = srol^{j}(rcseed c)
-        // for the piece's offsets j = j0 + jj; N -> 0
-        for (int i = threadIdx.x; i < kp * NUM_CODES; i += blockDim.x) {
-            const int j = j0 + i / NUM_CODES, c = i % NUM_CODES;
-            tf[i] = c < 4 ? srol_pow(kSeeds[c], (unsigned)(k - 1 - j)) : 0;
-            tr[i] = c < 4 ? srol_pow(kSeeds[3 - c], (unsigned)j) : 0;
+    uint64_t flags = 0;
+    if (threadIdx.x < NT && p < W) {
+        // roll in from the all-N window: k steps whose out-base is N
+        CodeReader in(row + p);
+        uint64_t fh = 0, rh = 0;
+        int n_count = 0;
+        for (int j = 0; j < k; ++j) {
+            const int c = in.next();
+            fh = srol1(fh) ^ s_f[CODE_N * 5 + c];
+            rh = sror1(rh) ^ s_r[CODE_N * 5 + c];
+            n_count += c == CODE_N;
         }
-        long long nload = L - p0 - j0;
-        if (nload > BTL_BLOCK + kp - 1) nload = BTL_BLOCK + kp - 1;
-        for (int i = threadIdx.x; i < nload; i += blockDim.x) {
-            const uint8_t c = row[j0 + i];
-            sc[i] = c < 4 ? c : 4;
-        }
-        __syncthreads();
-        if (!PIECES && p >= W) return;
-        if (p < W) {
-            for (int jj = 0; jj < kp; ++jj) {
-                const int c = sc[threadIdx.x + jj];
-                fh ^= tf[jj * NUM_CODES + c];
-                rh ^= tr[jj * NUM_CODES + c];
-                n_count += (c == 4);
+        CodeReader outr(row + p);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            if (p + r >= W) break;
+            const bool st = rh < fh;       // canonical tie-break: rh < fh
+            s_canon[r * STRIDE + threadIdx.x] = st ? rh : fh;
+            flags |= (uint64_t)(st | (n_count == 0) << 1) << (2 * r);
+            if (r + 1 < R && p + r + 1 < W) {
+                const int o = outr.next(), i = in.next();
+                fh = srol1(fh) ^ s_f[o * 5 + i];
+                rh = sror1(rh) ^ s_r[o * 5 + i];
+                n_count += (i == CODE_N) - (o == CODE_N);
             }
         }
     }
-    if (p >= W) return;
+    if (threadIdx.x < NT) s_flags[threadIdx.x] = flags;
+    __syncthreads();
 
-    const bool st = rh < fh;           // canonical tie-break: rh < fh
-    const uint64_t canon = st ? rh : fh;
-    const bool ok = n_count == 0;
-
+    long long nw = W - p0;
+    if (nw > TILE) nw = TILE;
     const long long plane = B * W;
-    const long long idx = b * W + p;
     const uint64_t km = (uint64_t)k * MULTI_SEED;
-    for (int i = 0; i < h; ++i) {
-        uint64_t v = canon;
-        if (i > 0) {
-            v = canon * ((uint64_t)i ^ km);
-            v ^= v >> MULTI_SHIFT;
+    for (int w = threadIdx.x; w < nw; w += BTL_BLOCK) {
+        const int t = w / R, r = w % R;
+        const uint64_t canon = s_canon[r * STRIDE + t];
+        const uint32_t f = (uint32_t)(s_flags[t] >> (2 * r));
+        const bool ok = f & 2u;
+        const long long idx = b * W + p0 + w;
+        for (int i = 0; i < h; ++i) {
+            uint64_t v = canon;
+            if (i > 0) {
+                v = canon * ((uint64_t)i ^ km);
+                v ^= v >> MULTI_SHIFT;
+            }
+            if (positions_mode) {
+                ((uint32_t*)out)[i * plane + idx] =
+                    ok ? mod_size(v, size, magic, shift) : BTL_SENTINEL;
+            } else {
+                ((uint64_t*)out)[i * plane + idx] = v;
+            }
         }
-        if (positions_mode) {
-            ((uint32_t*)out)[i * plane + idx] =
-                ok ? mod_size(v, size, magic, shift) : BTL_SENTINEL;
-        } else {
-            ((uint64_t*)out)[i * plane + idx] = v;
-        }
+        strand[idx] = f & 1u;
+        valid[idx] = ok;
     }
-    strand[idx] = st;
-    valid[idx] = ok;
 }
 
 // codes uint8 [B, L] -> out [h, B, W] (uint32 positions or uint64 hashes),
 // strand and valid bool [B, W], W = L - k + 1. Requires k >= 1, L >= k,
-// h >= 1; in positions mode 1 <= size < 2**32.
+// h >= 1; in positions mode 1 <= size < 2**32. run: windows a thread, 16
+// or 32. tables: the 50 uint64 of RollTables for this k.
 extern "C" int btl_nthash_scan(const void* codes, long long B, long long L,
                                int k, int h, int positions_mode,
                                unsigned long long size,
-                               unsigned long long magic, int shift,
-                               void* out, void* strand, void* valid,
-                               int device, void* stream) {
+                               unsigned long long magic, int shift, int run,
+                               const void* tables, void* out, void* strand,
+                               void* valid, int device, void* stream) {
     cudaError_t err = btl_set_device(device);
     if (err != cudaSuccess) return (int)err;
     const long long W = L - k + 1;
-    const long long tiles = (W + BTL_BLOCK - 1) / BTL_BLOCK;
     if (B <= 0 || W <= 0) return (int)cudaGetLastError();
-    auto kernel = k > KPIECE ? nthash_scan_kernel<true>
-                             : nthash_scan_kernel<false>;
+    if (run != 16 && run != 32) return (int)cudaErrorInvalidValue;
+    const long long tiles = (W + TILE - 1) / TILE;
+    if (B * tiles >= (1LL << 32)) return (int)cudaErrorInvalidConfiguration;
+    RollTables tab;
+    memcpy(&tab, tables, sizeof tab);
+    auto kernel = run == 16 ? nthash_scan_kernel<16> : nthash_scan_kernel<32>;
     kernel<<<(unsigned)(B * tiles), BTL_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)codes, B, L, k, h, W, tiles, positions_mode,
-        (uint64_t)size, (uint64_t)magic, shift, out, (bool*)strand,
+        (uint64_t)size, (uint64_t)magic, shift, tab, out, (bool*)strand,
         (bool*)valid);
     return (int)cudaGetLastError();
 }

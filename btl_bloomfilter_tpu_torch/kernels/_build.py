@@ -123,6 +123,8 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     """The dispatch rule: True when every tensor lies on the CPU (take the
     plain version), False when every one lies on CUDA (launch the kernel).
     Anything else raises; there is no fallback."""
+    if len(tensors) == 1 and tensors[0].is_cuda:
+        return False
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
@@ -157,11 +159,15 @@ class CudaKernel:
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on the current stream of ``device``; raise on a launch
-        error, count the launch otherwise."""
-        fn = self._function()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            err = fn(*args, device.index, stream)
+        error, count the launch otherwise. Arguments are ints (pointers as
+        ``Tensor.data_ptr()``), converted by the entry's argtypes."""
+        fn = self._fn or self._function()
+        index = device.index
+        if index == torch.cuda.current_device():
+            err = fn(*args, index, _raw_stream(index))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, index, _raw_stream(index))
         if err != 0:
             msg = library().btl_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
@@ -172,3 +178,9 @@ class CudaKernel:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index`` as a cudaStream_t,
+    without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)

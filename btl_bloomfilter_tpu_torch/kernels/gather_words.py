@@ -54,6 +54,6 @@ def gather_words(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     hit = torch.empty(pos.shape[1:], dtype=torch.bool, device=pos.device)
     n = hit.numel()
     if n:
-        KERNEL.launch(pos.device, _build.ptr(pos), n, h, _build.ptr(words),
-                      words.numel(), _build.ptr(hit))
+        KERNEL.launch(pos.device, pos.data_ptr(), n, h, words.data_ptr(),
+                      words.numel(), hit.data_ptr())
     return hit

@@ -16,6 +16,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,7 +27,18 @@ from ._build import SENTINEL
 KERNEL = _build.CudaKernel("btl_nthash_scan", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p])
+
+# windows a block of the kernel hashes (TILE in csrc/nthash_scan.cu)
+TILE = 2048
+
+
+def run_length(k: int) -> int:
+    """Windows each thread of the kernel rolls, 16 or 32. A run's first
+    window costs k steps, so a longer k takes longer runs; on the H100 16
+    is faster at k=31 and 32 at k=129 (PERF.md)."""
+    return 16 if k < 64 else 32
 
 
 def _check(codes: torch.Tensor, k: int, h: int) -> None:
@@ -43,6 +55,7 @@ def _check_size(size: int) -> None:
         raise ValueError("positions mode requires 1 <= size < 2**32")
 
 
+@functools.lru_cache(maxsize=64)
 def barrett(size: int):
     """(magic, shift) for v % size in the kernel; magic 0 means a power of
     two (a mask). magic = floor(2**(63+p) / size), p = size.bit_length()."""
@@ -50,6 +63,20 @@ def barrett(size: int):
         return 0, 0
     p = size.bit_length()
     return (1 << (63 + p)) // size, p - 1
+
+
+@functools.lru_cache(maxsize=64)
+def roll_tables(k: int):
+    """The kernel's roll terms for k, by (out, in) base-code pair at index
+    out * 5 + in, as 50 uint64 (a ctypes array): 25 forward terms
+    srol^k(seed(out)) ^ seed(in), then 25 reverse terms
+    sror(rcseed(out)) ^ srol^(k-1)(rcseed(in)). N's seed is 0."""
+    seeds, rc = u64.from_numpy(T.SEEDS), u64.from_numpy(T.RC_SEEDS)
+    f = nthash.srol_pow(seeds, k % 33, k % 31)[:, None] ^ seeds[None, :]
+    r = (nthash.srol_pow(rc, 32, 30)[:, None]        # sror = srol^-1
+         ^ nthash.srol_pow(rc, (k - 1) % 33, (k - 1) % 31)[None, :])
+    terms = [int(v) for t in (f, r) for v in u64.to_numpy(t).reshape(-1)]
+    return (ctypes.c_uint64 * 50)(*terms)
 
 
 # ---------------------------------------------------------------------------
@@ -81,21 +108,23 @@ def _launch(codes: torch.Tensor, k: int, h: int, size):
     codes = codes.contiguous()
     B, L = codes.shape
     W = L - k + 1
-    tiles = -(-W // 256)
-    if B * tiles >= (1 << 31):
+    if B * -(-W // TILE) >= (1 << 31):
         raise ValueError("batch too large for one launch")
     dev = codes.device
     positions = size is not None
     out = torch.empty((h, B, W), dtype=torch.int32 if positions
                       else torch.int64, device=dev)
-    strand = torch.empty((B, W), dtype=torch.bool, device=dev)
-    valid = torch.empty((B, W), dtype=torch.bool, device=dev)
+    # strand and valid share one allocation (and not the planes', which a
+    # caller holding only valid would keep alive)
+    flags = torch.empty((2, B, W), dtype=torch.bool, device=dev)
+    strand, valid = flags[0], flags[1]
     if B == 0:
         return out, strand, valid
     magic, shift = barrett(size) if positions else (0, 0)
-    KERNEL.launch(dev, _build.ptr(codes), B, L, k, h, int(positions),
-                  size or 0, magic, shift, _build.ptr(out),
-                  _build.ptr(strand), _build.ptr(valid))
+    KERNEL.launch(dev, codes.data_ptr(), B, L, k, h, int(positions),
+                  size or 0, magic, shift, run_length(k),
+                  ctypes.addressof(roll_tables(k)), out.data_ptr(),
+                  strand.data_ptr(), valid.data_ptr())
     return out, strand, valid
 
 

@@ -9,10 +9,24 @@ is in), builds its kernels, and prints one JSON line with the card, the
 label and the milliseconds a call of each chosen kernel, timed by
 ``tools/timing.py`` as chip_smoke.py times: as the host issues the calls
 (key ``name``) and with the calls queued, the card's own time (key ``name
-queued``). The kernels it can time (``CALLS``):
+queued``), and for a call that needs no setup the host's time to issue it
+(key ``name host``). The kernels it can time (``CALLS``):
 
   * ``nthash_scan``: positions at chip_smoke.py's phase-2 shape (512 x 2048
-    reads with 2% N, k=31, h=4, size 2**30);
+    reads with 2% N, k=31, h=4, size 2**30), and at bench.py's ACGT batch
+    of the same shape: positions, hashes, and positions at k=129;
+  * ``nthash_scan_runs``: the ntHash kernel at each run length it takes
+    (``nthash_scan.run_length``), positions of the ACGT batch at k from 31
+    to 129 (h=4), and at k=1 (no roll-in) and h=1 (a quarter of the
+    stores);
+  * ``gather_words``: the Bloom query's gather at bench.py's batch into
+    2**30 bits, on the inserted batch (every window hits) and on a fresh
+    one (seed 1; slot 0 decides almost every miss); torch's
+    ``words[idx]`` at the inserted batch's word indices (the same random
+    loads through int64 indices, not the same function); and
+    ``cudaLimitMaxL2FetchGranularity``;
+  * ``bloom_steps``: the Bloom insert step from a zeroed filter and the
+    query step of the inserted batch (``kmer_bloom``), bench.py's batch;
   * ``mibf_frame_scan``: pass C on the inputs bench.py's MIBF config gives
     it (``tools/profile_mibf.py``: 256 reads x 2048 bases, 2018 frames of 4
     slots);
@@ -48,6 +62,7 @@ change, parent) to compare the two on one card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
@@ -71,6 +86,12 @@ def load_timing():
     return mod
 
 
+def acgt_codes(dev, rows: int = 512, seed: int = 0) -> torch.Tensor:
+    """rows x 2048 ACGT reads, bench.py's codes for seed 0."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 4, size=(rows, 2048), dtype=np.uint8)).to(dev)
+
+
 def hash_calls(dev) -> dict:
     from btl_bloomfilter_tpu_torch.kernels import nthash_scan
 
@@ -78,8 +99,88 @@ def hash_calls(dev) -> dict:
     codes = rng.integers(0, 4, size=(512, 2048), dtype=np.uint8)
     codes[rng.random(codes.shape) < 0.02] = 4
     codes = torch.from_numpy(codes).to(dev)
+    acgt = acgt_codes(dev)
     return {"nthash_scan": lambda: nthash_scan.positions_planes(
-        codes, 31, 4, 1 << 30)}
+                codes, 31, 4, 1 << 30),
+            "nthash_scan acgt": lambda: nthash_scan.positions_planes(
+                acgt, 31, 4, 1 << 30),
+            "nthash_scan acgt hashes": lambda: nthash_scan.hash_frames_planes(
+                acgt, 31, 4),
+            "nthash_scan acgt k=129": lambda: nthash_scan.positions_planes(
+                acgt, 129, 4, 1 << 30)}
+
+
+def with_attr(mod, name: str, value, fn):
+    """fn run with mod.name set to value."""
+    def call():
+        old = getattr(mod, name)
+        setattr(mod, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(mod, name, old)
+    return call
+
+
+def hash_run_calls(dev) -> dict:
+    """The ntHash kernel at each run length it takes (trees that have
+    ``nthash_scan.run_length``), positions of the ACGT batch at k from 31
+    to 129 (h=4), and at k=1 (no roll-in) and h=1 (a quarter of the
+    stores)."""
+    from btl_bloomfilter_tpu_torch.kernels import nthash_scan
+
+    if not hasattr(nthash_scan, "run_length"):
+        return {}
+    acgt = acgt_codes(dev)
+    return {f"nthash_scan acgt k={k} h={h} run {r}": with_attr(
+        nthash_scan, "run_length", lambda _k, r=r: r,
+        lambda k=k, h=h: nthash_scan.positions_planes(acgt, k, h, 1 << 30))
+        for k, h in ((31, 4), (48, 4), (64, 4), (96, 4), (129, 4), (1, 4),
+                     (31, 1))
+        for r in (16, 32)}
+
+
+def gather_calls(dev) -> dict:
+    """The Bloom query's gather at bench.py's batch (512 x 2048 ACGT reads,
+    k=31, h=4, 2**30 bits) on the inserted batch (every window hits) and on
+    a fresh batch (slot 0 decides almost every miss); beside it torch's
+    ``words[idx]`` at the inserted batch's 4,132,864 word indices: the same
+    random loads (int64 indices, 8 B each), not the same function."""
+    from btl_bloomfilter_tpu_torch.kernels import (_build, gather_words,
+                                                   nthash_scan, scatter_or)
+
+    pos = acgt_positions(dev, 512, 30)
+    fresh = nthash_scan.positions_planes(acgt_codes(dev, seed=1), 31, 4,
+                                         1 << 30)[0]
+    words = torch.zeros(1 << 25, dtype=torch.int32, device=dev)
+    scatter_or.scatter_or(words, pos)
+    idx = (pos.to(torch.int64) & 0xFFFFFFFF) >> 5
+    out = {"gather_words inserted": lambda: gather_words.gather_words(
+               words, pos),
+           "gather_words fresh": lambda: gather_words.gather_words(
+               words, fresh),
+           "words[idx] inserted": lambda: words[idx]}
+    lib = _build.library()
+    if hasattr(lib, "btl_l2_fetch_granularity"):
+        lib.btl_l2_fetch_granularity.restype = ctypes.c_longlong
+        out["cudaLimitMaxL2FetchGranularity"] = str(
+            lib.btl_l2_fetch_granularity())
+    return out
+
+
+def bloom_step_calls(dev) -> dict:
+    """The Bloom insert step (from a zeroed filter) and query step (of the
+    inserted batch) at bench.py's batch, through ``kmer_bloom``."""
+    from btl_bloomfilter_tpu_torch.models import bloom, kmer_bloom
+
+    codes = acgt_codes(dev)
+    bf = bloom.create(1 << 30, 4, 31, device=dev)
+    query = bloom.create(1 << 30, 4, 31, device=dev)
+    kmer_bloom.insert_seq(query, codes)
+    return {"bloom insert step": (lambda: kmer_bloom.insert_seq(bf, codes),
+                                  bf.words.zero_),
+            "bloom query step": lambda: kmer_bloom.contains_seq(query,
+                                                                codes)}
 
 
 def frame_scan_calls(dev) -> dict:
@@ -123,10 +224,8 @@ def acgt_positions(dev, rows: int, log2_bits: int) -> torch.Tensor:
     codes, seed 0), k=31, h=4, into 2**log2_bits counters or bits."""
     from btl_bloomfilter_tpu_torch.kernels import nthash_scan
 
-    codes = np.random.default_rng(0).integers(0, 4, size=(rows, 2048),
-                                              dtype=np.uint8)
-    pos, _s, _v = nthash_scan.positions_planes(
-        torch.from_numpy(codes).to(dev), 31, 4, 1 << log2_bits)
+    pos, _s, _v = nthash_scan.positions_planes(acgt_codes(dev, rows), 31, 4,
+                                               1 << log2_bits)
     return pos
 
 
@@ -179,8 +278,7 @@ def scatter_or_calls(dev) -> dict:
                                     device=dev),
              uniform_positions(dev, (262144 - 30) * 4, 96817664))):
         out.update(route_calls(label, words, pos, "or"))
-    codes = torch.from_numpy(np.random.default_rng(0).integers(
-        0, 4, size=(512, 2048), dtype=np.uint8)).to(dev)
+    codes = acgt_codes(dev)
     bf = bloom.create(1 << 30, 4, 31, device=dev)
     out["bloom insert step"] = (lambda: kmer_bloom.insert_seq(bf, codes),
                                 bf.words.zero_)
@@ -194,8 +292,7 @@ def scatter_add_calls(dev) -> dict:
     words = torch.zeros(1 << 28, dtype=torch.int32, device=dev)
     out = route_calls("counting", words, acgt_positions(dev, 3072, 30),
                       "add")
-    codes = torch.from_numpy(np.random.default_rng(0).integers(
-        0, 4, size=(3072, 2048), dtype=np.uint8)).to(dev)
+    codes = acgt_codes(dev, 3072)
     hashes, _s, valid = nthash_scan.hash_frames_planes(codes, 31, 4)
     hashes = hashes.movedim(0, -1)
     cbf = counting.create(1 << 30, 4, 31, 1, counter_width=1, device=dev)
@@ -240,7 +337,9 @@ def grid_calls(dev, kind: str) -> dict:
 
 # kernel name -> the calls that time it, {label: call or (call, setup)};
 # a str value is recorded as it is
-CALLS = {"nthash_scan": hash_calls, "mibf_frame_scan": frame_scan_calls,
+CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
+         "gather_words": gather_calls, "bloom_steps": bloom_step_calls,
+         "mibf_frame_scan": frame_scan_calls,
          "dma_sweep": sweep_calls, "scatter_or": scatter_or_calls,
          "scatter_add": scatter_add_calls, "tile_partition": partition_calls,
          "scatter_or_grid": lambda dev: grid_calls(dev, "or"),
@@ -283,6 +382,8 @@ def main(argv=None) -> None:
             fn, setup = call if isinstance(call, tuple) else (call, None)
             t = timing.kernel_times(fn, setup=setup)
             out[label], out[label + " queued"] = t.issued, t.card
+            if setup is None:
+                out[label + " host"] = timing.host_ms(fn)
             if args.profile:
                 from btl_bloomfilter_tpu_torch.tools.profile_mibf import \
                     profile

@@ -7,7 +7,10 @@ Two readings of one call:
     runs them; for a call under about 0.1 ms this includes the wrapper's
     Python, since the card waits for the host;
   * on the card: the same calls queued while the card first spins for
-    ``QUEUE_CYCLES``, so the events time the card's work alone.
+    ``QUEUE_CYCLES``, so the events time the card's work alone;
+
+and, on the host clock, the time the host takes to issue one call
+(``host_ms``).
 
 This module imports only numpy and torch, so ``tools/time_kernels.py`` can
 load it by path beside a package imported from another tree.
@@ -16,6 +19,7 @@ load it by path beside a package imported from another tree.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -54,6 +58,24 @@ def median_ms(fn, reps: int = REPS, inner: int = INNER,
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int = REPS, calls: int = 100) -> float:
+    """Milliseconds of host time to issue one call: the wrapper's Python
+    and the launch, on the host clock. The median over reps of ``calls``
+    calls queued while the card spins (so no call waits for the card),
+    after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - start) * 1e3 / calls)
+        torch.cuda.synchronize()
     return float(np.median(times))
 
 

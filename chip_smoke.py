@@ -12,11 +12,17 @@ counters, batches of 3072 reads x 2048 bases):
 
   1. device: card name and power limit, kernel build time;
   2. each kernel against its plain PyTorch version on the card, bitwise, at
-     filter sizes 2**30 and 2**32-64 (not a power of two); ntHash also at
-     k=129 and k=1 in both modes; the Bloom insert's two routes (direct and
-     tiled) and the tile partition at both sizes on the
+     filter sizes 2**30 and 2**32-64 (not a power of two); ntHash at k=31,
+     129 and 1 in both modes, and the query's gather, on the 2%-N batch and
+     on bench.py's ACGT batch; both at the edges of their designs (reads
+     of one window and of fewer windows than the ntHash kernel's run, Ns
+     at a run's edges, h up to 17, a window count not a multiple of 4, an
+     unaligned view); the Bloom insert's two
+     routes (direct and tiled) and the tile partition at both sizes on the
      2%-N batch and on bench.py's ACGT batch; the kernels' times on the
-     ACGT batch (4,132,864 positions), each scatter from a zeroed filter;
+     ACGT batch (4,132,864 positions), each scatter from a zeroed filter,
+     the gather also on a fresh ACGT batch (misses), beside torch's
+     words[idx] at the same word indices;
   3. the main path through api.BloomPipeline: 16 batches inserted, the same
      reads queried (every valid window must hit), 4 fresh batches queried
      (hit fraction inside the FPR band), the .bf store/load round trip, the
@@ -121,7 +127,7 @@ from btl_bloomfilter_tpu_torch.tools.timing import kernel_times, median_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K, H = 31, 4
-K_EDGES = (129, 1)       # k past one piece of the hash kernel's tables, and 1
+K_EDGES = (129, 1)       # k past 128, and 1: the hash kernel takes any k
 B, L = 512, 2048
 CB = 3072                # counting batch (bench.py:158)
 C_BYTES = 1 << 30        # counting filter: 2**30 one-byte counters
@@ -270,6 +276,82 @@ def partition_err(what: str, got, ref, word_shift: int) -> int:
 ROUTED = {"scatter_or": {"direct": "scatter_or", "tiled": "scatter_or_tiled"},
           "scatter_add": {"direct": "scatter_add",
                           "tiled": "scatter_add_tiled"}}
+
+
+def hash_edges(nthash_scan, dev) -> int:
+    """The ntHash kernel == plain, both modes, at the edges of its roll:
+    reads of one window and of fewer windows than a run, a window count
+    not a multiple of the run, Ns and other non-ACGT codes at a run's first
+    and last base and at the base its last step takes in. Returns the
+    largest difference (0); raises on any."""
+    rng = np.random.default_rng(SEED + 7)
+    worst = 0
+    for k in (1, 2, 31, 129, 1025):
+        run = nthash_scan.run_length(k)
+        for L in (k, k + 3, k + 2 * run + 2, k + nthash_scan.TILE + 5):
+            c = rng.integers(0, 4, size=(3, L), dtype=np.uint8)
+            c[rng.random(c.shape) < N_FRAC] = 4
+            if L - k + 1 > run:
+                c[0, run], c[1, run - 1], c[2, run - 1 + k] = 4, 200, 4
+            c = torch.from_numpy(c).to(dev)
+            for size in CHECK_SIZES + (3,):
+                before = nthash_scan.KERNEL.launches
+                got = nthash_scan.positions_planes(c, k, H, size)
+                if nthash_scan.KERNEL.launches != before + 1:
+                    raise AssertionError("nthash_scan did not launch once")
+                for name, a, b in zip(
+                        ("positions", "strand", "valid"), got,
+                        nthash_scan.positions_planes_plain(c, k, H, size)):
+                    worst = max(worst, require_equal(
+                        f"edge k={k} L={L} size {size} {name}", a, b))
+            for name, a, b in zip(
+                    ("hashes", "strand", "valid"),
+                    nthash_scan.hash_frames_planes(c, k, H),
+                    nthash_scan.hash_frames_planes_plain(c, k, H)):
+                worst = max(worst, require_equal(
+                    f"edge k={k} L={L} {name}", a, b))
+    return worst
+
+
+def gather_edges(gather_words, dev) -> int:
+    """gather_words == plain at h from 1 to 17, on filters where every
+    window hits, where slot 0 always misses, and on random words with
+    slot-0 and stray sentinels and positions past the filter; n = 4099
+    windows (not a multiple of 4) and the same planes as an unaligned
+    view. Returns the largest difference (0); raises on any."""
+    rng = np.random.default_rng(SEED + 8)
+    nwords, n = 1000, 4099
+    worst = 0
+    for h in (1, 4, 9, 17):
+        for kind in ("hit", "miss", "mixed"):
+            words = (rng.integers(-(1 << 31), 1 << 31, size=nwords,
+                                  dtype=np.int64) | 0x55555555)
+            pos = rng.integers(0, nwords * 32 + 500 * (kind == "mixed"),
+                               size=(h, n), dtype=np.uint64)
+            if kind == "hit":
+                words[:] = -1
+            if kind == "miss":
+                words[:] = 0x55555555
+                pos[0] |= 1
+            if kind == "mixed":
+                pos[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+                pos[rng.random((h, n)) < 0.05] = 0xFFFFFFFF
+            w = torch.from_numpy(words.astype(np.int32)).to(dev)
+            p = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+            ref = gather_words.gather_words_plain(w, p)
+            shifted = torch.cat([p.new_zeros(1), p.reshape(-1)])[1:]
+            for what, planes in (("aligned", p),
+                                 ("unaligned", shifted.view(h, n))):
+                before = gather_words.KERNEL.launches
+                got = gather_words.gather_words(w, planes)
+                if gather_words.KERNEL.launches != before + 1:
+                    raise AssertionError("gather_words did not launch once")
+                worst = max(worst, require_equal(
+                    f"edge h={h} {kind} {what} hits", got, ref))
+            if kind == "hit" and not bool(ref.all()) or (
+                    kind == "miss" and bool(ref.any())):
+                raise AssertionError(f"edge h={h} {kind}: wrong case")
+    return worst
 
 
 def require_routes(what: str, launches: dict, kernel: str, calls) -> None:
@@ -1362,34 +1444,59 @@ def main() -> None:
                                  require_equal(f"hash mode {what}", a, b))
     log("[2] nthash_scan hash mode: kernel == plain (tolerance 0: all "
         "outputs are integers or bools, compared bitwise)")
-    for k in K_EDGES:
-        before = nthash_scan.KERNEL.launches
-        for what, got, ref in (
-                ("positions", nthash_scan.positions_planes(codes, k, H,
-                                                           MAIN_SIZE),
-                 nthash_scan.positions_planes_plain(codes, k, H, MAIN_SIZE)),
-                ("hashes", nthash_scan.hash_frames_planes(codes, k, H),
-                 nthash_scan.hash_frames_planes_plain(codes, k, H))):
-            for name, a, b in zip(("out", "strand", "valid"), got, ref):
-                err["nthash_scan"] = max(err["nthash_scan"], require_equal(
-                    f"k={k} {what} {name}", a, b))
-        if nthash_scan.KERNEL.launches != before + 2:
-            raise AssertionError(f"k={k}: nthash_scan did not launch once "
-                                 "a mode")
-        t = kernel_times(lambda: nthash_scan.positions_planes(codes, k, H,
-                                                           MAIN_SIZE))
-        log(f"[2] nthash_scan k={k}: positions and hash modes kernel == "
-            f"plain (bitwise), valid {int(got[2].sum())}/{got[2].numel()}; "
-            f"positions kernel {t:.4f} ms ({B}x{L}; {card_line})")
-        del got, ref
+    for label, batch in (("2% N", codes), ("ACGT", acgt)):
+        for k in (K,) + K_EDGES:
+            before = nthash_scan.KERNEL.launches
+            for what, got, ref in (
+                    ("positions", nthash_scan.positions_planes(
+                        batch, k, H, MAIN_SIZE),
+                     nthash_scan.positions_planes_plain(batch, k, H,
+                                                        MAIN_SIZE)),
+                    ("hashes", nthash_scan.hash_frames_planes(batch, k, H),
+                     nthash_scan.hash_frames_planes_plain(batch, k, H))):
+                for name, a, b in zip(("out", "strand", "valid"), got, ref):
+                    err["nthash_scan"] = max(err["nthash_scan"],
+                                             require_equal(
+                        f"{label} k={k} {what} {name}", a, b))
+            if nthash_scan.KERNEL.launches != before + 2:
+                raise AssertionError(f"k={k}: nthash_scan did not launch "
+                                     "once a mode")
+            t = kernel_times(lambda: nthash_scan.positions_planes(
+                batch, k, H, MAIN_SIZE))
+            log(f"[2] nthash_scan {label} batch, k={k}: positions and hash "
+                f"modes kernel == plain (bitwise), valid "
+                f"{int(got[2].sum())}/{got[2].numel()}; positions kernel "
+                f"{t:.4f} ms ({B}x{L}; {card_line})")
+            del got, ref
+    err["nthash_scan"] = max(err["nthash_scan"], hash_edges(nthash_scan, dev))
+    err["gather_words"] = max(err["gather_words"], gather_edges(
+        gather_words, dev))
+    log("[2] nthash_scan (both modes, k = 1, 2, 31, 129, 1025; one window, "
+        "fewer windows than a run, Ns at a run's edges) and gather_words "
+        "(h = 1, 4, 9, 17; all hit, all miss, sentinels, positions past the "
+        "filter; n = 4099; an unaligned view) kernel == plain (bitwise), "
+        "one launch a call")
 
     for size in CHECK_SIZES:
-        pk = nthash_scan.positions_planes(codes, K, H, size)
-        pp = nthash_scan.positions_planes_plain(codes, K, H, size)
-        for what, a, b in zip(("positions", "strand", "valid"), pk, pp):
-            err["nthash_scan"] = max(
-                err["nthash_scan"],
-                require_equal(f"size {size} {what}", a, b))
+        for label, batch in (("ACGT", acgt), ("2% N", codes)):
+            pk = nthash_scan.positions_planes(batch, K, H, size)
+            pp = nthash_scan.positions_planes_plain(batch, K, H, size)
+            for what, a, b in zip(("positions", "strand", "valid"), pk, pp):
+                err["nthash_scan"] = max(
+                    err["nthash_scan"],
+                    require_equal(f"{label} size {size} {what}", a, b))
+            if label == "ACGT":
+                # insert the first half of the reads; query all of them
+                apos = pk[0]
+                half = apos[:, : B // 2].contiguous()
+                words_k = torch.zeros((size + 31) // 32, dtype=torch.int32,
+                                      device=dev)
+                scatter_or.scatter_or(words_k, half)
+                err["gather_words"] = max(err["gather_words"], require_equal(
+                    f"ACGT size {size} hits",
+                    gather_words.gather_words(words_k, apos),
+                    gather_words.gather_words_plain(words_k, apos)))
+                del words_k, half
         pos, valid = pk[0], pk[2]
         if not torch.equal(pos[0] == -1, ~valid):
             raise AssertionError("sentinel does not mark the invalid windows")
@@ -1472,6 +1579,23 @@ def main() -> None:
     ms["gather_words"] = (
         kernel_times(lambda: gather_words.gather_words(words_k, pos)),
         median_ms(lambda: gather_words.gather_words_plain(words_p, pos)))
+    # the same query of a fresh ACGT batch (slot 0 decides almost every
+    # miss), and torch's words[idx] at the inserted batch's word indices:
+    # the same random loads through int64 indices, not the same function
+    fresh_pos = nthash_scan.positions_planes(torch.from_numpy(
+        np.random.default_rng(1).integers(0, 4, size=(B, L),
+                                          dtype=np.uint8)).to(dev),
+        K, H, MAIN_SIZE)[0]
+    fresh_hits = int(gather_words.gather_words(words_k, fresh_pos).sum())
+    fresh_t = kernel_times(lambda: gather_words.gather_words(words_k,
+                                                             fresh_pos))
+    word_idx = (pos.to(torch.int64) & 0xFFFFFFFF) >> 5
+    idx_t = kernel_times(lambda: words_k[word_idx])
+    log(f"[2] gather_words on a fresh ACGT batch ({fresh_hits}/"
+        f"{fresh_pos[0].numel()} hit): {fresh_t:.4f} ms; torch words[idx] "
+        f"at the inserted batch's {word_idx.numel()} word indices "
+        f"(int64): {idx_t:.4f} ms ({card_line})")
+    del fresh_pos, word_idx
     n_words = distinct_words(pos, 5)
     live = int((pos != -1).sum())
     bounds = {

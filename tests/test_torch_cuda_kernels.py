@@ -10,6 +10,8 @@ them; from the repo root:
 All outputs are integers or bools: the tolerance is zero.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -103,6 +105,120 @@ def test_gather_words_kernel_matches_plain(dev, h):
     got = gather_words.gather_words(words, pos)
     ref = gather_words.gather_words_plain(words, pos)
     assert got.shape == (6, 333) and got.any() and torch.equal(got, ref)
+
+
+ROLL_K = [1, 2, 31, 32, 33, 63, 64, 128, 129, 1023, 1024, 1025]
+ROLL_SIZES = [1, 3, 1 << 30, (1 << 32) - 64]
+
+
+def run_edge_codes(B, L, k, run, seed):
+    """Codes with 2% N (and other non-ACGT codes), plus an N at the first
+    and the last base of a run and at the base a run's last step takes in."""
+    codes = random_codes(B, L, 0.02, seed)
+    W = L - k + 1
+    if W > run:
+        codes[0, run] = 4
+        codes[1 % B, run - 1] = 4
+        codes[2 % B, run - 1 + k] = 200
+    return codes
+
+
+def check_nthash_modes(codes, k, h, size):
+    for kernel, plain in [
+            (lambda: nthash_scan.positions_planes(codes, k, h, size),
+             lambda: nthash_scan.positions_planes_plain(codes, k, h, size)),
+            (lambda: nthash_scan.hash_frames_planes(codes, k, h),
+             lambda: nthash_scan.hash_frames_planes_plain(codes, k, h))]:
+        before = nthash_scan.KERNEL.launches
+        got = kernel()
+        assert nthash_scan.KERNEL.launches == before + 1
+        for a, b in zip(got, plain()):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("run", [16, 32])
+@pytest.mark.parametrize("size", ROLL_SIZES)
+@pytest.mark.parametrize("k", ROLL_K)
+def test_nthash_roll_matches_plain(dev, monkeypatch, k, size, run):
+    """Both modes, bitwise: W = 2 * run + 3 windows a read (not a multiple
+    of the run) with Ns at the runs' edges, and W spanning two tiles."""
+    monkeypatch.setattr(nthash_scan, "run_length", lambda k: run)
+    codes = run_edge_codes(3, k + 2 * run + 2, k, run, k + run).to(dev)
+    check_nthash_modes(codes, k, 3, size)
+    codes = run_edge_codes(2, k + nthash_scan.TILE + 5, k, run, k).to(dev)
+    check_nthash_modes(codes, k, 2, size)
+
+
+@pytest.mark.parametrize("run", [16, 32])
+@pytest.mark.parametrize("k,L", [(31, 31), (31, 33), (129, 129),
+                                 (129, 135), (1, 1), (1, 3), (1025, 1027)])
+def test_nthash_short_reads_match_plain(dev, monkeypatch, k, L, run):
+    """L == k (one window) and fewer windows than a run."""
+    monkeypatch.setattr(nthash_scan, "run_length", lambda k: run)
+    check_nthash_modes(run_edge_codes(5, L, k, run, L).to(dev), k, 4,
+                       (1 << 32) - 64)
+
+
+def test_launch_error_raises_and_is_not_counted(dev):
+    """A launch the runtime refuses (a grid of 2**31 blocks) raises with the
+    CUDA error, leaves the counter alone, and the next launch counts."""
+    before = nthash_scan.KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        nthash_scan.KERNEL.launch(
+            dev, 0, 1 << 31, 31, 31, 4, 1, 1 << 30, 0, 0, 16,
+            ctypes.addressof(nthash_scan.roll_tables(31)), 0, 0, 0)
+    assert nthash_scan.KERNEL.launches == before
+    codes = random_codes(2, 100, 0.02, 1).to(dev)
+    nthash_scan.positions_planes(codes, 31, 4, 1 << 30)
+    assert nthash_scan.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+
+
+def gather_case(rng, h, nwords, shape, kind):
+    """words int32 [nwords] and positions int32 [h, *shape] for a query
+    kind: "hit" (every bit set), "miss" (slot 0 clear), "mixed" (random
+    words, positions past the filter, slot-0 and stray sentinels)."""
+    if kind == "hit":
+        words = np.full(nwords, -1, dtype=np.int32)
+    else:
+        words = (rng.integers(-(1 << 31), 1 << 31, size=nwords,
+                              dtype=np.int64) | 0x55555555).astype(np.int32)
+    pos = rng.integers(0, nwords * 32 + (500 if kind == "mixed" else 0),
+                       size=(h,) + shape, dtype=np.uint64)
+    if kind == "miss":      # odd bits of a 0x55555555 pattern are clear
+        words[:] = 0x55555555
+        pos[0] |= 1
+    if kind == "mixed":
+        pos[:, rng.random(shape) < 0.1] = 0xFFFFFFFF    # slot-0 sentinels
+        pos[rng.random((h,) + shape) < 0.05] = 0xFFFFFFFF  # stray ones
+    return (torch.from_numpy(words),
+            torch.from_numpy(pos.astype(np.uint32).view(np.int32)))
+
+
+@pytest.mark.parametrize("kind", ["hit", "miss", "mixed"])
+@pytest.mark.parametrize("n", [4096, 4099, 3])
+@pytest.mark.parametrize("h", [1, 4, 7, 8, 9, 17])
+def test_gather_words_edges_match_plain(dev, h, n, kind):
+    """Every window hits, slot 0 always misses, or random words with
+    slot-0 and stray sentinels and positions past the filter; h from 1 to
+    17; n a multiple of 4 and not; the planes as an unaligned view; one
+    launch a call."""
+    rng = np.random.default_rng(h * 1000 + n)
+    words, pos = gather_case(rng, h, 1000, (n,), kind)
+    words, pos = words.to(dev), pos.to(dev)
+    before = gather_words.KERNEL.launches
+    got = gather_words.gather_words(words, pos)
+    assert gather_words.KERNEL.launches == before + 1
+    ref = gather_words.gather_words_plain(words, pos)
+    assert got.shape == (n,) and torch.equal(got, ref)
+    if kind == "hit":
+        assert got.all()
+    if kind == "miss":
+        assert not got.any()
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                      pos.reshape(-1)])[1:].view(pos.shape)
+    assert torch.equal(gather_words.gather_words(words, flat), ref)
 
 
 def test_kmer_bloom_on_cuda_matches_cpu(dev):
