@@ -13,29 +13,32 @@
 // rank_data_of_positions_kernel: the position sort, the popcount, the packed
 // (rank << 1 | hit) un-sort and the window-overflow fallback. The TPU needs
 // sorted positions to stream windows through VMEM; on Hopper each position
-// loads its two words and its ID directly, so no sort is needed and the
-// chain is one pass.
+// loads what it needs directly, so no sort is needed and the chain is one
+// pass.
 //
-// Layout: bv_words and cum_ranks are two uint32 arrays of nwords each (not
-// interleaved), as MIBloomFilter keeps them; the ID plane is the filter's
-// own array at its native width, so the lane extract is an element load.
+// Layout: the rank directory (kernels/mibf_rank.py rank_directory, built
+// once by models/mibf.py freeze): one 32-byte block a 7 words of the bit
+// vector, the block's cumulative count (cum_ranks of its first word) and
+// then its 7 words (zero past the vector). Word w lies in block w / 7 at
+// slot w % 7; its rank is the block's count plus the popcounts of the
+// block's words before it. The directory is 8/7 of the bit vector.
 //
-// What bounds it on the H100: random loads. Each position reads two 4-byte
-// words at the same index of two arrays (two 32-byte sectors) and, on a hit,
-// one ID; at the sizes users build (10**8 bits, 4.8e7 IDs = 12 MB of words
-// each and 96 MB of IDs) the arrays exceed the 50 MB L2 together. Design:
-// one thread per position in a grid-stride loop, coalesced position loads
-// and output stores; the ID load is skipped on a miss, where raw is 0
-// anyway. Position words past the vector are clamped to its last word, as
-// an XLA gather clamps.
+// What bounds it on the H100: random sector loads. bv_words and cum_ranks
+// are two arrays, so a lookup through them reads two random 32-byte
+// sectors; through the directory it reads one, and at bench.py's 2**28
+// bits the directory (38 MB) fits the 50 MB L2 where the two arrays (64
+// MB) did not. On a hit the ID is one more random load. Design: one thread
+// a position in a grid-stride loop, the block read as two 16-byte loads of
+// one sector; coalesced position loads and output stores; the ID load is
+// skipped on a miss, where raw is 0 anyway. Position words past the vector
+// are clamped to its last word, as an XLA gather clamps.
 
 #include "common.cuh"
 
 template <typename T>
 __global__ void __launch_bounds__(BTL_BLOCK)
 mibf_rank_kernel(const uint32_t* __restrict__ pos, long long n,
-                 const uint32_t* __restrict__ bv,
-                 const uint32_t* __restrict__ cum, long long nwords,
+                 const uint4* __restrict__ dir, uint32_t nwords,
                  const T* __restrict__ data, long long d_size,
                  int32_t* __restrict__ rank, bool* __restrict__ hit,
                  uint32_t* __restrict__ raw) {
@@ -43,62 +46,72 @@ mibf_rank_kernel(const uint32_t* __restrict__ pos, long long n,
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < n; i += stride) {
         const uint32_t p = pos[i];
-        long long w = p >> 5;
-        if (w >= nwords) w = nwords - 1;
-        const uint32_t word = __ldg(&bv[w]);
+        const uint32_t w = min(p >> 5, nwords - 1u);
+        const uint32_t b = w / 7u, j = w - 7u * b;
+        const uint4 lo = __ldg(&dir[2 * (size_t)b]);
+        const uint4 hi = __ldg(&dir[2 * (size_t)b + 1]);
+        const uint32_t v[7] = {lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        uint32_t r = lo.x, word = 0;
+#pragma unroll
+        for (uint32_t k = 0; k < 7; ++k) {
+            if (k < j) r += __popc(v[k]);
+            if (k == j) word = v[k];
+        }
         const uint32_t bit = p & 31u;
-        const uint32_t r = __ldg(&cum[w]) + __popc(word & ((1u << bit) - 1u));
+        r += __popc(word & ((1u << bit) - 1u));
         const bool h = (word >> bit) & 1u;
         rank[i] = (int32_t)r;
         hit[i] = h;
         if (raw != nullptr) {
-            uint32_t v = 0;
+            uint32_t x = 0;
             if (h) {
                 const long long rc = (long long)r < d_size ? (long long)r
                                                            : d_size - 1;
-                v = (uint32_t)__ldg(&data[rc]);
+                x = (uint32_t)__ldg(&data[rc]);
             }
-            raw[i] = v;
+            raw[i] = x;
         }
     }
 }
 
 template <typename T>
-static cudaError_t launch(const void* pos, long long n, const void* bv,
-                          const void* cum, long long nwords, const void* data,
+static cudaError_t launch(const void* pos, long long n, const void* dir,
+                          long long nwords, const void* data,
                           long long d_size, void* rank, void* hit, void* raw,
                           cudaStream_t stream) {
     mibf_rank_kernel<T><<<btl_blocks(n), BTL_BLOCK, 0, stream>>>(
-        (const uint32_t*)pos, n, (const uint32_t*)bv, (const uint32_t*)cum,
-        nwords, (const T*)data, d_size, (int32_t*)rank, (bool*)hit,
-        (uint32_t*)raw);
+        (const uint32_t*)pos, n, (const uint4*)dir, (uint32_t)nwords,
+        (const T*)data, d_size, (int32_t*)rank, (bool*)hit, (uint32_t*)raw);
     return cudaGetLastError();
 }
 
-// pos uint32 [n]; bv, cum uint32 [nwords]; data [d_size] of `width` bytes
-// (1, 2 or 4), or null with width 0 for rank-only mode (raw then null too);
-// rank int32 [n], hit bool [n], raw uint32 [n].
-extern "C" int btl_mibf_rank(const void* pos, long long n, const void* bv,
-                             const void* cum, long long nwords,
-                             const void* data, int width, long long d_size,
-                             void* rank, void* hit, void* raw, int device,
-                             void* stream) {
+// pos uint32 [n]; dir the rank directory of a bit vector of nwords words
+// (1 <= nwords <= 2**27), 16-byte aligned; data [d_size] of `width` bytes
+// (1, 2 or 4), or null with width 0 for rank-only mode (raw then null
+// too); rank int32 [n], hit bool [n], raw uint32 [n].
+extern "C" int btl_mibf_rank(const void* pos, long long n, const void* dir,
+                             long long nwords, const void* data, int width,
+                             long long d_size, void* rank, void* hit,
+                             void* raw, int device, void* stream) {
     cudaError_t err = btl_set_device(device);
     if (err != cudaSuccess) return (int)err;
+    if (nwords < 1 || nwords > (1LL << 27) ||
+        (reinterpret_cast<uintptr_t>(dir) & 15))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     switch (width) {
         case 0:
-            return (int)launch<uint32_t>(pos, n, bv, cum, nwords, nullptr, 0,
+            return (int)launch<uint32_t>(pos, n, dir, nwords, nullptr, 0,
                                          rank, hit, nullptr, s);
         case 1:
-            return (int)launch<uint8_t>(pos, n, bv, cum, nwords, data, d_size,
+            return (int)launch<uint8_t>(pos, n, dir, nwords, data, d_size,
                                         rank, hit, raw, s);
         case 2:
-            return (int)launch<uint16_t>(pos, n, bv, cum, nwords, data,
-                                         d_size, rank, hit, raw, s);
+            return (int)launch<uint16_t>(pos, n, dir, nwords, data, d_size,
+                                         rank, hit, raw, s);
         case 4:
-            return (int)launch<uint32_t>(pos, n, bv, cum, nwords, data,
-                                         d_size, rank, hit, raw, s);
+            return (int)launch<uint32_t>(pos, n, dir, nwords, data, d_size,
+                                         rank, hit, raw, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

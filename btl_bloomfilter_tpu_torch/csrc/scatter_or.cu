@@ -110,7 +110,9 @@ extern "C" int btl_scatter_or_tiled(const void* pos, long long n,
                                  (uint32_t*)scratch, st);
     if (err != cudaSuccess || n == 0) return (int)err;
     static unsigned long long smem_set = 0;
-    err = btl_allow_tile_smem(scatter_or_tile_kernel, device, &smem_set);
+    err = btl_allow_smem(scatter_or_tile_kernel,
+                         BTL_TILE_WORDS * sizeof(uint32_t), device,
+                         &smem_set);
     if (err != cudaSuccess) return (int)err;
     const BtlTileScratch s = btl_tile_scratch((uint32_t*)scratch, n, nwords);
     scatter_or_tile_kernel<<<(unsigned)btl_ntiles(nwords),

@@ -11,23 +11,38 @@
 // counting sort on the tile index replaces the sort: no dedupe, no order
 // inside a tile.
 //
-// What bounds it on the H100: the bytes it streams. A one-pass counting
-// sort into thousands of tiles does not stream: each block's run in each
-// tile is a few positions long, so the writes scatter into millions of
-// partly written sectors (the first design, one pass with a shared
-// histogram of every tile, took 0.086 ms for the Bloom batch and 1.66 ms
-// for the counting batch; PERF.md). Design: a most-significant-digit
-// counting sort of at most two passes of at most 256 buckets each (the
-// tile index's high bits, then its low 7 bits inside each high bucket).
-// Each pass is three launches: count (each block histograms its part of a
-// segment in shared memory, one global atomic per block and bucket keeps
-// the block's base inside the bucket), scan (one block), and scatter: each
-// block ranks 4096 positions at a time in shared memory, stages them there
-// grouped by bucket, and writes each bucket's run with consecutive threads
-// on consecutive addresses, the next 4096 positions loading meanwhile.
-// Runs average 16-32 positions, so the writes leave the L2 as whole
-// sectors. The sentinel and positions past the array are dropped in the
-// first pass.
+// What bounds it on the H100: the bytes it streams and the operations
+// that wait on each other. A one-pass counting sort into thousands of
+// tiles does not stream: each chunk's run in each tile is a few positions
+// long, so the writes scatter into millions of partly written sectors
+// (PERF.md: one pass into the 2048 tiles of a 2**30-bit filter took 0.054
+// ms on the card, two took 0.033). Design, a most-significant-digit
+// counting sort in at most four operations on the stream (the parent
+// design took eight: a count, a one-block scan and a scatter a pass, and
+// two memsets):
+//   * the histogram (tp_hist): one read of the positions counts every
+//     tile at once in shared memory (at most 32768 counters, 132 KiB with
+//     the padding that keeps a thread's run of them off its neighbours'
+//     banks), one global add per block and tile; the last block to finish
+//     (a ticket) scans the counts into the offsets, which also give the
+//     high buckets' offsets for the second pass. No count pass and no scan
+//     launch of its own;
+//   * one scatter pass (tp_scatter) on the whole tile index where the
+//     tiles are at most 256 (ONE_PASS_BITS), else two: the tile index's
+//     high bits, then its low 7 bits inside each high bucket. A block
+//     ranks a chunk of 8192 positions at a time in shared memory, stages
+//     them there grouped by bucket, takes each bucket's slots with one
+//     global atomicAdd on the bucket's next free slot (the order inside a
+//     bucket is free, so there is no look-back and nothing serialises on
+//     skewed input: every position in one tile costs one atomic a chunk),
+//     and writes each bucket's run with consecutive threads on consecutive
+//     addresses, the next chunk loading meanwhile. Runs average 64
+//     positions or more. The second pass's chunks never straddle a high
+//     bucket, so its buckets are the 128 low digits, and a bucket of any
+//     size spreads over every block.
+// The positions stream five times (three for one pass), against six. The
+// sentinel and positions past the array are dropped by the histogram and
+// the first pass.
 
 #include "tile_partition.cuh"
 
@@ -35,199 +50,278 @@ namespace {
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BUCKETS = 256;
-// positions a scatter block ranks and stages at a time
-constexpr int STAGE = 4096;
+// positions a scatter block ranks and stages at a time, and its log
+constexpr int RANK_BITS = 13;
+constexpr int STAGE = 1 << RANK_BITS;
 constexpr int ITEMS = STAGE / THREADS;
-// at most this many blocks a pass (four on each of 132 SMs)
-constexpr int MAX_BLOCKS = 528;
+// at most 2**ONE_PASS_BITS tiles: one scatter pass
+constexpr int ONE_PASS_BITS = 8;
 // low bits of the tile index sorted by the second pass
 constexpr int LOW_BITS = 7;
+static_assert((1 << ONE_PASS_BITS) <= THREADS && (1 << LOW_BITS) <= THREADS,
+              "a scatter thread scans one bucket");
+constexpr int HIST_THREADS = 1024;
+constexpr int HIST_ITEMS = 16;
+constexpr int SMS = 132;                 // an H100's SMs
+// blocks of the histogram and of a scatter pass: two an SM
+constexpr int HIST_BLOCKS = 2 * SMS;
+constexpr int SCATTER_BLOCKS = 2 * SMS;
+constexpr uint32_t DROP = 0xFFFFFFFFu;   // a rank code of no position
 
-struct Pass {
-    const uint32_t* keys;     // positions in
-    const uint32_t* seg;      // segment offsets [nseg + 1], or null: one
-                              // segment [0, n)
-    long long n;
-    int per_seg;              // blocks a segment
-    long long nwords;         // live filter (first pass only: filter != 0)
-    int filter;
-    int word_shift;
-    int digit_shift;          // bucket = (tile >> digit_shift) & (B - 1)
-    int buckets;              // B, a power of two <= 256
-    uint32_t* counts;         // [nseg * B], zeroed; scanned to offsets
-    uint32_t* hist;           // [grid * B], each block's base in a bucket
-    uint32_t* out;            // positions out
-};
-
-// This block's part [lo, hi) of its segment.
-__device__ __forceinline__ void block_range(const Pass& P, int* seg,
-                                            long long* lo, long long* hi) {
-    const int s = blockIdx.x / P.per_seg, part = blockIdx.x % P.per_seg;
-    const long long a = P.seg ? P.seg[s] : 0;
-    const long long b = P.seg ? P.seg[s + 1] : P.n;
-    const long long len = (b - a + P.per_seg - 1) / P.per_seg;
-    *seg = s;
-    *lo = a + part * len < b ? a + part * len : b;
-    *hi = *lo + len < b ? *lo + len : b;
+// The tile of position p, or -1 where it is dropped.
+__device__ __forceinline__ int tile_of(uint32_t p, long long nwords,
+                                       int word_shift) {
+    const uint32_t w = p >> word_shift;
+    if (p == BTL_SENTINEL || (long long)w >= nwords) return -1;
+    return (int)(w >> BTL_TILE_SHIFT);
 }
 
-// The bucket of position p, or -1 where the first pass drops it.
-__device__ __forceinline__ int bucket(const Pass& P, uint32_t p) {
-    const long long w = (long long)(p >> P.word_shift);
-    if (P.filter && (p == BTL_SENTINEL || w >= P.nwords)) return -1;
-    return (int)((w >> BTL_TILE_SHIFT) >> P.digit_shift) & (P.buckets - 1);
-}
+// A histogram's slot of tile t: one word of padding every 32, so that a
+// thread's run of consecutive tiles in the scan meets no other thread of
+// its warp in a bank.
+__device__ __forceinline__ int slot(int t) { return t + (t >> 5); }
 
-__global__ void __launch_bounds__(THREADS) tp_count(Pass P) {
-    // one histogram a warp: the atomics of a warp contend only among its
-    // own lanes
-    __shared__ uint32_t s_hist[WARPS][MAX_BUCKETS];
-    const int warp = threadIdx.x >> 5;
-    for (int i = threadIdx.x; i < WARPS * MAX_BUCKETS; i += THREADS)
-        (&s_hist[0][0])[i] = 0;
-    __syncthreads();
-    int seg;
-    long long lo, hi;
-    block_range(P, &seg, &lo, &hi);
-    for (long long i0 = lo + threadIdx.x; i0 < hi;
-         i0 += (long long)ITEMS * THREADS) {
-        uint32_t p[ITEMS];
-#pragma unroll
-        for (int j = 0; j < ITEMS; ++j) {
-            const long long i = i0 + (long long)j * THREADS;
-            p[j] = i < hi ? P.keys[i] : 0u;
-        }
-#pragma unroll
-        for (int j = 0; j < ITEMS; ++j) {
-            if (i0 + (long long)j * THREADS >= hi) break;
-            const int d = bucket(P, p[j]);
-            if (d >= 0) atomicAdd(&s_hist[warp][d], 1u);
-        }
-    }
-    __syncthreads();
-    for (int d = threadIdx.x; d < P.buckets; d += THREADS) {
-        uint32_t c = 0;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) c += s_hist[w][d];
-        if (c)
-            P.hist[(long long)blockIdx.x * P.buckets + d] =
-                atomicAdd(&P.counts[(long long)seg * P.buckets + d], c);
-    }
-}
-
-// counts [m] -> exclusive offsets in place, offsets[m] = total. One block
-// of 1024 threads; each scans a run of consecutive entries.
-__global__ void __launch_bounds__(1024) tp_scan(uint32_t* offsets, int m) {
-    __shared__ uint32_t warp_total[32];
-    const int per = (m + 1023) / 1024;
-    const int first = threadIdx.x * per;
+// Exclusive scan of one value a thread over a block of NT threads; *total
+// is the sum. Every thread calls it.
+template <int NT>
+__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* s_warp,
+                                               uint32_t* total) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    uint32_t sum = 0;
-    for (int j = 0; j < per; ++j)
-        if (first + j < m) sum += offsets[first + j];
-    uint32_t incl = sum;
+    uint32_t incl = v;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t v = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-        if (lane >= d) incl += v;
+        const uint32_t u = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+        if (lane >= d) incl += u;
     }
-    if (lane == 31) warp_total[warp] = incl;
+    __syncthreads();            // s_warp's last readers are done
+    if (lane == 31) s_warp[warp] = incl;
     __syncthreads();
     if (warp == 0) {
-        uint32_t v = warp_total[lane];
+        uint32_t x = lane < NT / 32 ? s_warp[lane] : 0u;
 #pragma unroll
         for (int d = 1; d < 32; d <<= 1) {
-            const uint32_t u = __shfl_up_sync(0xFFFFFFFFu, v, d);
-            if (lane >= d) v += u;
+            const uint32_t u = __shfl_up_sync(0xFFFFFFFFu, x, d);
+            if (lane >= d) x += u;
         }
-        warp_total[lane] = v;
+        if (lane < NT / 32) s_warp[lane] = x;
     }
     __syncthreads();
-    uint32_t run = incl - sum + (warp ? warp_total[warp - 1] : 0u);
-    for (int j = 0; j < per; ++j) {
-        if (first + j < m) {
-            const uint32_t c = offsets[first + j];
-            offsets[first + j] = run;
-            run += c;
-        }
-    }
-    if (threadIdx.x == 1023) offsets[m] = run;
+    *total = s_warp[NT / 32 - 1];
+    return (warp ? s_warp[warp - 1] : 0u) + incl - v;
 }
 
-// Load the STAGE positions from base on, a thread's ITEMS strided by
-// THREADS.
-__device__ __forceinline__ void load_stage(const Pass& P, long long base,
+// Counts every tile of pos into counts [padded] (zeroed, with the ticket
+// at counts[padded]); the last block turns them into offsets [padded + 1]
+// and leaves each tile's first slot in counts. With low_bits: cursor1 [H]
+// the first slot of each high bucket, chunks [H + 1] the second pass's
+// first chunk of each high bucket (H = padded >> low_bits).
+__global__ void __launch_bounds__(HIST_THREADS, 2)
+tp_hist(const uint32_t* __restrict__ pos, long long n, long long nwords,
+        int word_shift, int padded, int low_bits, uint32_t* counts,
+        uint32_t* offsets, uint32_t* cursor1, uint32_t* chunks) {
+    extern __shared__ uint32_t s_hist[];
+    __shared__ uint32_t s_warp[32];
+    __shared__ bool s_last;
+    for (int t = threadIdx.x; t < slot(padded); t += HIST_THREADS)
+        s_hist[t] = 0;
+    __syncthreads();
+    const long long stride = (long long)gridDim.x * HIST_THREADS;
+    for (long long i0 = (long long)blockIdx.x * HIST_THREADS + threadIdx.x;
+         i0 < n; i0 += HIST_ITEMS * stride) {
+        uint32_t p[HIST_ITEMS];
+#pragma unroll
+        for (int j = 0; j < HIST_ITEMS; ++j) {
+            const long long i = i0 + j * stride;
+            p[j] = i < n ? pos[i] : BTL_SENTINEL;
+        }
+#pragma unroll
+        for (int j = 0; j < HIST_ITEMS; ++j) {
+            const int t = tile_of(p[j], nwords, word_shift);
+            if (t >= 0) atomicAdd(&s_hist[slot(t)], 1u);
+        }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < padded; t += HIST_THREADS) {
+        const uint32_t c = s_hist[slot(t)];
+        if (c) atomicAdd(&counts[t], c);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+        s_last = atomicAdd(&counts[padded], 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    // the last block: every other block's adds are in L2
+    __threadfence();
+    for (int t = threadIdx.x; t < padded; t += HIST_THREADS)
+        s_hist[slot(t)] = __ldcg(&counts[t]);
+    __syncthreads();
+    const int per = (padded + HIST_THREADS - 1) / HIST_THREADS;
+    const int first = threadIdx.x * per;
+    uint32_t sum = 0;
+    for (int j = 0; j < per && first + j < padded; ++j)
+        sum += s_hist[slot(first + j)];
+    uint32_t live;
+    uint32_t run = block_scan<HIST_THREADS>(sum, s_warp, &live);
+    for (int j = 0; j < per && first + j < padded; ++j) {
+        const uint32_t c = s_hist[slot(first + j)];
+        s_hist[slot(first + j)] = run;
+        run += c;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < padded; t += HIST_THREADS) {
+        offsets[t] = s_hist[slot(t)];
+        counts[t] = s_hist[slot(t)];
+    }
+    if (threadIdx.x == 0) offsets[padded] = live;
+    if (!low_bits) return;
+    const int H = padded >> low_bits;
+    uint32_t nch = 0;
+    if ((int)threadIdx.x < H) {
+        const uint32_t lo = s_hist[slot(threadIdx.x << low_bits)];
+        const uint32_t hi = (int)threadIdx.x + 1 < H
+                                ? s_hist[slot((threadIdx.x + 1) << low_bits)]
+                                : live;
+        cursor1[threadIdx.x] = lo;
+        nch = (hi - lo + STAGE - 1) / STAGE;
+    }
+    uint32_t all;
+    const uint32_t c0 = block_scan<HIST_THREADS>(nch, s_warp, &all);
+    if ((int)threadIdx.x < H) chunks[threadIdx.x] = c0;
+    if (threadIdx.x == 0) chunks[H] = all;
+}
+
+struct Pass {
+    const uint32_t* in;       // positions in
+    uint32_t* out;            // positions out
+    long long n;              // positions in, for a pass without chunks
+    long long nwords;
+    int word_shift;
+    int filter;               // drop the sentinel and past-array positions
+    int shift;                // a position's bucket: (tile >> shift) - base
+    int buckets;              // B, a power of two <= 2**ONE_PASS_BITS
+    uint32_t* cursor;         // next free slot of bucket base + d
+    // the second pass: high bucket s holds chunks chunks[s] to chunks[s +
+    // 1] - 1 and spans offsets[s << seg_shift] to offsets[(s + 1) <<
+    // seg_shift]; its base is s << seg_shift. Null: chunks of STAGE
+    // positions from 0 to n, base 0.
+    const uint32_t* chunks;
+    const uint32_t* offsets;
+    int nseg;
+    int seg_shift;
+};
+
+// Chunk c's positions [lo, hi) and bucket base.
+__device__ __forceinline__ void chunk_range(const Pass& P,
+                                            const uint32_t* s_chunks,
+                                            uint32_t c, long long* lo,
+                                            long long* hi, uint32_t* base) {
+    if (!P.chunks) {
+        *lo = (long long)c * STAGE;
+        *hi = *lo + STAGE < P.n ? *lo + STAGE : P.n;
+        *base = 0;
+        return;
+    }
+    int a = 0, b = P.nseg;      // the last s with s_chunks[s] <= c
+    while (b - a > 1) {
+        const int m = (a + b) >> 1;
+        if (s_chunks[m] <= c) a = m;
+        else b = m;
+    }
+    *lo = P.offsets[a << P.seg_shift] + (long long)(c - s_chunks[a]) * STAGE;
+    const long long end = P.offsets[(a + 1) << P.seg_shift];
+    *hi = *lo + STAGE < end ? *lo + STAGE : end;
+    *base = (uint32_t)a << P.seg_shift;
+}
+
+__device__ __forceinline__ void load_chunk(const Pass& P, long long lo,
                                            long long hi, uint32_t* p) {
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
-        const long long i = base + threadIdx.x + (long long)j * THREADS;
-        p[j] = i < hi ? P.keys[i] : 0u;
+        const long long i = lo + threadIdx.x + (long long)j * THREADS;
+        p[j] = i < hi ? P.in[i] : BTL_SENTINEL;
     }
 }
 
-__global__ void __launch_bounds__(THREADS) tp_scatter(Pass P) {
-    __shared__ uint32_t s_keys[STAGE];
-    __shared__ uint32_t s_count[MAX_BUCKETS];   // this stage's, per bucket
-    __shared__ uint32_t s_start[MAX_BUCKETS];   // its exclusive scan
-    __shared__ uint32_t s_next[MAX_BUCKETS];    // the block's next slot
-    __shared__ uint32_t warp_total[WARPS];
-    __shared__ uint32_t s_live;
-    int seg;
-    long long lo, hi;
-    block_range(P, &seg, &lo, &hi);
+// The bucket of a live position.
+__device__ __forceinline__ int bucket(const Pass& P, uint32_t p,
+                                      uint32_t base) {
+    return (int)((((p >> P.word_shift) >> BTL_TILE_SHIFT) >> P.shift) -
+                 base);
+}
+
+__global__ void __launch_bounds__(THREADS, SCATTER_BLOCKS / SMS)
+tp_scatter(Pass P) {
+    extern __shared__ uint32_t smem[];
     const int B = P.buckets;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int d = threadIdx.x; d < B; d += THREADS)
-        s_next[d] = P.counts[(long long)seg * B + d] +
-                    P.hist[(long long)blockIdx.x * B + d];
+    uint32_t* s_keys = smem;                 // [STAGE]
+    uint32_t* s_count = s_keys + STAGE;      // [B] this chunk's, a bucket
+    uint32_t* s_start = s_count + B;         // [B] their exclusive scan
+    uint32_t* s_delta = s_start + B;         // [B] out slot - staged slot
+    uint32_t* s_chunks = s_delta + B;        // [nseg + 1]
+    __shared__ uint32_t s_warp[WARPS];
+    if (P.chunks)
+        for (int s = threadIdx.x; s <= P.nseg; s += THREADS)
+            s_chunks[s] = P.chunks[s];
+    if ((int)threadIdx.x < B) s_count[threadIdx.x] = 0;
+    __syncthreads();
+    const uint32_t total = P.chunks
+                               ? s_chunks[P.nseg]
+                               : (uint32_t)((P.n + STAGE - 1) / STAGE);
+    uint32_t c = blockIdx.x, base = 0;
+    long long lo = 0, hi = 0;
     uint32_t p[ITEMS];
-    load_stage(P, lo, hi, p);
-    for (long long base = lo; base < hi; base += STAGE) {
-        for (int d = threadIdx.x; d < B; d += THREADS) s_count[d] = 0;
-        __syncthreads();
-        uint32_t rank[ITEMS];
-        int dig[ITEMS];
+    if (c < total) {
+        chunk_range(P, s_chunks, c, &lo, &hi, &base);
+        load_chunk(P, lo, hi, p);
+    }
+    for (; c < total; c += gridDim.x) {
+        // rank each position inside its bucket
+        uint32_t code[ITEMS];
 #pragma unroll
         for (int j = 0; j < ITEMS; ++j) {
-            const long long i = base + threadIdx.x + (long long)j * THREADS;
-            dig[j] = i < hi ? bucket(P, p[j]) : -1;
+            const long long i = lo + threadIdx.x + (long long)j * THREADS;
+            bool live = i < hi;
+            if (live && P.filter)
+                live = tile_of(p[j], P.nwords, P.word_shift) >= 0;
+            code[j] = DROP;
+            if (live) {
+                const int d = bucket(P, p[j], base);
+                code[j] = ((uint32_t)d << RANK_BITS) |
+                          atomicAdd(&s_count[d], 1u);
+            }
         }
+        __syncthreads();
+        // the buckets' starts in the stage and their slots in out, a
+        // bucket a thread
+        const int d = threadIdx.x;
+        const uint32_t cnt = d < B ? s_count[d] : 0u;
+        uint32_t live;
+        const uint32_t start = block_scan<THREADS>(cnt, s_warp, &live);
+        if (d < B) {
+            s_start[d] = start;
+            if (cnt) s_delta[d] = atomicAdd(&P.cursor[base + d], cnt) - start;
+            s_count[d] = 0;
+        }
+        __syncthreads();
 #pragma unroll
         for (int j = 0; j < ITEMS; ++j)
-            rank[j] = dig[j] >= 0 ? atomicAdd(&s_count[dig[j]], 1u) : 0u;
-        __syncthreads();
-        // exclusive scan of the stage's counts (B <= 256 < THREADS)
-        const uint32_t c = threadIdx.x < B ? s_count[threadIdx.x] : 0u;
-        uint32_t incl = c;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const uint32_t u = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-            if (lane >= d) incl += u;
+            if (code[j] != DROP)
+                s_keys[s_start[code[j] >> RANK_BITS] +
+                       (code[j] & (STAGE - 1))] = p[j];
+        // the next chunk's loads fly while this one is written out
+        const uint32_t base_now = base;
+        if (c + gridDim.x < total) {
+            chunk_range(P, s_chunks, c + gridDim.x, &lo, &hi, &base);
+            load_chunk(P, lo, hi, p);
         }
-        if (lane == 31) warp_total[warp] = incl;
-        __syncthreads();
-        uint32_t before = 0;
-        for (int w = 0; w < warp; ++w) before += warp_total[w];
-        if (threadIdx.x < B) s_start[threadIdx.x] = before + incl - c;
-        if (threadIdx.x == B - 1) s_live = before + incl;
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < ITEMS; ++j) {
-            if (dig[j] >= 0) s_keys[s_start[dig[j]] + rank[j]] = p[j];
-        }
-        // the next stage's loads fly while this one is written out
-        load_stage(P, base + STAGE, hi, p);
         __syncthreads();
         // each bucket's run, consecutive threads on consecutive addresses
-        const uint32_t live = s_live;
         for (uint32_t i = threadIdx.x; i < live; i += THREADS) {
             const uint32_t key = s_keys[i];
-            const int d = bucket(P, key);
-            P.out[s_next[d] + (i - s_start[d])] = key;
+            P.out[s_delta[bucket(P, key, base_now)] + i] = key;
         }
         __syncthreads();
-        for (int d = threadIdx.x; d < B; d += THREADS) s_next[d] += s_count[d];
     }
 }
 
@@ -239,50 +333,45 @@ int ceil_log2(long long x) {
 
 long long div_up(long long a, long long b) { return (a + b - 1) / b; }
 
-// The scratch of a partition, laid out as BtlTileScratch says.
 struct Plan {
     int tile_bits, high_bits, low_bits;   // low_bits 0: one pass
-    long long padded;                     // 2**tile_bits tiles
-    int grid1, grid2, per_seg2;
-    long long hist_words;
+    int padded;                           // 2**tile_bits tiles
+    int nseg;                             // 2**high_bits
 };
 
-Plan plan(long long n, long long nwords) {
+Plan plan(long long nwords) {
     Plan p;
     p.tile_bits = ceil_log2(btl_ntiles(nwords));
-    p.padded = 1LL << p.tile_bits;
-    p.low_bits = p.tile_bits > 8 ? LOW_BITS : 0;
+    p.padded = 1 << p.tile_bits;
+    p.low_bits = p.tile_bits > ONE_PASS_BITS ? LOW_BITS : 0;
     p.high_bits = p.tile_bits - p.low_bits;
-    long long g = div_up(n, STAGE);
-    p.grid1 = (int)(g < 1 ? 1 : g > MAX_BLOCKS ? MAX_BLOCKS : g);
-    const long long nseg = 1LL << p.high_bits;
-    long long k = div_up(n, nseg * STAGE);
-    const long long kmax = div_up(MAX_BLOCKS, nseg);
-    p.per_seg2 = (int)(k < 1 ? 1 : k > kmax ? kmax : k);
-    p.grid2 = p.low_bits ? (int)(nseg * p.per_seg2) : 0;
-    const long long h1 = (long long)p.grid1 << p.high_bits;
-    const long long h2 = (long long)p.grid2 << p.low_bits;
-    p.hist_words = h1 > h2 ? h1 : h2;
+    p.nseg = 1 << p.high_bits;
     return p;
 }
+
+constexpr int HIST_SMEM =
+    (BTL_MAX_TILES + (BTL_MAX_TILES >> 5)) * (int)sizeof(uint32_t);
 
 }  // namespace
 
 BtlTileScratch btl_tile_scratch(uint32_t* scratch, long long n,
                                 long long nwords) {
-    const Plan p = plan(n, nwords);
+    const Plan p = plan(nwords);
+    const long long two = p.low_bits ? 1 : 0;
     const long long at_pos = p.padded + 1;
-    const long long at_off1 = at_pos + n;
-    const long long at_stage = at_off1 + (1LL << p.high_bits) + 1;
-    const long long at_hist = at_stage + (p.low_bits ? n : 0);
+    const long long at_cursor = at_pos + n;
+    const long long at_cursor1 = at_cursor + p.padded + 1;
+    const long long at_chunks = at_cursor1 + two * p.nseg;
+    const long long at_stage = at_chunks + two * (p.nseg + 1);
     BtlTileScratch s{};
-    s.words = at_hist + p.hist_words;
+    s.words = at_stage + two * n;
     if (scratch) {
         s.offsets = scratch;
         s.pos = scratch + at_pos;
-        s.offsets1 = scratch + at_off1;
+        s.cursor = scratch + at_cursor;
+        s.cursor1 = scratch + at_cursor1;
+        s.chunks = scratch + at_chunks;
         s.stage = scratch + at_stage;
-        s.hist = scratch + at_hist;
     }
     return s;
 }
@@ -293,32 +382,50 @@ cudaError_t btl_tile_partition_run(const uint32_t* pos, long long n,
     const long long ntiles = btl_ntiles(nwords);
     if (ntiles < 1 || ntiles > BTL_MAX_TILES || n < 0 || n >= (1LL << 31))
         return cudaErrorInvalidValue;
-    const Plan p = plan(n, nwords);
+    const Plan p = plan(nwords);
     const BtlTileScratch s = btl_tile_scratch(scratch, n, nwords);
-    cudaError_t err = cudaMemsetAsync(s.offsets, 0,
-                                      (p.padded + 1) * sizeof(uint32_t),
-                                      stream);
-    if (err == cudaSuccess && p.low_bits)
-        err = cudaMemsetAsync(s.offsets1, 0,
-                              ((1LL << p.high_bits) + 1) * sizeof(uint32_t),
+    if (n == 0)
+        return cudaMemsetAsync(s.offsets, 0,
+                               (p.padded + 1) * sizeof(uint32_t), stream);
+    static unsigned long long hist_set = 0;
+    int device;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = btl_allow_smem(tp_hist, HIST_SMEM, device, &hist_set);
+    if (err == cudaSuccess)
+        err = cudaMemsetAsync(s.cursor, 0, (p.padded + 1) * sizeof(uint32_t),
                               stream);
-    if (err != cudaSuccess || n == 0) return err;
-    // pass 1: the high bits (all of them for a one-pass partition)
-    Pass P{pos, nullptr, n, p.grid1, nwords, 1, word_shift, p.low_bits,
-           1 << p.high_bits, p.low_bits ? s.offsets1 : s.offsets, s.hist,
-           p.low_bits ? s.stage : s.pos};
-    tp_count<<<p.grid1, THREADS, 0, stream>>>(P);
-    tp_scan<<<1, 1024, 0, stream>>>(P.counts, P.buckets);
-    tp_scatter<<<p.grid1, THREADS, 0, stream>>>(P);
+    if (err != cudaSuccess) return err;
+    const long long hist_grid =
+        div_up(n, (long long)HIST_THREADS * HIST_ITEMS);
+    tp_hist<<<(unsigned)(hist_grid < HIST_BLOCKS ? hist_grid : HIST_BLOCKS),
+              HIST_THREADS, (p.padded + (p.padded >> 5)) * sizeof(uint32_t),
+              stream>>>(
+        pos, n, nwords, word_shift, p.padded, p.low_bits, s.cursor,
+        s.offsets, s.cursor1, s.chunks);
+    const long long nchunks = div_up(n, STAGE);
+    const int grid1 =
+        (int)(nchunks < SCATTER_BLOCKS ? nchunks : SCATTER_BLOCKS);
+    const int B1 = p.nseg;
+    // the first pass: the high bits (all of them for a one-pass partition)
+    Pass P{pos, p.low_bits ? s.stage : s.pos, n, nwords, word_shift, 1,
+           p.low_bits, B1, p.low_bits ? s.cursor1 : s.cursor, nullptr,
+           nullptr, 0, 0};
+    tp_scatter<<<grid1, THREADS, (STAGE + 3 * B1) * sizeof(uint32_t),
+                 stream>>>(P);
     err = cudaGetLastError();
     if (err != cudaSuccess || !p.low_bits) return err;
-    // pass 2: the low bits inside each high bucket; bucket index
-    // seg * 2**low_bits + digit is the tile
-    Pass Q{s.stage, s.offsets1, n, p.per_seg2, nwords, 0, word_shift, 0,
-           1 << p.low_bits, s.offsets, s.hist, s.pos};
-    tp_count<<<p.grid2, THREADS, 0, stream>>>(Q);
-    tp_scan<<<1, 1024, 0, stream>>>(Q.counts, (int)p.padded);
-    tp_scatter<<<p.grid2, THREADS, 0, stream>>>(Q);
+    // the second pass: the low bits inside each high bucket, in chunks
+    // that never straddle one
+    const long long nchunks2 = nchunks + p.nseg;
+    const int B2 = 1 << p.low_bits;
+    Pass Q{s.stage, s.pos, n, nwords, word_shift, 0, 0, B2, s.cursor,
+           s.chunks, s.offsets, p.nseg, p.low_bits};
+    tp_scatter<<<(int)(nchunks2 < SCATTER_BLOCKS ? nchunks2
+                                                 : SCATTER_BLOCKS),
+                 THREADS,
+                 (STAGE + 3 * B2 + p.nseg + 1) * sizeof(uint32_t),
+                 stream>>>(Q);
     return cudaGetLastError();
 }
 

@@ -13,7 +13,8 @@
 #define BTL_TILE_SHIFT 14
 
 // Most tiles a partition takes, 2**15: two passes of at most 8 and 7 bits
-// of the tile index (tile_partition.cu).
+// of the tile index (tile_partition.cu), and a histogram of every tile in
+// 128 KiB of shared memory.
 #define BTL_MAX_TILES 32768
 
 // Group the live positions of pos uint32 [n] by tile (p >> word_shift) >>
@@ -33,15 +34,19 @@ static inline long long btl_ntiles(long long nwords) {
 // A partition's scratch. In order: offsets [P + 1] (P the tile count
 // rounded up to a power of two; offsets[t] is where tile t's positions
 // start, offsets[ntiles] the number of live positions), the grouped
-// positions [n], then the first pass's offsets, its staged positions, and
-// the blocks' bases inside their buckets. words is the total; with scratch
-// null only words is set.
+// positions [n], then the partition's own: the tile counts that become
+// each tile's next free slot [P], the histogram's ticket [1], and for a
+// two-pass partition the first pass's next free slot of each high bucket
+// [H], the second pass's first chunk of each bucket [H + 1] and the first
+// pass's output [n]. words is the total; with scratch null only words is
+// set.
 struct BtlTileScratch {
     uint32_t* offsets;
     uint32_t* pos;
-    uint32_t* offsets1;
+    uint32_t* cursor;
+    uint32_t* cursor1;
+    uint32_t* chunks;
     uint32_t* stage;
-    uint32_t* hist;
     long long words;
 };
 
@@ -93,16 +98,15 @@ __device__ __forceinline__ void btl_tile_copy(uint32_t* s, uint32_t* g,
     }
 }
 
-// Raise a kernel's dynamic shared memory limit to a tile's bytes (above
-// 48 KiB it must be asked for), once a device; *done holds a bit a device.
+// Raise a kernel's dynamic shared memory limit to bytes (above 48 KiB it
+// must be asked for), once a device; *done holds a bit a device.
 template <typename K>
-static inline cudaError_t btl_allow_tile_smem(K kernel, int device,
-                                              unsigned long long* done) {
+static inline cudaError_t btl_allow_smem(K kernel, int bytes, int device,
+                                         unsigned long long* done) {
     const unsigned long long bit = 1ULL << (device & 63);
     if (*done & bit) return cudaSuccess;
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        BTL_TILE_WORDS * (int)sizeof(uint32_t));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess) *done |= bit;
     return err;
 }

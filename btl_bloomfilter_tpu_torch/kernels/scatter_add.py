@@ -38,10 +38,11 @@ TILED_KERNEL = _build.CudaKernel("btl_scatter_add_tiled", [
 # The route rule's constants, from H100 runs of tools/time_kernels.py's
 # grid (uniform positions; PERF.md section 6): the sweep reads and writes
 # the whole array, so it pays where the pairs are enough to amortise the
-# partition and at least one pair comes for every 16 words. At 3M pairs it
-# wins up to 2**25 words and loses at 2**26; at 2M it loses or ties from
-# 2**23 words (4 a pair) up, where the direct CAS is the faster.
-TILED_MIN_POS = 3 << 20
+# partition and at least one pair comes for every 16 words. At 2M pairs it
+# wins up to 2**25 words and loses from 2**26; at 3M it wins up to 2**25
+# and ties at 2**26; at 1.5M it loses from 2**23 words up, where the
+# direct CAS is the faster.
+TILED_MIN_POS = 2 << 20
 TILED_WORDS_PER_POS = 16
 
 

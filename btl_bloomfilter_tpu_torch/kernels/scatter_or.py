@@ -43,18 +43,21 @@ TILED_KERNEL = _build.CudaKernel("btl_scatter_or_tiled",
 # The route rule's constants, from H100 runs of tools/time_kernels.py's
 # grid (uniform positions; PERF.md section 6): the tiled route pays once the
 # filter outgrows the 50 MB L2 (from 2**24 words, 64 MiB) and the positions
-# are enough to amortise the partition. At 3M positions it wins for 2**24
-# to 2**26 words and ties at 2**27; at 2M it loses (2**25 words aside, by
-# 1.5%). The rule counts sentinels as positions: at bench.py's batch with
-# 2% N (about 53% live) the two routes tie.
+# are enough to amortise the partition and the sweep. At 2M positions it
+# wins for 2**24 to 2**26 words and loses at 2**27, which takes 3M (one
+# position in 48 words); at 1.5M it loses. The rule counts sentinels as
+# positions: at bench.py's batch with 2% N (about 53% live) the two routes
+# tie.
 TILED_MIN_WORDS = 1 << 24
-TILED_MIN_POS = 3 << 20
+TILED_MIN_POS = 2 << 20
+TILED_WORDS_PER_POS = 48
 
 
 def route(nwords: int, npos: int) -> str:
     """"tiled" or "direct": the route a CUDA insert of npos positions into
     a filter of nwords words takes."""
-    if (nwords >= TILED_MIN_WORDS and TILED_MIN_POS <= npos < 1 << 31
+    if (nwords >= TILED_MIN_WORDS and npos < 1 << 31
+            and npos >= max(TILED_MIN_POS, nwords // TILED_WORDS_PER_POS)
             and tile_partition.ntiles(nwords) <= tile_partition.MAX_TILES):
         return "tiled"
     return "direct"

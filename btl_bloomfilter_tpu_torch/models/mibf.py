@@ -10,7 +10,11 @@ Storage: ``bv_words`` and ``cum_ranks`` are int32 tensors holding uint32
 bits; ``data`` holds the IDs at their native width as bit patterns
 (widths 1 / 2 / 4 bytes as uint8 / int16 / int32), so its bytes are the
 reference's ID array; every comparison on it is unsigned
-(``ops/u64.unsigned``). Width 8 (two uint32 planes in the reference) is not
+(``ops/u64.unsigned``). ``rank_dir`` is derived from the two: the rank
+directory of ``kernels/mibf_rank`` (the cumulative count and 7 words a 32
+bytes, so a lookup on the card reads one sector), built once by
+``freeze``, through which every filter is made; the bit vector never
+changes after it. Width 8 (two uint32 planes in the reference) is not
 ported yet and raises ``NotImplementedError``.
 
 Rank and ID lookups go through the CUDA kernel ``kernels/mibf_rank`` when
@@ -62,6 +66,7 @@ def to_storage(values: torch.Tensor, data_width: int) -> torch.Tensor:
 class MIBloomFilter:
     bv_words: torch.Tensor    # int32 [ceil(size/32)] frozen bit vector
     cum_ranks: torch.Tensor   # int32 [nwords] exclusive cumulative popcounts
+    rank_dir: torch.Tensor    # int32 [8 * ceil(nwords / 7)] rank directory
     data: torch.Tensor        # ID array [d_size], storage dtype of the width
     size: int                 # bit-vector length in bits
     hash_num: int
@@ -124,7 +129,8 @@ def freeze(bv_words: torch.Tensor, size: int, hash_num: int, kmer_size: int,
     """Rank structure and an empty ID array over a populated bit vector
     (int32 words, uint32 bits), on the vector's device; the filter shares
     the words tensor. The MIBloomFilter(bv) constructor
-    (MIBloomFilter.hpp:122-147)."""
+    (MIBloomFilter.hpp:122-147), plus the rank directory the lookups read
+    on the card."""
     check_width(data_width)
     pops = u64.popcount32(bv_words)
     cum = torch.cumsum(pops, 0) - pops
@@ -132,8 +138,10 @@ def freeze(bv_words: torch.Tensor, size: int, hash_num: int, kmer_size: int,
     if d_size >= (1 << 31):
         raise NotImplementedError("MIBF of 2**31 set bits or more is not "
                                   "supported (ranks are int32)")
+    cum = cum.to(torch.int32)
     return MIBloomFilter(
-        bv_words=bv_words, cum_ranks=cum.to(torch.int32),
+        bv_words=bv_words, cum_ranks=cum,
+        rank_dir=mibf_rank.rank_directory(bv_words, cum),
         data=torch.zeros(d_size, dtype=STORAGE[data_width],
                          device=bv_words.device),
         size=size, hash_num=hash_num, kmer_size=kmer_size, d_size=d_size,
@@ -185,7 +193,7 @@ def rank_of_positions(m: MIBloomFilter, pos: torch.Tensor):
     """(rank int32, hit bool) of bit positions pos int32 (uint32 bits): rank
     = #1s strictly before pos (sdsl rank, MIBloomFilter.hpp:527)."""
     rank, hit, _ = mibf_rank.rank_lookup(m.bv_words, m.cum_ranks,
-                                         pos.to(m.device))
+                                         m.rank_dir, pos.to(m.device))
     return rank, hit
 
 
@@ -200,7 +208,7 @@ def at_rank_data(m: MIBloomFilter, hashes: torch.Tensor):
     shaped like hashes, raw = data[rank] as an unsigned value with its
     saturation and strand bits, 0 where the bit vector missed."""
     rank, hit, raw = mibf_rank.rank_lookup(
-        m.bv_words, m.cum_ranks, positions(m, hashes), m.data)
+        m.bv_words, m.cum_ranks, m.rank_dir, positions(m, hashes), m.data)
     return rank, hit, u64.from_u32_bits(raw)
 
 

@@ -27,9 +27,16 @@ queued``), and for a call that needs no setup the host's time to issue it
     ``cudaLimitMaxL2FetchGranularity``;
   * ``bloom_steps``: the Bloom insert step from a zeroed filter and the
     query step of the inserted batch (``kmer_bloom``), bench.py's batch;
+  * ``counting_steps``: the counting insert step (ungrouped conservative
+    update) from zeroed counters and the query step, bench.py's counting
+    batch;
   * ``mibf_frame_scan``: pass C on the inputs bench.py's MIBF config gives
     it (``tools/profile_mibf.py``: 256 reads x 2048 bases, 2018 frames of 4
     slots);
+  * ``mibf_rank``: the rank lookup, rank only at the build's positions and
+    rank + ID at the classification's, at bench.py's MIBF config and at
+    chip_smoke.py 7c's size, and ``mibf.freeze`` at bench.py's config
+    (``rank_calls``);
   * ``dma_sweep``: each copy sweep of ``probes/partition_probe.py``, and
     ``copy_`` of the same tensor beside it;
   * ``scatter_or``: the Bloom insert at bench.py's batch (512 x 2048 ACGT
@@ -44,7 +51,8 @@ queued``), and for a call that needs no setup the host's time to issue it
   * ``scatter_add``: incrementAll at the counting bench batch (3072 x 2048
     ACGT reads: 24,792,576 unit adds into 2**30 u8 counters), the wrapper,
     each route, and ``counting.insert_all`` of the batch;
-  * ``tile_partition``: the partition alone at those two bench batches;
+  * ``tile_partition``: the partition alone at those two bench batches
+    (with ``--profile``, its device time by launch);
   * ``scatter_or_grid``, ``scatter_add_grid``: each route of the two
     scatters over a grid of array words and uniform random positions, the
     data the route rules' constants come from.
@@ -206,6 +214,49 @@ def frame_scan_calls(dev) -> dict:
     return {"mibf_frame_scan": lambda: scan(*fargs)}
 
 
+def rank_calls(dev) -> dict:
+    """The MIBF rank lookup: rank only at the build's positions and rank +
+    ID (width 2) at the classification's 2,066,432, at bench.py's config
+    (``tools/profile_mibf.py``: 2**28 bits, 4,121,208 build positions) and
+    at chip_smoke.py 7c's size (96,817,664 bits at occupancy 0.5, random
+    words; 67,101,184 build positions, uniform as the hash gives them);
+    and ``mibf.freeze`` of bench.py's bit vector, which builds the rank
+    structure the lookups read."""
+    from btl_bloomfilter_tpu_torch.kernels import mibf_rank
+    from btl_bloomfilter_tpu_torch.models import mibf
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+
+    refs, reads, _ = mb.bench_inputs()
+    bench, _ = mb.bench_build(torch.from_numpy(refs).to(dev),
+                              torch.arange(1, mb.IDS, device=dev))
+    bpos = mibf.positions(bench, mb.bench_hashes(
+        torch.from_numpy(refs).to(dev))[0])
+    qpos = mibf.positions(bench, mb.bench_hashes(
+        torch.from_numpy(reads).to(dev))[0])
+    size = 96817664
+    words = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 1 << 32, size=size // 32, dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(dev)
+    big = mibf.freeze(words, size, mb.H, mb.K, mb.DATA_WIDTH)
+    big.data = torch.randint(-(1 << 15), 1 << 15, (big.d_size,),
+                             dtype=torch.int16, device=dev)
+    out = {"mibf freeze bench": lambda: mibf.freeze(
+        bench.bv_words, bench.size, mb.H, mb.K, mb.DATA_WIDTH)}
+    for label, m, build, query in (
+            ("bench", bench, bpos, qpos),
+            ("7c", big, uniform_positions(dev, 67101184, size),
+             uniform_positions(dev, 2066432, size, seed=2))):
+        # trees from before the rank directory take no rank_dir
+        args = (m.bv_words, m.cum_ranks) + (
+            (m.rank_dir,) if hasattr(m, "rank_dir") else ())
+        out[f"mibf_rank {label} rank only {build.numel()}"] = (
+            lambda a=args, p=build: mibf_rank.rank_lookup(*a, p))
+        out[f"mibf_rank {label} rank + ID {query.numel()}"] = (
+            lambda a=args, p=query, d=m.data: mibf_rank.rank_lookup(*a, p,
+                                                                    d))
+    return out
+
+
 def sweep_calls(dev) -> dict:
     from btl_bloomfilter_tpu_torch.probes import partition_probe
 
@@ -301,6 +352,24 @@ def scatter_add_calls(dev) -> dict:
     return out
 
 
+def counting_step_calls(dev) -> dict:
+    """The counting insert step (conservative update, ungrouped) from zeroed
+    counters and the query step of the inserted batch, at bench.py's
+    counting batch (3072 x 2048 ACGT reads, 2**30 u8 counters)."""
+    from btl_bloomfilter_tpu_torch.models import counting
+
+    codes = acgt_codes(dev, 3072)
+    cbf = counting.create(1 << 30, 4, 31, 1, counter_width=1, device=dev)
+    query = counting.create(1 << 30, 4, 31, 1, counter_width=1, device=dev)
+    counting.insert_seq(query, codes, group_duplicates=False)
+    return {"counting insert step": (
+                lambda: counting.insert_seq(cbf, codes,
+                                            group_duplicates=False),
+                cbf.counters.zero_),
+            "counting query step": lambda: counting.contains_seq(query,
+                                                                 codes)}
+
+
 def partition_calls(dev) -> dict:
     try:
         from btl_bloomfilter_tpu_torch.kernels import tile_partition
@@ -339,7 +408,8 @@ def grid_calls(dev, kind: str) -> dict:
 # a str value is recorded as it is
 CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
          "gather_words": gather_calls, "bloom_steps": bloom_step_calls,
-         "mibf_frame_scan": frame_scan_calls,
+         "counting_steps": counting_step_calls,
+         "mibf_frame_scan": frame_scan_calls, "mibf_rank": rank_calls,
          "dma_sweep": sweep_calls, "scatter_or": scatter_or_calls,
          "scatter_add": scatter_add_calls, "tile_partition": partition_calls,
          "scatter_or_grid": lambda dev: grid_calls(dev, "or"),

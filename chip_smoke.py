@@ -19,10 +19,12 @@ counters, batches of 3072 reads x 2048 bases):
      at a run's edges, h up to 17, a window count not a multiple of 4, an
      unaligned view); the Bloom insert's two
      routes (direct and tiled) and the tile partition at both sizes on the
-     2%-N batch and on bench.py's ACGT batch; the kernels' times on the
-     ACGT batch (4,132,864 positions), each scatter from a zeroed filter,
-     the gather also on a fresh ACGT batch (misses), beside torch's
-     words[idx] at the same word indices;
+     2%-N batch and on bench.py's ACGT batch, the partition also on a
+     poly-A batch (every live position in at most h tiles); the kernels'
+     times on the ACGT batch (4,132,864 positions), each scatter from a
+     zeroed filter, the gather also on a fresh ACGT batch (misses), beside
+     torch's words[idx] at the same word indices, the partition beside
+     torch.sort of the same positions;
   3. the main path through api.BloomPipeline: 16 batches inserted, the same
      reads queried (every valid window must hit), 4 fresh batches queried
      (hit fraction inside the FPR band), the .bf store/load round trip, the
@@ -32,7 +34,7 @@ counters, batches of 3072 reads x 2048 bases):
   5. insert and query k-mers/s, kernel path against plain path;
   6. the counting filter:
      a. gather_counters, scatter_add (unit and weighted, each route), the
-        tile partition (increments as values) and
+        tile partition (increments as values, and a poly-A batch) and
         conservative_step (the closed-form rows of the batch's
         decomposition, ungrouped and grouped over a batch whose reads all
         appear twice, and its first replay round, on random words) against
@@ -54,13 +56,16 @@ counters, batches of 3072 reads x 2048 bases):
         .bf files rebuilt on the card;
      e. counting insert and query k-mers/s and per-kernel times, kernel
         path against plain path (scatter_add's routes and the partition
-        alone, from zeroed counters); gather_counters' hit mode on inserted
+        alone, beside torch.sort of the same positions, from zeroed
+        counters); gather_counters' hit mode on inserted
         (hit-heavy) and fresh (miss-heavy) reads; the ungrouped insert's four stages (hash, decompose,
         closed form, replay) on the host clock and its device idle share
         under torch.profiler;
   7. the multi-index Bloom filter (MIBF) build and read classification:
      a. mibf_rank (rank only at the build's positions; rank + ID for ID
-        widths 1, 2 and 4 at the classify batch's) and mibf_frame_scan (at
+        widths 1, 2 and 4 at the classify batch's; both at the rank
+        directory's edges: bit vectors of 1, 6, 7, 8, 13 and 2**16 + 3
+        words, positions past the vector among them) and mibf_frame_scan (at
         the classify batch's pass C inputs, with and without an early exit)
         against their plain versions, bitwise;
      b. bench.py's pinned MIBF config uncut (k=31, h=4, 2**28-bit vector,
@@ -77,7 +82,9 @@ counters, batches of 3072 reads x 2048 bases):
      d. the .mibf / .sdsl round trip of that filter, and the build_mibf /
         classify CLIs on a small multi-FASTA;
      e. MIBF construct and classify rates under bench.py's keys and
-        per-kernel times, kernel path against plain path;
+        per-kernel times, kernel path against plain path, with mibf_rank's
+        sector floors through the two arrays and through the rank
+        directory;
   8. the probes (btl_bloomfilter_tpu_torch/probes/), each driven through
      its main with every launch count at 0 just before it and read just
      after, then its kernels against their plain versions, bitwise, at the
@@ -411,6 +418,7 @@ def counting_phases(dev: torch.device, card_line: str):
                              make_codes(rng, rows=CB - CB // 2)])
     codes = torch.from_numpy(first).to(dev)
     twice = torch.from_numpy(np.concatenate([first[: CB // 2]] * 2)).to(dev)
+    polya = torch.zeros((CB, L), dtype=torch.uint8, device=dev)
     for width in C_WIDTHS:
         cbf = counting.create(C_BYTES, H, K, 1, counter_width=width,
                               device=dev)
@@ -450,6 +458,14 @@ def counting_phases(dev: torch.device, card_line: str):
             tile_partition.tile_partition(pos, cbf.nwords, shift),
             tile_partition.tile_partition_plain(pos, cbf.nwords, shift),
             shift))
+        # poly-A reads: every live position in at most h tiles
+        ppos = nthash_scan.positions_planes(polya, K, H, size)[0]
+        err["tile_partition"] = max(err["tile_partition"], partition_err(
+            f"width {width} poly-A tile_partition",
+            tile_partition.tile_partition(ppos, cbf.nwords, shift),
+            tile_partition.tile_partition_plain(ppos, cbf.nwords, shift),
+            shift))
+        del ppos
         tpos, _s, _v = nthash_scan.positions_planes(twice, K, H, size)
         steps = []
         for what, fpos, group in (("ungrouped", pos, False),
@@ -492,7 +508,7 @@ def counting_phases(dev: torch.device, card_line: str):
         log(f"[6a] width {width}: gather_counters (vals, min, hit), "
             f"scatter_add (unit: direct and tiled, the rule's route "
             f"{scatter_add.route(cbf.nwords, pos.numel())}; weighted: "
-            f"direct), tile_partition, "
+            f"direct), tile_partition (also of a poly-A batch), "
             f"conservative_step and the conservative insert of "
             f"two {CB}x{L} batches (grouped and not) kernel == plain "
             f"(bitwise); {nz} nonzero words after the insert")
@@ -727,6 +743,7 @@ def counting_phases(dev: torch.device, card_line: str):
     }
     part_ms = kernel_times(lambda: tile_partition.tile_partition(
         pos, cbf.nwords, 2))
+    sort_ms = kernel_times(lambda: torch.sort(pos.reshape(-1)))
     n_words = distinct_words(pos, 2)
     bounds = {
         # positions in, hits out; each distinct word read once
@@ -756,7 +773,8 @@ def counting_phases(dev: torch.device, card_line: str):
     log(f"[6e] conservative_step at the closed form: "
         f"{c_live} live of {cpos.shape[1]} frames")
     log(f"[6e] {pos.numel()} unit adds from zeroed counters: tile_partition "
-        f"alone {part_ms:.4f} ms; the rule's route: "
+        f"alone {part_ms:.4f} ms (torch.sort of the positions, its "
+        f"yardstick: {sort_ms:.4f} ms); the rule's route: "
         f"{scatter_add.route(cbf.nwords, pos.numel())} ({card_line})")
     del cw_k, cw_p, words_p, cpos, cc, fpos, wz
 
@@ -897,9 +915,10 @@ def mibf_phases(dev: torch.device, card_line: str):
     qpos = mibf.positions(m, qhashes)
     for what, a, b in zip(("rank", "hit"),
                           mibf_rank.rank_lookup(m.bv_words, m.cum_ranks,
-                                                bpos)[:2],
-                          mibf_rank.rank_lookup_plain(m.bv_words,
-                                                      m.cum_ranks, bpos)[:2]):
+                                                m.rank_dir, bpos)[:2],
+                          mibf_rank.rank_lookup_plain(
+                              m.bv_words, m.cum_ranks, m.rank_dir,
+                              bpos)[:2]):
         err["mibf_rank"] = max(err["mibf_rank"], require_equal(
             f"mibf_rank build positions {what}", a, b))
 
@@ -912,12 +931,39 @@ def mibf_phases(dev: torch.device, card_line: str):
 
     planes = [(2, m.data)] + [(w, random_plane(w)) for w in M_WIDTHS]
     for width, data in planes:
-        got = mibf_rank.rank_lookup(m.bv_words, m.cum_ranks, qpos, data)
-        ref = mibf_rank.rank_lookup_plain(m.bv_words, m.cum_ranks, qpos,
-                                          data)
+        got = mibf_rank.rank_lookup(m.bv_words, m.cum_ranks, m.rank_dir,
+                                    qpos, data)
+        ref = mibf_rank.rank_lookup_plain(m.bv_words, m.cum_ranks,
+                                          m.rank_dir, qpos, data)
         for what, a, b in zip(("rank", "hit", "raw"), got, ref):
             err["mibf_rank"] = max(err["mibf_rank"], require_equal(
                 f"mibf_rank width {width} {what}", a, b))
+    # the rank directory's edges: one block, its neighbours, sizes that are
+    # not a multiple of it, positions past the vector
+    edge_sizes = (1, 6, 7, 8, 13, (1 << 16) + 3)
+    for nw in edge_sizes:
+        words = torch.randint(-(1 << 31), 1 << 31, (nw,), dtype=torch.int32,
+                              device=dev, generator=gen)
+        me = mibf.freeze(words, nw * 32, H, K, 4)
+        epos = torch.cat([
+            torch.randint(0, nw * 32, (50_000,), device=dev, generator=gen),
+            torch.randint(nw * 32, 1 << 32, (1000,), device=dev,
+                          generator=gen)]).to(torch.int32)
+        for width in (None,) + M_WIDTHS:
+            data = None
+            if width:
+                lo = 0 if width == 1 else -(1 << (8 * width - 1))
+                data = torch.randint(lo, lo + (1 << (8 * width)),
+                                     (me.d_size,), dtype=torch.int64,
+                                     device=dev, generator=gen).to(
+                                         mibf.STORAGE[width])
+            args = (me.bv_words, me.cum_ranks, me.rank_dir, epos, data)
+            for what, a, b in zip(("rank", "hit", "raw"),
+                                  mibf_rank.rank_lookup(*args),
+                                  mibf_rank.rank_lookup_plain(*args)):
+                if a is not None or b is not None:
+                    err["mibf_rank"] = max(err["mibf_rank"], require_equal(
+                        f"mibf_rank {nw} words width {width} {what}", a, b))
     args = captured[0]
     for efl in (10**6, 3):
         got = mibf_frame_scan.frame_scan(*args[:7], efl)
@@ -929,9 +975,11 @@ def mibf_phases(dev: torch.device, card_line: str):
                 f"mibf_frame_scan efl {efl} {what}", a, b))
     log(f"[7a] mibf_rank (rank only at {bpos.numel()} build positions; "
         f"rank + ID for widths {M_WIDTHS} at {qpos.numel()} classify "
-        f"positions, {int(got[0].sum())} promoted slots at efl 3) and "
-        f"mibf_frame_scan ({M_R}x{args[0].shape[1]}x{H} slots, extra-frame "
-        "limit 10**6 and 3) kernel == plain (bitwise)")
+        f"positions; rank only and rank + ID at bit vectors of {edge_sizes} "
+        f"words, past-vector positions among them) and mibf_frame_scan "
+        f"({M_R}x{args[0].shape[1]}x{H} slots, extra-frame limit 10**6 "
+        f"and 3; {int(got[0].sum())} promoted slots at efl 3) kernel == "
+        "plain (bitwise)")
 
     # ---- 7e. times at those shapes ----------------------------------------
     total_kmers = (mb.IDS - 1) * (mb.REF_L - K + 1)
@@ -956,22 +1004,22 @@ def mibf_phases(dev: torch.device, card_line: str):
             "mibf_classify_reads_per_s": M_R / (tq / 1e3),
             "mibf_classify_kmers_per_s": qkmers / (tq / 1e3),
             "mibf_classify_correct_frac": correct / M_R}))
-    bv, cum, data = m.bv_words, m.cum_ranks, m.data
+    bv, cum, rdir, data = m.bv_words, m.cum_ranks, m.rank_dir, m.data
     ms = {
         "mibf_rank": (
-            kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, qpos,
+            kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, rdir, qpos,
                                                        data)),
-            median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, qpos,
-                                                          data))),
+            median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, rdir,
+                                                          qpos, data))),
         "mibf_frame_scan": (
             kernel_times(lambda: mibf_frame_scan.frame_scan(*args)),
             median_ms(lambda: mibf_frame_scan.frame_scan_plain(*args), 1,
                       1)),
     }
     build_rank = (
-        kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, bpos)),
-        median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, bpos)))
-    hits = mibf_rank.rank_lookup(bv, cum, qpos)[1]
+        kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, rdir, bpos)),
+        median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, rdir, bpos)))
+    hits = mibf_rank.rank_lookup(bv, cum, rdir, qpos)[1]
     n_q, n_b = qpos.numel(), bpos.numel()
     r_slots = args[0].shape[0] * args[0].shape[1] * args[0].shape[2]
     bounds = {
@@ -979,7 +1027,8 @@ def mibf_phases(dev: torch.device, card_line: str):
         # and the IDs of the hits
         "mibf_rank": bound_ms(13 * n_q + 8 * distinct_words(qpos, 5)
                               + 2 * int(torch.unique(
-                                  mibf_rank.rank_lookup(bv, cum, qpos)[0]
+                                  mibf_rank.rank_lookup(bv, cum, rdir,
+                                                        qpos)[0]
                                   [hits]).numel())),
         # c6, consider, min_count in and ok out per slot; five per-frame
         # arrays; best, sat and eval counts per read
@@ -989,13 +1038,24 @@ def mibf_phases(dev: torch.device, card_line: str):
             + args[0].shape[0] * 32)}
     build_bound = bound_ms(9 * n_b + 8 * distinct_words(bpos, 5))
     # bv and cum_ranks share their sector index (one cum word a bv word);
-    # 16 two-byte IDs to a sector
+    # 16 two-byte IDs to a sector; the rank directory's own floor reads
+    # one 32-byte block a distinct 7 words
+    id_sectors = 32 * int(torch.unique(
+        mibf_rank.rank_lookup(bv, cum, rdir, qpos)[0][hits] >> 4).numel())
+
+    def dir_blocks(p):
+        w = (unsigned(p.reshape(-1)) >> 5).clamp(max=bv.numel() - 1)
+        return int(torch.unique(w // mibf_rank.BLOCK_WORDS).numel())
+
     sector_floors({
         "mibf_rank rank + ID": 13 * n_q + 64 * distinct_words(qpos, 8)
-        + 32 * int(torch.unique(mibf_rank.rank_lookup(bv, cum, qpos)[0]
-                                [hits] >> 4).numel()),
+        + id_sectors,
         "mibf_rank rank only (build)": 9 * n_b
-        + 64 * distinct_words(bpos, 8)}, "7e", card_line)
+        + 64 * distinct_words(bpos, 8),
+        "mibf_rank rank + ID, directory": 13 * n_q + 32 * dir_blocks(qpos)
+        + id_sectors,
+        "mibf_rank rank only (build), directory": 9 * n_b
+        + 32 * dir_blocks(bpos)}, "7e", card_line)
     log(f"[7e] mibf_rank rank only at the build's {n_b} positions: kernel "
         f"{build_rank[0]:.4f} ms, plain {build_rank[1]:.4f} ms, bound "
         f"{build_bound:.4f} ms ({card_line})")
@@ -1079,7 +1139,7 @@ def mibf_phases(dev: torch.device, card_line: str):
             if a is not None or b is not None:
                 err["mibf_rank"] = max(err["mibf_rank"], require_equal(
                     f"7c mibf_rank call {i} {what}", a, b))
-        shapes.append(f"{args[2].numel()}{' + ID' if len(args) > 3 else ''}")
+        shapes.append(f"{args[3].numel()}{' + ID' if len(args) > 4 else ''}")
     for i, args in enumerate(scan_calls):
         for what, a, b in zip(("ok", "active", "best", "sat_count",
                                "eval_count"),
@@ -1432,6 +1492,7 @@ def main() -> None:
     # bench.py's Bloom batch, ACGT only (phase 5 inserts the same codes)
     acgt = torch.from_numpy(np.random.default_rng(0).integers(
         0, 4, size=(B, L), dtype=np.uint8)).to(dev)
+    polya = torch.zeros((B, L), dtype=torch.uint8, device=dev)
     err = {"nthash_scan": 0, "scatter_or": 0, "scatter_or_tiled": 0,
            "tile_partition": 0, "gather_words": 0}
     gen = torch.Generator(device=dev)
@@ -1539,14 +1600,23 @@ def main() -> None:
                 tile_partition.tile_partition(bpos, nwords, 5),
                 tile_partition.tile_partition_plain(bpos, nwords, 5), 5))
             del ref
+        # poly-A reads: every window hashes to the same h positions, so
+        # every live position falls in at most h tiles
+        ppos = nthash_scan.positions_planes(polya, K, H, size)[0]
+        err["tile_partition"] = max(err["tile_partition"], partition_err(
+            f"size {size} poly-A tile_partition",
+            tile_partition.tile_partition(ppos, nwords, 5),
+            tile_partition.tile_partition_plain(ppos, nwords, 5), 5))
         log(f"[2] size {size}: scatter_or direct and tiled, and "
             f"tile_partition ({tile_partition.ntiles(nwords)} "
             f"tiles of {1 << tile_partition.TILE_SHIFT} words), kernel == "
             f"plain (bitwise; the partition's order inside a tile is free) "
-            f"at the 2%-N batch and the ACGT batch; the rule's route for "
+            f"at the 2%-N batch and the ACGT batch, the partition also at "
+            f"a poly-A batch ({int(torch.unique(ppos).numel())} distinct "
+            f"positions); the rule's route for "
             f"{pos.numel()} positions: "
             f"{scatter_or.route(nwords, pos.numel())}")
-        del start, apos, pos
+        del start, apos, pos, ppos
         torch.cuda.empty_cache()
 
     # per-kernel times at the main path's shape: bench.py's ACGT batch into
@@ -1595,6 +1665,10 @@ def main() -> None:
         f"{fresh_pos[0].numel()} hit): {fresh_t:.4f} ms; torch words[idx] "
         f"at the inserted batch's {word_idx.numel()} word indices "
         f"(int64): {idx_t:.4f} ms ({card_line})")
+    # torch.sort of the same positions: it groups them by tile and more
+    sort_t = kernel_times(lambda: torch.sort(pos.reshape(-1)))
+    log(f"[2] torch.sort of the batch's {pos.numel()} positions "
+        f"(the partition's yardstick): {sort_t:.4f} ms ({card_line})")
     del fresh_pos, word_idx
     n_words = distinct_words(pos, 5)
     live = int((pos != -1).sum())

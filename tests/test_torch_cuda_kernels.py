@@ -412,6 +412,16 @@ def edge_positions(kind, nwords, word_shift, rng, n=60_000):
         return np.zeros(0, np.uint64)
     if kind == "all_sentinels":
         return np.full(1000, sent, np.uint64)
+    if kind == "below_stage":     # fewer than one chunk of the partition
+        n = 3001
+    if kind == "one_tile":        # every live position in one tile
+        t = (nwords - 1) >> tile_partition.TILE_SHIFT >> 1
+        lo = (t << tile_partition.TILE_SHIFT) << word_shift
+        hi = min(((t + 1) << tile_partition.TILE_SHIFT) << word_shift,
+                 nwords << word_shift)
+        pos = rng.integers(lo, hi, size=200_000, dtype=np.uint64)
+        pos[rng.random(pos.size) < 0.05] = sent
+        return pos
     pos = rng.integers(0, limit, size=n, dtype=np.uint64)
     pos[rng.random(n) < 0.05] = sent
     if kind == "hot":             # one counter or bit repeated many times
@@ -433,17 +443,24 @@ def canonical(offsets, grouped):
 
 
 @pytest.mark.parametrize("kind", ["random", "empty", "all_sentinels", "hot",
-                                  "last_tile"])
+                                  "last_tile", "below_stage", "one_tile",
+                                  "unaligned"])
 @pytest.mark.parametrize("nwords,word_shift", [
     (1, 5), (37, 2), ((1 << 20) + 3, 5), ((1 << 20) + 3, 2),
     ((1 << 27) - 2, 5), (1 << 15, 0), ((1 << 20) + 3, 0),
+    (1 << 25, 5), (1 << 28, 2),
     (tile_partition.MAX_TILES << tile_partition.TILE_SHIFT, 0),
     ((tile_partition.MAX_TILES << tile_partition.TILE_SHIFT) - 7, 2)])
 def test_tile_partition_kernel_matches_plain(dev, kind, nwords, word_shift):
-    """One pass (up to 256 tiles) and two, up to MAX_TILES tiles."""
+    """One scatter pass (up to 2048 tiles: 1, 2, 65, 2048) and two (8192,
+    16384, MAX_TILES tiles); "unaligned" takes a view one element into a
+    tensor."""
     rng = np.random.default_rng(nwords + word_shift)
     pos = edge_positions(kind, nwords, word_shift, rng)
     pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    if kind == "unaligned":
+        pos = torch.cat([pos[:1], pos])[1:]
+        assert pos.data_ptr() % 16
     before = tile_partition.KERNEL.launches
     got = tile_partition.tile_partition(pos, nwords, word_shift)
     ref = tile_partition.tile_partition_plain(pos, nwords, word_shift)
@@ -667,15 +684,17 @@ def mibf_vector(nwords, seed, density=0.5):
     words = np.packbits(bits, bitorder="little").view(np.uint32)
     m = mibf.freeze(torch.from_numpy(words.view(np.int32)), nwords * 32, 4,
                     21)
-    return m.bv_words, m.cum_ranks, m.d_size
+    return m.bv_words, m.cum_ranks, m.rank_dir, m.d_size
 
 
 @pytest.mark.parametrize("width", [1, 2, 4])
-@pytest.mark.parametrize("nwords", [1, 37, 1 << 16])
+@pytest.mark.parametrize("nwords", [1, 6, 7, 8, 13, 37, 1 << 16])
 def test_mibf_rank_kernel_matches_plain(dev, width, nwords):
+    """Sizes around the rank directory's 7-word block (65536 words is not
+    a multiple of it), positions past the vector among them."""
     from btl_bloomfilter_tpu_torch.kernels import mibf_rank
     from btl_bloomfilter_tpu_torch.models import mibf
-    bv, cum, d_size = mibf_vector(nwords, nwords + width)
+    bv, cum, rdir, d_size = mibf_vector(nwords, nwords + width)
     rng = np.random.default_rng(width)
     n = 40_000
     pos = rng.integers(0, nwords * 32, size=n, dtype=np.uint64)
@@ -683,28 +702,47 @@ def test_mibf_rank_kernel_matches_plain(dev, width, nwords):
     pos[:64] = np.arange(64) % 32 + (last - 31)   # the last word, bits 0-31
     pos[64:96] = 0                                 # bit 0 of word 0
     pos[96:128] = last                             # bit 31 of the last word
+    pos[128:1128] = rng.integers(last + 1, 1 << 32, size=1000)  # past it
     pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32))
     lo = 0 if width == 1 else -(1 << (8 * width - 1))
     data = torch.from_numpy(rng.integers(lo, lo + (1 << (8 * width)),
                                          size=d_size)).to(mibf.STORAGE[width])
-    got = mibf_rank.rank_lookup(bv.to(dev), cum.to(dev), pos.to(dev),
-                                data.to(dev))
-    ref = mibf_rank.rank_lookup_plain(bv, cum, pos, data)
+    args = (bv.to(dev), cum.to(dev), rdir.to(dev), pos.to(dev))
+    before = mibf_rank.KERNEL.launches
+    got = mibf_rank.rank_lookup(*args, data.to(dev))
+    ref = mibf_rank.rank_lookup_plain(bv, cum, rdir, pos, data)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
-    rank_only = mibf_rank.rank_lookup(bv.to(dev), cum.to(dev), pos.to(dev))
+    rank_only = mibf_rank.rank_lookup(*args)
     assert rank_only[2] is None
     assert torch.equal(rank_only[0].cpu(), ref[0])
+    assert torch.equal(rank_only[1].cpu(), ref[1])
+    assert mibf_rank.KERNEL.launches == before + 2
+
+
+def test_mibf_rank_refuses_ranks_past_int32(dev):
+    """An ID plane of 2**31 entries would need ranks past int32: refused
+    before any launch (a broadcast view, so nothing is allocated)."""
+    from btl_bloomfilter_tpu_torch.kernels import mibf_rank
+    bv, cum, rdir, _ = mibf_vector(13, 5)
+    data = torch.zeros(1, dtype=torch.uint8, device=dev).expand(1 << 31)
+    pos = torch.zeros(10, dtype=torch.int32, device=dev)
+    before = mibf_rank.KERNEL.launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        mibf_rank.rank_lookup(bv.to(dev), cum.to(dev), rdir.to(dev), pos,
+                              data)
+    assert mibf_rank.KERNEL.launches == before
 
 
 def test_mibf_rank_clamps_rank_d_size(dev):
     from btl_bloomfilter_tpu_torch.kernels import mibf_rank
     words = torch.tensor([0b1011, 0], dtype=torch.int32)   # bits 0, 1, 3
     cum = torch.tensor([0, 3], dtype=torch.int32)
+    rdir = mibf_rank.rank_directory(words, cum)
     data = torch.tensor([5, 6, 7], dtype=torch.int16)
     pos = torch.tensor([0, 1, 2, 3, 4, 63], dtype=torch.int32)
-    got = mibf_rank.rank_lookup(words.to(dev), cum.to(dev), pos.to(dev),
-                                data.to(dev))
+    got = mibf_rank.rank_lookup(words.to(dev), cum.to(dev), rdir.to(dev),
+                                pos.to(dev), data.to(dev))
     assert got[0].tolist() == [0, 1, 2, 2, 3, 3]
     assert got[1].tolist() == [True, True, False, True, False, False]
     assert got[2].tolist() == [5, 6, 0, 7, 0, 0]

@@ -246,20 +246,28 @@ def test_scatter_or_route_rule():
     assert scatter_or.route(((1 << 32) - 64) // 32, BLOOM_BENCH[1]) \
         == "tiled"
     assert scatter_or.route(BLOOM_BENCH[0], 1000) == "direct"
+    # the grid readings the constants come from: 2M positions tiled up to
+    # 2**26 words, 2**27 words from 3M (one position in 48 words), 1.5M
+    # direct
     assert scatter_or.route(1 << 24, 3 << 20) == "tiled"
-    assert scatter_or.route(1 << 26, 2 << 20) == "direct"
+    assert scatter_or.route(1 << 26, 2 << 20) == "tiled"
+    assert scatter_or.route(1 << 27, 2 << 20) == "direct"
+    assert scatter_or.route(1 << 27, 3 << 20) == "tiled"
+    assert scatter_or.route(1 << 25, 3 << 19) == "direct"
 
 
 def test_scatter_add_route_rule():
     assert scatter_add.route(*COUNTING_BENCH) == "tiled"
     # weighted adds take the direct route whatever the shape
     assert scatter_add.route(*COUNTING_BENCH, weighted=True) == "direct"
-    # the grid readings the constants come from: 3M pairs tiled up to 16
-    # words a pair, 2M pairs direct
+    # the grid readings the constants come from: from 2M pairs tiled up to
+    # 16 words a pair, 1.5M pairs direct
     assert scatter_add.route(1 << 25, 3 << 20) == "tiled"
     assert scatter_add.route(1 << 26, 3 << 20) == "direct"
     assert scatter_add.route(1 << 26, 1 << 22) == "tiled"
-    assert scatter_add.route(1 << 24, 2 << 20) == "direct"
+    assert scatter_add.route(1 << 24, 2 << 20) == "tiled"
+    assert scatter_add.route(1 << 26, 2 << 20) == "direct"
+    assert scatter_add.route(1 << 24, 3 << 19) == "direct"
     assert scatter_add.route(1, 10**6) == "direct"
     assert scatter_add.route(1 << 22, 1000) == "direct"
     # a 2**24-counter u8 filter: the sweep for a whole batch, the direct
