@@ -4,7 +4,8 @@
   * ``scatter_or``   - Bloom insert: direct (atomicOr) or tiled (after the
     tile partition), and of sorted positions (one atomic per run of equal
     words)
-  * ``scatter_ring`` - Bloom insert of sorted positions into a delta
+  * ``scatter_ring`` - Bloom insert of sorted positions into a new filter,
+    in one sweep of the old one
   * ``gather_words`` - Bloom query (gather + AND over h)
   * ``gather_counters`` - counting-filter read (packed lanes, min over h;
     all of a window's loads issued together)

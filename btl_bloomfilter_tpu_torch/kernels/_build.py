@@ -34,7 +34,7 @@ SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "mibf_frame_scan.cu", "scatter_or_sorted.cu", "block_sort.cu",
            "window_scatter.cu", "dma_sweep.cu", "conservative_step.cu",
            "tile_partition.cu", "errors.cu")
-HEADERS = ("common.cuh", "tile_partition.cuh")
+HEADERS = ("common.cuh", "tile_partition.cuh", "tile_stream.cuh")
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it
 # is -1 in the int32 position tensors.

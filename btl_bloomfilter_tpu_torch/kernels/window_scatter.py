@@ -79,6 +79,8 @@ def window_scatter(idx: torch.Tensor, pos: torch.Tensor, words: torch.Tensor,
     nwin = words.numel() // WIN_WORDS
     if nwin:
         idx, pos = idx.contiguous(), pos.contiguous()
+        if pos.data_ptr() % 16:     # the kernel reads 16-byte vectors
+            pos = pos.clone()
         KERNEL.launch(words.device, _build.ptr(idx), idx.shape[0], nwin,
                       _build.ptr(pos), pos.numel() // CHUNK,
                       _build.ptr(words), int(scatter))

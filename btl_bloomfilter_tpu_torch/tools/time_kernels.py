@@ -53,6 +53,18 @@ queued``), and for a call that needs no setup the host's time to issue it
     each route, and ``counting.insert_all`` of the batch;
   * ``tile_partition``: the partition alone at those two bench batches
     (with ``--profile``, its device time by launch);
+  * ``sorted_scatter``: the probes' sorted scatters at ``probes/
+    ring_probe.py``'s step (bench.py's ACGT batch: 4,132,864 positions
+    sorted, repeats set to the sentinel, into 2**30 bits): the probe's
+    delta step (hash, sort, dedupe, delta form) and the delta form
+    (``scatter_ring``, a new filter from a random one) alone, and the in
+    place form (``scatter_or.scatter_or_sorted``, from a zeroed filter)
+    beside it; the delta form on 2**20 uniform positions into 2**24 bits,
+    sorted and unsorted (the cost of order); and ``clone`` of the 128 MiB
+    filter (the same bytes, not the same function);
+  * ``window_scatter``: the static-window scatter, scatter and null, at
+    ``probes/kernel_lab.py``'s inputs (4 * 2**20 sorted positions, 2**30
+    bits, 4 slots), and ``copy_`` of the 128 MiB filter;
   * ``scatter_or_grid``, ``scatter_add_grid``: each route of the two
     scatters over a grid of array words and uniform random positions, the
     data the route rules' constants come from.
@@ -385,6 +397,47 @@ def partition_calls(dev) -> dict:
     return out
 
 
+def sorted_scatter_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import scatter_or, scatter_ring
+    from btl_bloomfilter_tpu_torch.probes import ring_probe
+
+    codes = acgt_codes(dev)
+    pos_d, _ = ring_probe.sorted_positions(codes, 1 << 30)
+    start = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1 << 32, size=1 << 25, dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(dev)
+    zeros = torch.zeros_like(start)
+    small = start[: 1 << 19]
+    uni = uniform_positions(dev, 1 << 20, 1 << 24)
+    uni_s = torch.sort(uni.to(torch.int64) & 0xFFFFFFFF).values.to(
+        torch.int32)
+    delta_step = ring_probe.make_step(scatter_ring.scatter_or_sorted,
+                                      1 << 30)
+    return {"ring probe delta step": lambda: delta_step(start, codes),
+            "scatter_or_sorted_delta ring": lambda: scatter_ring.
+            scatter_or_sorted(start, pos_d),
+            "scatter_or_sorted ring": (lambda: scatter_or.scatter_or_sorted(
+                zeros, pos_d), zeros.zero_),
+            "scatter_or_sorted_delta 2**24 sorted": lambda: scatter_ring.
+            scatter_or_sorted(small, uni_s),
+            "scatter_or_sorted_delta 2**24 unsorted": lambda: scatter_ring.
+            scatter_or_sorted(small, uni),
+            "clone 2**30 bits": start.clone}
+
+
+def window_scatter_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import window_scatter
+    from btl_bloomfilter_tpu_torch.probes import kernel_lab
+
+    idx, pos, words = kernel_lab.make_inputs(device=dev)
+    dst = torch.empty_like(words)
+    return {"window_scatter scatter": lambda: window_scatter.window_scatter(
+                idx, pos, words),
+            "window_scatter null": lambda: window_scatter.window_scatter(
+                idx, pos, words, False),
+            "copy_ 2**30 bits": lambda: dst.copy_(words)}
+
+
 GRID_WORDS = [1 << e for e in range(20, 29)]
 GRID_POS = [1 << 16, 1 << 18, 1 << 20, 3 << 19, 2 << 20, 3 << 20, 1 << 22,
             1 << 24]
@@ -412,6 +465,8 @@ CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
          "mibf_frame_scan": frame_scan_calls, "mibf_rank": rank_calls,
          "dma_sweep": sweep_calls, "scatter_or": scatter_or_calls,
          "scatter_add": scatter_add_calls, "tile_partition": partition_calls,
+         "sorted_scatter": sorted_scatter_calls,
+         "window_scatter": window_scatter_calls,
          "scatter_or_grid": lambda dev: grid_calls(dev, "or"),
          "scatter_add_grid": lambda dev: grid_calls(dev, "add")}
 

@@ -92,12 +92,15 @@ counters, batches of 3072 reads x 2048 bases):
      a. ring_probe: the Bloom insert step at 2**30 bits and 512 x 2048
         (hash, unsigned sort, in-place dedupe) through the delta and the
         in-place sorted scatters, and the main path; the three filters
-        equal; the direct route of scatter_or timed on the same positions;
+        equal, the delta form's input filter unchanged; the direct route
+        of scatter_or timed on the same positions, and clone of the
+        filter as the delta form's yardstick;
      b. vmem_sort_probe: the 2048-key block sort of 4 * 2**20 keys;
      c. partition_probe: the 1024-key chunk sort of 2**22 keys and the four
         copy sweeps;
      d. kernel_lab: the window scatter, null and scatter, at 2**30 bits and
-        4 * 2**20 sorted positions, 4 slots;
+        4 * 2**20 sorted positions, 4 slots, both timed beside copy_ of the
+        filter;
      e. bloom.insert_and_check and insert_and_check_sequential on two 512 x
         2048 batches at 2**30 bits (the second repeating half of the
         first's reads): words and found equal the plain path, and every
@@ -1291,12 +1294,16 @@ def probe_phases(dev: torch.device, card_line: str):
     words_k = torch.zeros_like(start)
     words_p = torch.zeros_like(start)
     for name, (fn, plain) in forms.items():
-        got, over = fn(start.clone(), pos_d, pos_for_base=pos_s)
+        given = start.clone()
+        got, over = fn(given, pos_d, pos_for_base=pos_s)
         ref, _ = plain(start.clone(), pos_d)
         if over != 0:
             raise AssertionError(f"{name} reported an overflow")
         err[name] = require_equal(f"8a {name}", got, ref)
-        del got, ref
+        if name == "scatter_or_sorted_delta":
+            require_equal("8a scatter_or_sorted_delta left its input "
+                          "filter unchanged", given, start)
+        del got, ref, given
         ms[name] = (kernel_times(lambda: fn(words_k, pos_d, pos_s)),
                     median_ms(lambda: plain(words_p, pos_d), 3, 5))
     n_pos, n_words = pos_d.numel(), distinct_words(pos_d, 5)
@@ -1305,6 +1312,13 @@ def probe_phases(dev: torch.device, card_line: str):
     bounds["scatter_or_sorted"] = bound_ms(4 * n_pos + 8 * n_words)
     bounds["scatter_or_sorted_delta"] = bound_ms(4 * n_pos
                                                  + 8 * start.numel())
+    # in place the sectors that gain a bit are read and written; the delta
+    # form writes every sector, so its sector floor is its full sweep
+    sweep = 4 * n_pos + 8 * start.numel()
+    floors = {"scatter_or_sorted": (4 * n_pos
+                                    + 64 * distinct_words(pos_d, 8), sweep),
+              "scatter_or_sorted_delta": (sweep, sweep)}
+    clone_ms = kernel_times(start.clone)
     pos, _s, _v = nthash_scan.positions_planes(res["codes"], K, H, MAIN_SIZE)
     unsorted_ms = kernel_times(lambda: scatter_or.scatter_or_direct(
         words_k, pos))
@@ -1317,8 +1331,12 @@ def probe_phases(dev: torch.device, card_line: str):
         f"plain (bitwise); delta and in-place filters == main path filter")
     for name in forms:
         log(f"[8a] {name}: kernel {ms[name][0]:.4f} ms, plain "
-            f"{ms[name][1]:.4f} ms, bound {bounds[name]:.4f} ms "
-            f"({card_line})")
+            f"{ms[name][1]:.4f} ms, bound {bounds[name]:.4f} ms, sector "
+            f"floor {bound_ms(floors[name][0]):.4f} ms, full sweep "
+            f"{bound_ms(floors[name][1]):.4f} ms ({card_line})")
+    log(f"[8a] yardstick: clone of the {start.numel() * 4 >> 20} MiB "
+        f"filter (the same bytes, not the same function) {clone_ms:.4f} ms "
+        f"({card_line})")
     log(f"[8a] scatter_or (atomicOr, the direct route) on the same "
         f"positions unsorted "
         f"{unsorted_ms:.4f} ms, sorted {sorted_ms:.4f} ms; hash + sort + "
@@ -1399,16 +1417,28 @@ def probe_phases(dev: torch.device, card_line: str):
                                                            words)),
         median_ms(lambda: window_scatter.window_scatter_plain(idx, pos,
                                                               words), 3, 5))
+    null_ms = kernel_times(lambda: window_scatter.window_scatter(
+        idx, pos, words, False))
+    dst = torch.empty_like(words)
+    copy_ms = kernel_times(lambda: dst.copy_(words))
     # positions and chunk map in; each distinct word read and written once
-    bounds["window_scatter"] = bound_ms(4 * pos.numel() + 4 * idx.numel()
+    streamed = 4 * pos.numel() + 4 * idx.numel()
+    bounds["window_scatter"] = bound_ms(streamed
                                         + 8 * distinct_words(pos, 5))
     log(f"[8d] window_scatter (scatter and null) kernel == plain (bitwise); "
         f"every position applied with {idx.shape[0]} slots: "
-        f"{res['complete']}; null {res['ms']['null']:.4f} ms, scatter "
-        f"{res['ms']['scatter']:.4f} ms, scatter_or (atomicOr, the direct "
-        f"route) on the same positions {res['ms']['scatter_or']:.4f} ms "
-        f"({card_line})")
-    del idx, pos, words, start
+        f"{res['complete']}; probe: null {res['ms']['null']:.4f} ms, "
+        f"scatter {res['ms']['scatter']:.4f} ms, scatter_or (atomicOr, the "
+        f"direct route) on the same positions {res['ms']['scatter_or']:.4f} "
+        f"ms ({card_line})")
+    log(f"[8d] window_scatter: scatter {ms['window_scatter'][0]:.4f} ms, "
+        f"null {null_ms:.4f} ms, plain {ms['window_scatter'][1]:.4f} ms, "
+        f"bound {bounds['window_scatter']:.4f} ms, sector floor "
+        f"{bound_ms(streamed + 64 * distinct_words(pos, 8)):.4f} ms, full "
+        f"sweep {bound_ms(streamed + 8 * words.numel()):.4f} ms; yardstick "
+        f"copy_ of the {words.numel() * 4 >> 20} MiB filter {copy_ms:.4f} "
+        f"ms ({card_line})")
+    del idx, pos, words, start, dst
     torch.cuda.empty_cache()
 
     # ---- 8e. insert_and_check[_sequential] ---------------------------------

@@ -909,6 +909,14 @@ def test_mibf_on_cuda_matches_cpu(dev):
 # the probe kernels and insert_and_check
 # ---------------------------------------------------------------------------
 
+TILE = 1 << tile_partition.TILE_SHIFT
+# kinds at the edges of the delta form's tiles (64 KiB of the filter): a
+# filter of 3 tiles and a partial tail
+TILE_KINDS = ("tile_boundary", "run_across_warp_and_tile",
+              "last_partial_tile", "unaligned_view", "unaligned_positions",
+              "unsorted_all_tiles")
+
+
 def sorted_positions(kind, nwords, rng):
     """int32 positions (uint32 bits) of one edge case."""
     sent = 0xFFFFFFFF
@@ -929,6 +937,30 @@ def sorted_positions(kind, nwords, rng):
         pos = np.sort(rng.integers(0, 3000, size=30_000))
         dup = np.concatenate([[False], pos[1:] == pos[:-1]])
         pos = np.where(dup, sent, pos)
+    elif kind == "tile_boundary":   # each side of every tile boundary
+        edge = np.arange(1, nwords // TILE + 1) * TILE * 32
+        pos = np.sort(np.concatenate([
+            (edge[:, None] + np.arange(-70, 70)).ravel(),
+            rng.integers(0, nwords * 32, size=3000)]))
+    elif kind == "run_across_warp_and_tile":
+        # 300 slots on the last word of tile 0, from slot 45 (not a warp's
+        # first lane), then 300 on the first word of tile 1
+        pos = np.sort(np.concatenate([
+            rng.integers(0, (TILE - 1) * 32, size=45),
+            (TILE - 1) * 32 + rng.integers(0, 32, size=300),
+            TILE * 32 + rng.integers(0, 32, size=300),
+            rng.integers((TILE + 1) * 32, nwords * 32, size=2000)]))
+    elif kind == "last_partial_tile":   # the tail tile and past the filter
+        lo = nwords // TILE * TILE * 32
+        pos = np.sort(rng.integers(lo, nwords * 32 + 3000, size=5000))
+        pos[-1] = nwords * 32 - 1
+        pos = np.sort(pos)
+    elif kind in ("unaligned_view", "unaligned_positions"):
+        pos = np.sort(rng.integers(0, nwords * 32, size=20_003))
+    elif kind == "unsorted_all_tiles":  # every tile, any order, sentinels
+        pos = rng.integers(0, nwords * 32, size=30_000)
+        pos[rng.random(30_000) < 0.1] = sent
+        pos[:4] = [nwords * 32 - 1, 0, TILE * 32, 2 * TILE * 32 - 1]
     else:                           # unsorted, duplicates, sentinels
         pos = rng.integers(0, nwords * 32, size=30_000)
         pos[rng.random(30_000) < 0.1] = sent
@@ -938,7 +970,7 @@ def sorted_positions(kind, nwords, rng):
 
 @pytest.mark.parametrize("kind", [
     "empty", "all_sentinels", "past_nwords", "ragged", "runs_across_tiles",
-    "in_place_sentinels", "unsorted"])
+    "in_place_sentinels", "unsorted", *TILE_KINDS])
 @pytest.mark.parametrize("name", ["scatter_or_sorted",
                                   "scatter_or_sorted_delta"])
 def test_sorted_scatter_kernels_match_plain(dev, name, kind):
@@ -950,16 +982,28 @@ def test_sorted_scatter_kernels_match_plain(dev, name, kind):
                                     scatter_ring.scatter_or_sorted_plain),
     }[name]
     rng = np.random.default_rng(len(kind))
-    nwords = 5000
+    nwords = 3 * TILE + 1001 if kind in TILE_KINDS else 5000
     pos = sorted_positions(kind, nwords, rng)
     start = random_words(nwords, 3) & 0x00FF00FF
     before = kernels.KERNELS[name].launches
-    words = start.to(dev)
-    got, over = fn(words, pos.to(dev), pos_for_base=pos.to(dev))
+    if kind == "unaligned_view":    # 4 bytes past a 16-byte boundary
+        words = torch.empty(nwords + 1, dtype=torch.int32, device=dev)[1:]
+        words.copy_(start.to(dev))
+        assert words.data_ptr() % 16 == 4
+    else:
+        words = start.to(dev)
+    pos_dev = pos.to(dev)
+    if kind == "unaligned_positions":   # a view 4 bytes past 16
+        pos_dev = torch.empty(pos.numel() + 1, dtype=torch.int32,
+                              device=dev)[1:]
+        pos_dev.copy_(pos.to(dev))
+    got, over = fn(words, pos_dev, pos_for_base=pos_dev)
     ref, _ = plain(start.clone(), pos)
     torch.cuda.synchronize()
     assert over == 0 and torch.equal(got.cpu(), ref)
     assert (got is words) == (name == "scatter_or_sorted")
+    if name == "scatter_or_sorted_delta":   # the input filter is untouched
+        assert torch.equal(words.cpu(), start)
     assert kernels.KERNELS[name].launches == before + int(pos.numel() > 0)
 
 
@@ -995,15 +1039,20 @@ def test_block_sort_kernels_match_plain(dev, name, block, nblocks, kind):
     assert u is None or (np.diff(u.astype(np.int64), axis=1) >= 0).all()
 
 
+@pytest.mark.parametrize("nwin", [1, 3, 6, 300])
 @pytest.mark.parametrize("slots", [1, 4])
 @pytest.mark.parametrize("kind", ["uniform", "last_window", "sentinels",
-                                  "bad_chunks"])
-def test_window_scatter_kernel_matches_plain(dev, kind, slots):
+                                  "bad_chunks", "all_invalid",
+                                  "repeated_slots", "dropped"])
+def test_window_scatter_kernel_matches_plain(dev, kind, slots, nwin):
+    """Fewer windows than the sweep's persistent grid (1, 3, 6) and more
+    (300); chunk indices past either end, every one invalid, or one chunk
+    in every slot; positions that no chunk of their window reaches."""
     from btl_bloomfilter_tpu_torch.kernels import window_scatter
     from btl_bloomfilter_tpu_torch.probes import kernel_lab
     win, chunk = window_scatter.WIN_WORDS, window_scatter.CHUNK
-    rng = np.random.default_rng(slots)
-    nwin, n = 6, 8 * chunk
+    rng = np.random.default_rng(slots * nwin)
+    n = max(8, 2 * nwin) * chunk
     nwords = nwin * win
     top = nwords * 32
     if kind == "last_window":       # down to the filter's very last bit
@@ -1016,10 +1065,17 @@ def test_window_scatter_kernel_matches_plain(dev, kind, slots):
         pos = rng.integers(0, top, size=n)
     pos = torch.from_numpy(np.sort(pos.astype(np.uint64)).astype(np.uint32)
                            .view(np.int32))
-    idx = kernel_lab.chunk_index(pos, slots, nwords)
+    # with 1 slot, uniform positions spill past their window's chunk
+    idx = kernel_lab.chunk_index(pos, 1 if kind == "dropped" else slots,
+                                 nwords)
     if kind == "bad_chunks":
         idx[0, ::2] = -1
         idx[-1, 1::3] = n // chunk
+    elif kind == "all_invalid":
+        idx[:, ::2] = -1
+        idx[:, 1::2] = n // chunk
+    elif kind == "repeated_slots":
+        idx[:] = idx[:1]
     start = random_words(nwords, 5) & 0x0F0F0F0F
     for scatter in (False, True):
         before = window_scatter.KERNEL.launches
@@ -1032,6 +1088,11 @@ def test_window_scatter_kernel_matches_plain(dev, kind, slots):
         assert window_scatter.KERNEL.launches == before + 1
     if kind == "last_window":
         assert bool((ref[-win:] != start[-win:]).any())
+    elif kind == "all_invalid":
+        assert torch.equal(ref, start)
+    elif kind == "dropped":         # some positions reached no chunk
+        full = scatter_or.scatter_or_plain(start.clone(), pos)
+        assert not torch.equal(ref, full)
 
 
 @pytest.mark.parametrize("nsteps,k,rows", [

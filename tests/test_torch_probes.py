@@ -77,8 +77,19 @@ def window_case(kind, seed):
     """(nwords, sorted positions uint32) of one test case."""
     rng = np.random.default_rng(seed)
     nwords, n = 4 * WIN, 4 * CHUNK
-    if kind == "uniform":
+    if kind == "three_windows":
+        nwords = 3 * WIN
+    if kind in ("uniform", "three_windows"):
         pos = rng.integers(0, nwords * 32, size=n, dtype=np.uint64)
+    elif kind == "tile_straddle":       # each side of every window edge
+        edges = np.arange(1, 4, dtype=np.uint64) * WIN * 32
+        pos = np.concatenate([
+            (edges[:, None] + np.arange(-600, 600, dtype=np.int64)
+             .astype(np.uint64)).ravel(),
+            rng.integers(0, nwords * 32, size=n - 3600, dtype=np.uint64)])
+    elif kind == "sentinel_windows":    # windows 2 and 3 reach only chunks
+        pos = rng.integers(0, 2 * WIN * 32, size=n, dtype=np.uint64)
+        pos[-2 * CHUNK:] = SENT         # of sentinels
     elif kind == "sentinel_tail":       # duplicates, then sentinels last
         pos = rng.integers(0, nwords * 32, size=n, dtype=np.uint64)
         pos[100:140] = pos[99]
@@ -101,7 +112,9 @@ def numpy_chunk_index(pos, slots, nwords):
 
 
 @pytest.mark.parametrize("kind,slots", [
-    ("uniform", 4), ("uniform", 1), ("sentinel_tail", 2), ("clustered", 3)])
+    ("uniform", 4), ("uniform", 1), ("sentinel_tail", 2), ("clustered", 3),
+    ("tile_straddle", 4), ("three_windows", 4), ("three_windows", 2),
+    ("sentinel_windows", 3)])
 def test_window_scatter_matches_kernel_lab(lab, kind, slots):
     nwords, pos = window_case(kind, slots)
     nchunks = len(pos) // CHUNK
@@ -122,6 +135,11 @@ def test_window_scatter_matches_kernel_lab(lab, kind, slots):
         assert got is w
         np.testing.assert_array_equal(got.numpy().view(np.uint32), ref)
     np.testing.assert_array_equal(refs["null"], words)
+    if kind == "sentinel_windows":      # their chunks hold only sentinels
+        live = idx.numpy()[:, 2:] * CHUNK
+        assert (pos[live[..., None] + np.arange(CHUNK)] == SENT).all()
+        np.testing.assert_array_equal(refs["scatter"][2 * WIN // 128:],
+                                      words[2 * WIN // 128:])
     if kind == "uniform":   # 4 slots reach every chunk, 1 drops positions
         full = scatter_or.scatter_or_plain(
             torch.from_numpy(words.view(np.int32).reshape(-1).copy()), pos_t)

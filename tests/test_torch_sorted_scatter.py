@@ -94,6 +94,16 @@ def overflow_case(seed=0):
     return nwords, pos, None, np.random.default_rng(seed)
 
 
+def tile_straddle(seed=11):
+    """Positions on each side of every 64 KiB window edge of a 4-window
+    filter, where the kernel's tiles meet."""
+    rng = np.random.default_rng(seed)
+    edges = np.arange(1, 4, dtype=np.int64) * WIN_BITS
+    pos = np.concatenate([(edges[:, None] + np.arange(-400, 400)).ravel(),
+                          rng.integers(0, 4 * WIN_BITS, size=1500)])
+    return 4 * WIN_BITS // 32, dedup_sorted(pos.astype(np.uint32)), None, rng
+
+
 CASES = {
     "uniform": lambda: random_case(2000, WIN_BITS * 4, 0),
     "one_window": lambda: random_case(5000, WIN_BITS, 1),
@@ -105,6 +115,9 @@ CASES = {
     "in_place_sentinels": in_place_sentinels,
     "trailing_sentinel_chunks": trailing_sentinel_chunks,
     "overflow": overflow_case,
+    "tile_straddle": tile_straddle,
+    "three_windows_tail": lambda: random_case(3000,
+                                              WIN_BITS * 3 + 32 * 1001, 6),
 }
 
 
