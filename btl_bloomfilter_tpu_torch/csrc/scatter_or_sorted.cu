@@ -19,16 +19,25 @@
 //
 // The in place form. What bounds it on the H100: the 4-byte
 // read-modify-writes into a filter larger than the 50 MB L2 (2**30 bits =
-// 128 MiB), each touching a 32-byte sector. Design: the sort is exploited,
-// not required. One thread per position; warp shuffles mark runs of equal
-// word index (a run head is lane 0 or a word different from the lane
-// before), a segmented OR scan folds each run's masks, and the run's last
-// lane issues the one atomicOr. Sentinels (0xFFFFFFFF) and positions past
+// 128 MiB): an L2 miss fetches 64 bytes (the card's L2 fetch granularity)
+// and a written sector goes back whole, so the floor is the positions
+// plus 128 bytes a distinct 64-byte block. Design: the sort is exploited,
+// not required. One thread per position, over a grid sized to the
+// positions (no grid-stride loop: every position's load is in flight at
+// once, streamed evict-first); warp shuffles mark runs of equal word
+// index (a run head is lane 0 or a word different from the lane before),
+// a segmented OR scan folds each run's masks, and the run's last lane
+// issues the one atomicOr, so a warp's atomics go to the words of 32
+// consecutive sorted positions. Sentinels (0xFFFFFFFF) and positions past
 // nwords form runs of their own that issue nothing. Duplicates replaced by
 // sentinels in place break the monotone order; a sentinel inside a run
 // splits it into two atomics on one word, which is still exact: OR
-// commutes, so the result never depends on the run detection.
-//
+// commutes, so the result never depends on the run detection. Measured
+// and not kept (PERF.md): a tile-owned read-modify-write after the delta
+// form's range pass, four or eight positions a thread by 16-byte loads,
+// two or four rows of positions a thread with their loads first, and one
+// atomic a position without the scan.
+
 // The delta form. What bounds it: the whole filter read once and a new one
 // written once (2 x 128 MiB at 2**30 bits) plus the positions; the three
 // passes it replaced (a zeros delta written, the atomics into it, then
@@ -58,39 +67,34 @@ scatter_or_sorted_kernel(const uint32_t* __restrict__ pos, long long n,
                          unsigned int* __restrict__ words,
                          long long nwords) {
     const int lane = threadIdx.x & 31;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    // base is the same for every thread of the block, so all 32 lanes of
-    // a warp run the same iterations and every shuffle sees a full warp
-    for (long long base = (long long)blockIdx.x * blockDim.x; base < n;
-         base += stride) {
-        const long long i = base + threadIdx.x;
-        int w = -1;                 // word index; -1 applies nothing
-        unsigned int m = 0;
-        if (i < n) {
-            const uint32_t p = pos[i];
-            if (p != BTL_SENTINEL && (long long)(p >> 5) < nwords) {
-                w = (int)(p >> 5);
-                m = 1u << (p & 31);
-            }
+    // one position a thread; the threads past n take part in the shuffles
+    const long long i = (long long)blockIdx.x * BTL_BLOCK + threadIdx.x;
+    int w = -1;                     // word index; -1 applies nothing
+    unsigned int m = 0;
+    if (i < n) {
+        const uint32_t p = __ldcs(pos + i);
+        if (p != BTL_SENTINEL && (long long)(p >> 5) < nwords) {
+            w = (int)(p >> 5);
+            m = 1u << (p & 31);
         }
-        const int wprev = __shfl_up_sync(BTL_FULL_MASK, w, 1);
-        const int wnext = __shfl_down_sync(BTL_FULL_MASK, w, 1);
-        // segmented inclusive OR scan: (f, v) of the lanes before this one
-        // fold in until a run head is reached
-        int f = (lane == 0 || wprev != w);
-        unsigned int v = m;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const unsigned int vu = __shfl_up_sync(BTL_FULL_MASK, v, d);
-            const int fu = __shfl_up_sync(BTL_FULL_MASK, f, d);
-            if (lane >= d && !f) {
-                v |= vu;
-                f = fu;
-            }
-        }
-        const bool tail = lane == 31 || wnext != w;
-        if (tail && w >= 0) atomicOr(&words[w], v);
     }
+    const int wprev = __shfl_up_sync(BTL_FULL_MASK, w, 1);
+    const int wnext = __shfl_down_sync(BTL_FULL_MASK, w, 1);
+    // segmented inclusive OR scan: (f, v) of the lanes before this one
+    // fold in until a run head is reached
+    int f = (lane == 0 || wprev != w);
+    unsigned int v = m;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const unsigned int vu = __shfl_up_sync(BTL_FULL_MASK, v, d);
+        const int fu = __shfl_up_sync(BTL_FULL_MASK, f, d);
+        if (lane >= d && !f) {
+            v |= vu;
+            f = fu;
+        }
+    }
+    const bool tail = lane == 31 || wnext != w;
+    if (tail && w >= 0) atomicOr(&words[w], v);
 }
 
 // pos uint32 [n] (sorted for one atomic per run; any order is exact);
@@ -99,9 +103,9 @@ extern "C" int btl_scatter_or_sorted(const void* pos, long long n,
                                      void* words, long long nwords,
                                      int device, void* stream) {
     cudaError_t err = btl_set_device(device);
-    if (err != cudaSuccess) return (int)err;
-    scatter_or_sorted_kernel<<<btl_blocks(n), BTL_BLOCK, 0,
-                               (cudaStream_t)stream>>>(
+    if (err != cudaSuccess || n <= 0) return (int)err;
+    scatter_or_sorted_kernel<<<(unsigned)((n + BTL_BLOCK - 1) / BTL_BLOCK),
+                               BTL_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)pos, n, (unsigned int*)words, nwords);
     return (int)cudaGetLastError();
 }

@@ -59,9 +59,14 @@ queued``), and for a call that needs no setup the host's time to issue it
     delta step (hash, sort, dedupe, delta form) and the delta form
     (``scatter_ring``, a new filter from a random one) alone, and the in
     place form (``scatter_or.scatter_or_sorted``, from a zeroed filter)
-    beside it; the delta form on 2**20 uniform positions into 2**24 bits,
+    beside it; both forms on 2**20 uniform positions into 2**24 bits,
     sorted and unsorted (the cost of order); and ``clone`` of the 128 MiB
     filter (the same bytes, not the same function);
+  * ``block_sort``: ``vmem_sort.sort_blocks`` at ``probes/
+    vmem_sort_probe.py``'s 4,194,304 keys and ``vmem_sort.chunk_bitonic``
+    at ``probes/partition_probe.py``'s 4,194,304 keys, each beside
+    ``torch.sort`` of the sign-flipped block view (the same blocks in the
+    same order);
   * ``window_scatter``: the static-window scatter, scatter and null, at
     ``probes/kernel_lab.py``'s inputs (4 * 2**20 sorted positions, 2**30
     bits, 4 slots), and ``copy_`` of the 128 MiB filter;
@@ -408,6 +413,7 @@ def sorted_scatter_calls(dev) -> dict:
         .view(np.int32)).to(dev)
     zeros = torch.zeros_like(start)
     small = start[: 1 << 19]
+    small0 = torch.zeros_like(small)
     uni = uniform_positions(dev, 1 << 20, 1 << 24)
     uni_s = torch.sort(uni.to(torch.int64) & 0xFFFFFFFF).values.to(
         torch.int32)
@@ -422,7 +428,31 @@ def sorted_scatter_calls(dev) -> dict:
             scatter_or_sorted(small, uni_s),
             "scatter_or_sorted_delta 2**24 unsorted": lambda: scatter_ring.
             scatter_or_sorted(small, uni),
+            "scatter_or_sorted 2**24 sorted": (
+                lambda: scatter_or.scatter_or_sorted(small0, uni_s),
+                small0.zero_),
+            "scatter_or_sorted 2**24 unsorted": (
+                lambda: scatter_or.scatter_or_sorted(small0, uni),
+                small0.zero_),
             "clone 2**30 bits": start.clone}
+
+
+def block_sort_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import vmem_sort
+    from btl_bloomfilter_tpu_torch.probes import (partition_probe,
+                                                  vmem_sort_probe)
+
+    out = {}
+    for name, x, block in (
+            ("sort_blocks", vmem_sort_probe.make_keys(device=dev),
+             vmem_sort.BLOCK),
+            ("chunk_bitonic", partition_probe.make_keys(device=dev),
+             vmem_sort.CHUNK)):
+        flipped = (x ^ vmem_sort.SIGN).reshape(-1, block)
+        out[name] = lambda f=getattr(vmem_sort, name), x=x: f(x)
+        out[f"torch.sort {block}-key blocks"] = (
+            lambda f=flipped: torch.sort(f, dim=-1))
+    return out
 
 
 def window_scatter_calls(dev) -> dict:
@@ -466,6 +496,7 @@ CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
          "dma_sweep": sweep_calls, "scatter_or": scatter_or_calls,
          "scatter_add": scatter_add_calls, "tile_partition": partition_calls,
          "sorted_scatter": sorted_scatter_calls,
+         "block_sort": block_sort_calls,
          "window_scatter": window_scatter_calls,
          "scatter_or_grid": lambda dev: grid_calls(dev, "or"),
          "scatter_add_grid": lambda dev: grid_calls(dev, "add")}

@@ -1313,11 +1313,15 @@ def probe_phases(dev: torch.device, card_line: str):
     bounds["scatter_or_sorted_delta"] = bound_ms(4 * n_pos
                                                  + 8 * start.numel())
     # in place the sectors that gain a bit are read and written; the delta
-    # form writes every sector, so its sector floor is its full sweep
+    # form writes every sector, so its sector floor is its full sweep. With
+    # the card's 64-byte L2 fetch, in place reads each 64-byte block that
+    # gains a bit and writes back each 32-byte sector that gains one
     sweep = 4 * n_pos + 8 * start.numel()
     floors = {"scatter_or_sorted": (4 * n_pos
                                     + 64 * distinct_words(pos_d, 8), sweep),
               "scatter_or_sorted_delta": (sweep, sweep)}
+    floor64 = bound_ms(4 * n_pos + 64 * distinct_words(pos_d, 9)
+                       + 32 * distinct_words(pos_d, 8))
     clone_ms = kernel_times(start.clone)
     pos, _s, _v = nthash_scan.positions_planes(res["codes"], K, H, MAIN_SIZE)
     unsorted_ms = kernel_times(lambda: scatter_or.scatter_or_direct(
@@ -1334,6 +1338,10 @@ def probe_phases(dev: torch.device, card_line: str):
             f"{ms[name][1]:.4f} ms, bound {bounds[name]:.4f} ms, sector "
             f"floor {bound_ms(floors[name][0]):.4f} ms, full sweep "
             f"{bound_ms(floors[name][1]):.4f} ms ({card_line})")
+    log(f"[8a] scatter_or_sorted: 64-byte floor {floor64:.4f} ms (positions "
+        f"plus a 64 B fetch a distinct 64-byte block and a 32 B write a "
+        f"dirty sector), sector floor "
+        f"{bound_ms(floors['scatter_or_sorted'][0]):.4f} ms ({card_line})")
     log(f"[8a] yardstick: clone of the {start.numel() * 4 >> 20} MiB "
         f"filter (the same bytes, not the same function) {clone_ms:.4f} ms "
         f"({card_line})")

@@ -929,6 +929,11 @@ def sorted_positions(kind, nwords, rng):
         pos = np.concatenate([pos, np.full(333, sent)])   # sentinels
     elif kind == "ragged":          # not a multiple of the 256-thread tile
         pos = np.sort(rng.integers(0, nwords * 32, size=256 * 40 + 77))
+    elif kind == "one_position":
+        pos = np.array([nwords * 16 + 5])
+    elif kind == "partial_warp":    # fewer than a warp, a run at its end
+        pos = np.sort(np.concatenate([rng.integers(0, nwords * 32, size=40),
+                                      [nwords * 32 - 2, nwords * 32 - 1]]))
     elif kind == "runs_across_tiles":   # runs of 300 slots on one word
         n = 256 * 12 + 5
         pos = (np.arange(n) // 300) * 32 + rng.integers(0, 32, size=n)
@@ -969,8 +974,9 @@ def sorted_positions(kind, nwords, rng):
 
 
 @pytest.mark.parametrize("kind", [
-    "empty", "all_sentinels", "past_nwords", "ragged", "runs_across_tiles",
-    "in_place_sentinels", "unsorted", *TILE_KINDS])
+    "empty", "all_sentinels", "past_nwords", "ragged", "one_position",
+    "partial_warp", "runs_across_tiles", "in_place_sentinels", "unsorted",
+    *TILE_KINDS])
 @pytest.mark.parametrize("name", ["scatter_or_sorted",
                                   "scatter_or_sorted_delta"])
 def test_sorted_scatter_kernels_match_plain(dev, name, kind):
@@ -1007,7 +1013,7 @@ def test_sorted_scatter_kernels_match_plain(dev, name, kind):
     assert kernels.KERNELS[name].launches == before + int(pos.numel() > 0)
 
 
-def sort_keys(kind, n, rng):
+def sort_keys(kind, n, block, rng):
     if kind == "all_equal":
         x = np.full(n, 0x80000000, np.uint32)
     elif kind == "extremes":
@@ -1015,23 +1021,43 @@ def sort_keys(kind, n, rng):
                                  0xFFFFFFFF], np.uint32), size=n)
     elif kind == "descending":
         x = np.sort(rng.integers(0, 1 << 32, size=n, dtype=np.uint32))[::-1]
+    elif kind == "ascending":       # each block already sorted
+        x = np.sort(rng.integers(0, 1 << 32, size=(n // block, block),
+                                 dtype=np.uint32), axis=1)
+    elif kind == "eight_values":    # long runs of equal keys
+        x = rng.choice(np.array([0, 3, 0x7FFFFFFF, 0x80000000, 0x80000001,
+                                 0xC0000000, 0xFFFFFFF0, 0xFFFFFFFF],
+                                np.uint32), size=n)
+    elif kind == "extremes_at_edges":   # at each block's first and last slots
+        x = rng.integers(1, 0x7FFFFFFF, size=(n // block, block),
+                         dtype=np.uint32)
+        x[:, :2] = [0xFFFFFFFF, 0x80000000]
+        x[:, -2:] = [0x7FFFFFFF, 0]
     else:
         x = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
-    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32).ravel())
 
 
 @pytest.mark.parametrize("kind", ["random", "all_equal", "extremes",
-                                  "descending"])
-@pytest.mark.parametrize("nblocks", [0, 1, 37])
+                                  "descending", "ascending", "eight_values",
+                                  "extremes_at_edges", "unaligned_view"])
+@pytest.mark.parametrize("nblocks", [0, 1, 37, 133, 2048])
 @pytest.mark.parametrize("name,block", [("sort_blocks", 2048),
                                         ("chunk_bitonic", 1024)])
 def test_block_sort_kernels_match_plain(dev, name, block, nblocks, kind):
     from btl_bloomfilter_tpu_torch.kernels import vmem_sort
     fn = getattr(vmem_sort, name)
     plain = getattr(vmem_sort, name + "_plain")
-    x = sort_keys(kind, nblocks * block, np.random.default_rng(nblocks))
+    x = sort_keys(kind, nblocks * block, block,
+                  np.random.default_rng(nblocks))
     before = kernels.KERNELS[name].launches
-    got = fn(x.to(dev))
+    if kind == "unaligned_view":    # 4 bytes past a 16-byte boundary
+        x_dev = torch.empty(x.numel() + 1, dtype=torch.int32,
+                            device=dev)[1:]
+        x_dev.copy_(x.to(dev))
+    else:
+        x_dev = x.to(dev)
+    got = fn(x_dev)
     ref = plain(x)
     assert torch.equal(got.cpu(), ref)
     assert kernels.KERNELS[name].launches == before + int(nblocks > 0)
