@@ -6,9 +6,20 @@
 #include <cuda_runtime.h>
 
 // Bit position of an invalid window: every slot of its positions holds it,
-// and inserts and queries skip it. Filter sizes stay below 2**32 so it is
-// never a real position.
+// and inserts and queries skip it. Bloom positions come in two forms. The
+// narrow one, uint32 with this sentinel, serves filters below 2**32 bits,
+// where it is never a real position. From 2**32 bits (at 2**32 exactly
+// 0xFFFFFFFF is a real position) to 2**36, positions are wide: int64, with
+// -1, any negative value, as the sentinel.
 #define BTL_SENTINEL 0xFFFFFFFFu
+
+__device__ __forceinline__ bool btl_is_sentinel(uint32_t p) {
+    return p == BTL_SENTINEL;
+}
+
+__device__ __forceinline__ bool btl_is_sentinel(long long p) {
+    return p < 0;
+}
 
 // Threads per block of every kernel here.
 #define BTL_BLOCK 256

@@ -21,20 +21,24 @@
 // Semantics follow the reference: a window whose slot-0 position is the
 // sentinel is False; a sentinel in another slot reads bit 0; a word index
 // past the filter is clamped to the last word, as an XLA gather clamps.
+// Wide positions (int64, sentinel -1; filters from 2**32 bits) take an
+// instantiation of their own.
 
 #include "common.cuh"
 
+// P: uint32_t, or long long for wide positions.
+template <typename P>
 __global__ void __launch_bounds__(BTL_BLOCK)
-gather_words_kernel(const uint32_t* __restrict__ pos, long long n, int h,
+gather_words_kernel(const P* __restrict__ pos, long long n, int h,
                     const unsigned int* __restrict__ words, long long nwords,
                     bool* __restrict__ hit) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < n; i += stride) {
-        bool all = pos[i] != BTL_SENTINEL;
+        bool all = !btl_is_sentinel(pos[i]);
         for (int j = 0; j < h && all; ++j) {
-            uint32_t p = pos[(long long)j * n + i];
-            if (p == BTL_SENTINEL) p = 0;
+            P p = pos[(long long)j * n + i];
+            if (btl_is_sentinel(p)) p = 0;
             long long w = p >> 5;
             if (w >= nwords) w = nwords - 1;
             all = (__ldg(&words[w]) >> (p & 31)) & 1u;
@@ -52,6 +56,19 @@ extern "C" int btl_gather_words(const void* pos, long long n, int h,
     gather_words_kernel<<<btl_blocks(n), BTL_BLOCK, 0,
                           (cudaStream_t)stream>>>(
         (const uint32_t*)pos, n, h, (const unsigned int*)words, nwords,
+        (bool*)hit);
+    return (int)cudaGetLastError();
+}
+
+// The same for wide positions: pos int64 [h, n], -1 the sentinel.
+extern "C" int btl_gather_words_wide(const void* pos, long long n, int h,
+                                     const void* words, long long nwords,
+                                     void* hit, int device, void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    gather_words_kernel<<<btl_blocks(n), BTL_BLOCK, 0,
+                          (cudaStream_t)stream>>>(
+        (const long long*)pos, n, h, (const unsigned int*)words, nwords,
         (bool*)hit);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,9 @@
 // Canonical ntHash of every k-mer window of a batch of reads, with the
 // h-fold multi-hash derivation, N-window validity and, in positions mode,
-// the reduction mod the filter size with the 0xFFFFFFFF sentinel.
+// the reduction mod the filter size with a sentinel: uint32 positions and
+// 0xFFFFFFFF below 2**32 bits, int64 positions and -1 from 2**32 bits (the
+// wide form, a template instantiation of its own, so the narrow form's
+// code is unchanged).
 //
 // Replaces: btl_bloomfilter_tpu/kernels/nthash_scan.py:_kernel (the Pallas
 // kernel behind positions_planes_kernel and hash_frames_planes_kernel).
@@ -62,15 +65,22 @@ __device__ __forceinline__ uint64_t sror1(uint64_t v) {
            | ((v & (1ULL << 33)) << 30);
 }
 
-// v % size for size < 2**32: a mask when magic == 0 (size a power of two),
-// else Barrett: q = mulhi(v, magic) >> shift is floor(v/size) or one less.
-__device__ __forceinline__ uint32_t mod_size(uint64_t v, uint64_t size,
-                                             uint64_t magic, int shift) {
-    if (magic == 0) return (uint32_t)(v & (size - 1));
+// v % size: a mask when magic == 0 (size a power of two), else Barrett:
+// q = mulhi(v, magic) >> shift is floor(v/size) or one less, for any size
+// below 2**63 (magic = floor(2**(63+p) / size) < 2**64, p its bit length).
+__device__ __forceinline__ uint64_t mod_size64(uint64_t v, uint64_t size,
+                                               uint64_t magic, int shift) {
+    if (magic == 0) return v & (size - 1);
     uint64_t q = __umul64hi(v, magic) >> shift;
     uint64_t r = v - q * size;
     if (r >= size) r -= size;
-    return (uint32_t)r;
+    return r;
+}
+
+// The narrow form: size < 2**32.
+__device__ __forceinline__ uint32_t mod_size(uint64_t v, uint64_t size,
+                                             uint64_t magic, int shift) {
+    return (uint32_t)mod_size64(v, size, magic, shift);
 }
 
 // Base codes in order from a byte address, read four to an aligned 32-bit
@@ -103,8 +113,9 @@ struct CodeReader {
 #define TILE 2048
 
 // One block per (read, tile); thread t < TILE / R rolls the tile's windows
-// t*R .. t*R + R - 1, then every thread derives and writes windows.
-template <int R>
+// t*R .. t*R + R - 1, then every thread derives and writes windows. kWide:
+// positions mode writes int64 positions with -1 as the sentinel.
+template <int R, bool kWide>
 __global__ void __launch_bounds__(BTL_BLOCK)
 nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
                    long long L, int k, int h, long long W,
@@ -178,7 +189,10 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
                 v = canon * ((uint64_t)i ^ km);
                 v ^= v >> MULTI_SHIFT;
             }
-            if (positions_mode) {
+            if (kWide) {
+                ((long long*)out)[i * plane + idx] =
+                    ok ? (long long)mod_size64(v, size, magic, shift) : -1LL;
+            } else if (positions_mode) {
                 ((uint32_t*)out)[i * plane + idx] =
                     ok ? mod_size(v, size, magic, shift) : BTL_SENTINEL;
             } else {
@@ -190,10 +204,11 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
     }
 }
 
-// codes uint8 [B, L] -> out [h, B, W] (uint32 positions or uint64 hashes),
-// strand and valid bool [B, W], W = L - k + 1. Requires k >= 1, L >= k,
-// h >= 1; in positions mode 1 <= size < 2**32. run: windows a thread, 16
-// or 32. tables: the 50 uint64 of RollTables for this k.
+// codes uint8 [B, L] -> out [h, B, W], strand and valid bool [B, W], W =
+// L - k + 1. positions_mode 0: uint64 hashes; 1: uint32 positions, 1 <=
+// size < 2**32; 2: int64 positions, 2**32 <= size <= 2**36. Requires k >=
+// 1, L >= k, h >= 1. run: windows a thread, 16 or 32. tables: the 50
+// uint64 of RollTables for this k.
 extern "C" int btl_nthash_scan(const void* codes, long long B, long long L,
                                int k, int h, int positions_mode,
                                unsigned long long size,
@@ -204,12 +219,17 @@ extern "C" int btl_nthash_scan(const void* codes, long long B, long long L,
     if (err != cudaSuccess) return (int)err;
     const long long W = L - k + 1;
     if (B <= 0 || W <= 0) return (int)cudaGetLastError();
-    if (run != 16 && run != 32) return (int)cudaErrorInvalidValue;
+    if ((run != 16 && run != 32) || positions_mode < 0 || positions_mode > 2)
+        return (int)cudaErrorInvalidValue;
     const long long tiles = (W + TILE - 1) / TILE;
     if (B * tiles >= (1LL << 32)) return (int)cudaErrorInvalidConfiguration;
     RollTables tab;
     memcpy(&tab, tables, sizeof tab);
-    auto kernel = run == 16 ? nthash_scan_kernel<16> : nthash_scan_kernel<32>;
+    const bool wide = positions_mode == 2;
+    auto kernel = run == 16 ? (wide ? nthash_scan_kernel<16, true>
+                                    : nthash_scan_kernel<16, false>)
+                            : (wide ? nthash_scan_kernel<32, true>
+                                    : nthash_scan_kernel<32, false>);
     kernel<<<(unsigned)(B * tiles), BTL_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)codes, B, L, k, h, W, tiles, positions_mode,
         (uint64_t)size, (uint64_t)magic, shift, tab, out, (bool*)strand,

@@ -1,5 +1,7 @@
 // Bloom insert: words[p >> 5] |= 1 << (p & 31) for every bit position p,
-// in place, skipping the 0xFFFFFFFF sentinel.
+// in place, skipping the sentinel: uint32 positions with 0xFFFFFFFF below
+// 2**32 bits, and wide ones, int64 with -1, from 2**32 to 2**36 bits (each
+// entry point has a _wide twin; the narrow instantiations are unchanged).
 //
 // Replaces: btl_bloomfilter_tpu/kernels/scatter_ring.py:_kernel_rmw (behind
 // scatter_or_sorted_inplace), together with the sort, the dedupe and the
@@ -31,14 +33,16 @@
 
 #include "tile_partition.cuh"
 
+// P: uint32_t, or long long for wide positions.
+template <typename P>
 __global__ void __launch_bounds__(BTL_BLOCK)
-scatter_or_kernel(const uint32_t* __restrict__ pos, long long n,
+scatter_or_kernel(const P* __restrict__ pos, long long n,
                   unsigned int* __restrict__ words, long long nwords) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < n; i += stride) {
-        const uint32_t p = pos[i];
-        if (p == BTL_SENTINEL) continue;
+        const P p = pos[i];
+        if (btl_is_sentinel(p)) continue;
         const long long w = p >> 5;
         if (w >= nwords) continue;
         atomicOr(&words[w], 1u << (p & 31));
@@ -56,8 +60,23 @@ extern "C" int btl_scatter_or(const void* pos, long long n, void* words,
     return (int)cudaGetLastError();
 }
 
+// The same for wide positions: pos int64 [n], -1 the sentinel.
+extern "C" int btl_scatter_or_wide(const void* pos, long long n, void* words,
+                                   long long nwords, int device,
+                                   void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    scatter_or_kernel<<<btl_blocks(n), BTL_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const long long*)pos, n, (unsigned int*)words, nwords);
+    return (int)cudaGetLastError();
+}
+
 // The tiled route's apply: block t builds tile t's delta in shared memory,
-// then ORs each nonzero word of it into the filter.
+// then ORs each nonzero word of it into the filter. kWide: grouped holds
+// wide positions' low 32 bits (tile_partition.cuh), whose bits 5 and up
+// hold the word inside the tile; no slot of a run is the sentinel there,
+// so the slots past a run are masked off by index instead.
+template <bool kWide>
 __global__ void __launch_bounds__(BTL_TILE_THREADS)
 scatter_or_tile_kernel(const uint32_t* __restrict__ grouped,
                        const uint32_t* __restrict__ offsets,
@@ -81,9 +100,15 @@ scatter_or_tile_kernel(const uint32_t* __restrict__ grouped,
             p[j] = i < hi ? grouped[i] : BTL_SENTINEL;
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-            if (p[j] != BTL_SENTINEL)
+        for (int j = 0; j < 4; ++j) {
+            if (kWide) {
+                if (i0 + j * blockDim.x < hi)
+                    atomicOr(&delta[(p[j] >> 5) & (BTL_TILE_WORDS - 1)],
+                             1u << (p[j] & 31));
+            } else if (p[j] != BTL_SENTINEL) {
                 atomicOr(&delta[(p[j] >> 5) - w0], 1u << (p[j] & 31));
+            }
+        }
     }
     __syncthreads();
     // the words that gain a bit, in address order: a warp's atomicOr
@@ -94,6 +119,23 @@ scatter_or_tile_kernel(const uint32_t* __restrict__ grouped,
         const uint32_t d = delta[i];
         if (d) atomicOr(&g[i], d);
     }
+}
+
+// The apply after a partition, on stream st.
+template <bool kWide>
+static cudaError_t apply_tiles(long long n, void* words, long long nwords,
+                               void* scratch, int device, cudaStream_t st) {
+    static unsigned long long smem_set = 0;
+    cudaError_t err = btl_allow_smem(scatter_or_tile_kernel<kWide>,
+                                     BTL_TILE_WORDS * sizeof(uint32_t),
+                                     device, &smem_set);
+    if (err != cudaSuccess) return err;
+    const BtlTileScratch s = btl_tile_scratch((uint32_t*)scratch, n, nwords);
+    scatter_or_tile_kernel<kWide><<<(unsigned)btl_ntiles(nwords),
+                                    BTL_TILE_THREADS,
+                                    BTL_TILE_WORDS * sizeof(uint32_t), st>>>(
+        s.pos, s.offsets, (unsigned int*)words, nwords);
+    return cudaGetLastError();
 }
 
 // The tiled route: partition, then apply, all on the given stream. pos
@@ -109,15 +151,19 @@ extern "C" int btl_scatter_or_tiled(const void* pos, long long n,
     err = btl_tile_partition_run((const uint32_t*)pos, n, nwords, 5,
                                  (uint32_t*)scratch, st);
     if (err != cudaSuccess || n == 0) return (int)err;
-    static unsigned long long smem_set = 0;
-    err = btl_allow_smem(scatter_or_tile_kernel,
-                         BTL_TILE_WORDS * sizeof(uint32_t), device,
-                         &smem_set);
+    return (int)apply_tiles<false>(n, words, nwords, scratch, device, st);
+}
+
+// The same for wide positions: pos int64 [n], -1 the sentinel.
+extern "C" int btl_scatter_or_tiled_wide(const void* pos, long long n,
+                                         void* words, long long nwords,
+                                         void* scratch, int device,
+                                         void* stream) {
+    cudaError_t err = btl_set_device(device);
     if (err != cudaSuccess) return (int)err;
-    const BtlTileScratch s = btl_tile_scratch((uint32_t*)scratch, n, nwords);
-    scatter_or_tile_kernel<<<(unsigned)btl_ntiles(nwords),
-                             BTL_TILE_THREADS,
-                             BTL_TILE_WORDS * sizeof(uint32_t), st>>>(
-        s.pos, s.offsets, (unsigned int*)words, nwords);
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    err = btl_tile_partition_run_wide((const long long*)pos, n, nwords, 5,
+                                      (uint32_t*)scratch, st);
+    if (err != cudaSuccess || n == 0) return (int)err;
+    return (int)apply_tiles<true>(n, words, nwords, scratch, device, st);
 }

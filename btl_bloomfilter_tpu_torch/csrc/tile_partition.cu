@@ -43,6 +43,15 @@
 // The positions stream five times (three for one pass), against six. The
 // sentinel and positions past the array are dropped by the histogram and
 // the first pass.
+//
+// Wide positions (int64, sentinel -1; Bloom filters from 2**32 bits) take
+// template instantiations of the histogram and the first pass of their own:
+// they read int64 and stage it in shared memory as such, but write each
+// position's low 32 bits. A tile spans 2**(BTL_TILE_SHIFT + word_shift)
+// positions, a divisor of 2**32, so the low bits and the tile give the
+// position back; the second pass reads the low bits and takes its bucket,
+// the tile index's low bits, from them (kLow). The grouped positions, the
+// scratch and the offsets keep the narrow layout.
 
 #include "tile_partition.cuh"
 
@@ -62,6 +71,11 @@ static_assert((1 << ONE_PASS_BITS) <= THREADS && (1 << LOW_BITS) <= THREADS,
               "a scatter thread scans one bucket");
 constexpr int HIST_THREADS = 1024;
 constexpr int HIST_ITEMS = 16;
+// positions of type In a histogram thread loads at a time: the same bytes
+// (HIST_ITEMS narrow ones), so wide ones fit the registers too
+template <typename In>
+constexpr int HIST_ITEMS_OF =
+    HIST_ITEMS * (int)sizeof(uint32_t) / (int)sizeof(In);
 constexpr int SMS = 132;                 // an H100's SMs
 // blocks of the histogram and of a scatter pass: two an SM
 constexpr int HIST_BLOCKS = 2 * SMS;
@@ -73,6 +87,14 @@ __device__ __forceinline__ int tile_of(uint32_t p, long long nwords,
                                        int word_shift) {
     const uint32_t w = p >> word_shift;
     if (p == BTL_SENTINEL || (long long)w >= nwords) return -1;
+    return (int)(w >> BTL_TILE_SHIFT);
+}
+
+// The same for a wide position (negative: the sentinel).
+__device__ __forceinline__ int tile_of(unsigned long long p,
+                                       long long nwords, int word_shift) {
+    const long long w = (long long)p >> word_shift;
+    if ((long long)p < 0 || w >= nwords) return -1;
     return (int)(w >> BTL_TILE_SHIFT);
 }
 
@@ -115,8 +137,9 @@ __device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* s_warp,
 // and leaves each tile's first slot in counts. With low_bits: cursor1 [H]
 // the first slot of each high bucket, chunks [H + 1] the second pass's
 // first chunk of each high bucket (H = padded >> low_bits).
+template <typename In>
 __global__ void __launch_bounds__(HIST_THREADS, 2)
-tp_hist(const uint32_t* __restrict__ pos, long long n, long long nwords,
+tp_hist(const In* __restrict__ pos, long long n, long long nwords,
         int word_shift, int padded, int low_bits, uint32_t* counts,
         uint32_t* offsets, uint32_t* cursor1, uint32_t* chunks) {
     extern __shared__ uint32_t s_hist[];
@@ -127,15 +150,15 @@ tp_hist(const uint32_t* __restrict__ pos, long long n, long long nwords,
     __syncthreads();
     const long long stride = (long long)gridDim.x * HIST_THREADS;
     for (long long i0 = (long long)blockIdx.x * HIST_THREADS + threadIdx.x;
-         i0 < n; i0 += HIST_ITEMS * stride) {
-        uint32_t p[HIST_ITEMS];
+         i0 < n; i0 += HIST_ITEMS_OF<In> * stride) {
+        In p[HIST_ITEMS_OF<In>];
 #pragma unroll
-        for (int j = 0; j < HIST_ITEMS; ++j) {
+        for (int j = 0; j < HIST_ITEMS_OF<In>; ++j) {
             const long long i = i0 + j * stride;
-            p[j] = i < n ? pos[i] : BTL_SENTINEL;
+            p[j] = i < n ? pos[i] : ~(In)0;
         }
 #pragma unroll
-        for (int j = 0; j < HIST_ITEMS; ++j) {
+        for (int j = 0; j < HIST_ITEMS_OF<In>; ++j) {
             const int t = tile_of(p[j], nwords, word_shift);
             if (t >= 0) atomicAdd(&s_hist[slot(t)], 1u);
         }
@@ -191,8 +214,9 @@ tp_hist(const uint32_t* __restrict__ pos, long long n, long long nwords,
     if (threadIdx.x == 0) chunks[H] = all;
 }
 
+template <typename In>
 struct Pass {
-    const uint32_t* in;       // positions in
+    const In* in;             // positions in
     uint32_t* out;            // positions out
     long long n;              // positions in, for a pass without chunks
     long long nwords;
@@ -212,7 +236,8 @@ struct Pass {
 };
 
 // Chunk c's positions [lo, hi) and bucket base.
-__device__ __forceinline__ void chunk_range(const Pass& P,
+template <typename In>
+__device__ __forceinline__ void chunk_range(const Pass<In>& P,
                                             const uint32_t* s_chunks,
                                             uint32_t c, long long* lo,
                                             long long* hi, uint32_t* base) {
@@ -234,28 +259,37 @@ __device__ __forceinline__ void chunk_range(const Pass& P,
     *base = (uint32_t)a << P.seg_shift;
 }
 
-__device__ __forceinline__ void load_chunk(const Pass& P, long long lo,
-                                           long long hi, uint32_t* p) {
+template <typename In>
+__device__ __forceinline__ void load_chunk(const Pass<In>& P, long long lo,
+                                           long long hi, In* p) {
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
         const long long i = lo + threadIdx.x + (long long)j * THREADS;
-        p[j] = i < hi ? P.in[i] : BTL_SENTINEL;
+        p[j] = i < hi ? P.in[i] : ~(In)0;
     }
 }
 
-// The bucket of a live position.
-__device__ __forceinline__ int bucket(const Pass& P, uint32_t p,
+// The bucket of a live position. kLow: p is a wide position's low 32
+// bits, which hold the tile index's low bits; the buckets of the second
+// pass are those bits.
+template <bool kLow, typename In>
+__device__ __forceinline__ int bucket(const Pass<In>& P, In p,
                                       uint32_t base) {
-    return (int)((((p >> P.word_shift) >> BTL_TILE_SHIFT) >> P.shift) -
-                 base);
+    const int d = (int)((((p >> P.word_shift) >> BTL_TILE_SHIFT) >> P.shift)
+                        - base);
+    return kLow ? d & (P.buckets - 1) : d;
 }
 
+// In: the positions' type, uint32_t or (wide) unsigned long long; the
+// stage holds In, the output their low 32 bits.
+template <typename In, bool kLow>
 __global__ void __launch_bounds__(THREADS, SCATTER_BLOCKS / SMS)
-tp_scatter(Pass P) {
-    extern __shared__ uint32_t smem[];
+tp_scatter(Pass<In> P) {
+    extern __shared__ __align__(16) uint32_t smem[];
     const int B = P.buckets;
-    uint32_t* s_keys = smem;                 // [STAGE]
-    uint32_t* s_count = s_keys + STAGE;      // [B] this chunk's, a bucket
+    In* s_keys = reinterpret_cast<In*>(smem);                 // [STAGE]
+    // [B] this chunk's, a bucket
+    uint32_t* s_count = smem + STAGE * (sizeof(In) / sizeof(uint32_t));
     uint32_t* s_start = s_count + B;         // [B] their exclusive scan
     uint32_t* s_delta = s_start + B;         // [B] out slot - staged slot
     uint32_t* s_chunks = s_delta + B;        // [nseg + 1]
@@ -270,7 +304,7 @@ tp_scatter(Pass P) {
                                : (uint32_t)((P.n + STAGE - 1) / STAGE);
     uint32_t c = blockIdx.x, base = 0;
     long long lo = 0, hi = 0;
-    uint32_t p[ITEMS];
+    In p[ITEMS];
     if (c < total) {
         chunk_range(P, s_chunks, c, &lo, &hi, &base);
         load_chunk(P, lo, hi, p);
@@ -286,7 +320,7 @@ tp_scatter(Pass P) {
                 live = tile_of(p[j], P.nwords, P.word_shift) >= 0;
             code[j] = DROP;
             if (live) {
-                const int d = bucket(P, p[j], base);
+                const int d = bucket<kLow>(P, p[j], base);
                 code[j] = ((uint32_t)d << RANK_BITS) |
                           atomicAdd(&s_count[d], 1u);
             }
@@ -318,8 +352,9 @@ tp_scatter(Pass P) {
         __syncthreads();
         // each bucket's run, consecutive threads on consecutive addresses
         for (uint32_t i = threadIdx.x; i < live; i += THREADS) {
-            const uint32_t key = s_keys[i];
-            P.out[s_delta[bucket(P, key, base_now)] + i] = key;
+            const In key = s_keys[i];
+            P.out[s_delta[bucket<kLow>(P, key, base_now)] + i] =
+                (uint32_t)key;
         }
         __syncthreads();
     }
@@ -352,6 +387,73 @@ Plan plan(long long nwords) {
 constexpr int HIST_SMEM =
     (BTL_MAX_TILES + (BTL_MAX_TILES >> 5)) * (int)sizeof(uint32_t);
 
+// The partition of positions of type In (see btl_tile_partition_run).
+template <typename In>
+cudaError_t partition_run(const In* pos, long long n, long long nwords,
+                          int word_shift, uint32_t* scratch,
+                          cudaStream_t stream) {
+    const long long ntiles = btl_ntiles(nwords);
+    if (ntiles < 1 || ntiles > BTL_MAX_TILES || n < 0 || n >= (1LL << 31))
+        return cudaErrorInvalidValue;
+    const Plan p = plan(nwords);
+    const BtlTileScratch s = btl_tile_scratch(scratch, n, nwords);
+    if (n == 0)
+        return cudaMemsetAsync(s.offsets, 0,
+                               (p.padded + 1) * sizeof(uint32_t), stream);
+    static unsigned long long hist_set = 0, scatter_set = 0;
+    constexpr int WORD = (int)sizeof(uint32_t);
+    const int B1 = p.nseg;
+    const int smem1 = STAGE * (int)sizeof(In) + 3 * B1 * WORD;
+    int device;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = btl_allow_smem(tp_hist<In>, HIST_SMEM, device, &hist_set);
+    // a wide stage takes more than the 48 KiB a block has unasked: allow
+    // the most any plan asks, at 2**ONE_PASS_BITS buckets
+    if (err == cudaSuccess && sizeof(In) > sizeof(uint32_t))
+        err = btl_allow_smem(tp_scatter<In, false>,
+                             STAGE * (int)sizeof(In) +
+                                 3 * (1 << ONE_PASS_BITS) * WORD,
+                             device, &scatter_set);
+    if (err == cudaSuccess)
+        err = cudaMemsetAsync(s.cursor, 0, (p.padded + 1) * sizeof(uint32_t),
+                              stream);
+    if (err != cudaSuccess) return err;
+    const long long hist_grid =
+        div_up(n, (long long)HIST_THREADS * HIST_ITEMS_OF<In>);
+    tp_hist<In><<<(unsigned)(hist_grid < HIST_BLOCKS ? hist_grid
+                                                     : HIST_BLOCKS),
+                  HIST_THREADS,
+                  (p.padded + (p.padded >> 5)) * sizeof(uint32_t), stream>>>(
+        pos, n, nwords, word_shift, p.padded, p.low_bits, s.cursor,
+        s.offsets, s.cursor1, s.chunks);
+    const long long nchunks = div_up(n, STAGE);
+    const int grid1 =
+        (int)(nchunks < SCATTER_BLOCKS ? nchunks : SCATTER_BLOCKS);
+    // the first pass: the high bits (all of them for a one-pass partition)
+    Pass<In> P{pos, p.low_bits ? s.stage : s.pos, n, nwords, word_shift, 1,
+               p.low_bits, B1, p.low_bits ? s.cursor1 : s.cursor, nullptr,
+               nullptr, 0, 0};
+    tp_scatter<In, false><<<grid1, THREADS, smem1, stream>>>(P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !p.low_bits) return err;
+    // the second pass: the low bits inside each high bucket, in chunks
+    // that never straddle one
+    const long long nchunks2 = nchunks + p.nseg;
+    const int B2 = 1 << p.low_bits;
+    Pass<uint32_t> Q{s.stage, s.pos, n, nwords, word_shift, 0, 0, B2,
+                     s.cursor, s.chunks, s.offsets, p.nseg, p.low_bits};
+    constexpr bool kLow = sizeof(In) > sizeof(uint32_t);
+    tp_scatter<uint32_t, kLow><<<(int)(nchunks2 < SCATTER_BLOCKS
+                                           ? nchunks2
+                                           : SCATTER_BLOCKS),
+                                 THREADS,
+                                 (STAGE + 3 * B2 + p.nseg + 1) *
+                                     sizeof(uint32_t),
+                                 stream>>>(Q);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 BtlTileScratch btl_tile_scratch(uint32_t* scratch, long long n,
@@ -379,54 +481,18 @@ BtlTileScratch btl_tile_scratch(uint32_t* scratch, long long n,
 cudaError_t btl_tile_partition_run(const uint32_t* pos, long long n,
                                    long long nwords, int word_shift,
                                    uint32_t* scratch, cudaStream_t stream) {
-    const long long ntiles = btl_ntiles(nwords);
-    if (ntiles < 1 || ntiles > BTL_MAX_TILES || n < 0 || n >= (1LL << 31))
+    return partition_run(pos, n, nwords, word_shift, scratch, stream);
+}
+
+cudaError_t btl_tile_partition_run_wide(const long long* pos, long long n,
+                                        long long nwords, int word_shift,
+                                        uint32_t* scratch,
+                                        cudaStream_t stream) {
+    // the second pass takes LOW_BITS of the tile index from the low bits
+    if (word_shift + BTL_TILE_SHIFT + LOW_BITS > 32)
         return cudaErrorInvalidValue;
-    const Plan p = plan(nwords);
-    const BtlTileScratch s = btl_tile_scratch(scratch, n, nwords);
-    if (n == 0)
-        return cudaMemsetAsync(s.offsets, 0,
-                               (p.padded + 1) * sizeof(uint32_t), stream);
-    static unsigned long long hist_set = 0;
-    int device;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-        err = btl_allow_smem(tp_hist, HIST_SMEM, device, &hist_set);
-    if (err == cudaSuccess)
-        err = cudaMemsetAsync(s.cursor, 0, (p.padded + 1) * sizeof(uint32_t),
-                              stream);
-    if (err != cudaSuccess) return err;
-    const long long hist_grid =
-        div_up(n, (long long)HIST_THREADS * HIST_ITEMS);
-    tp_hist<<<(unsigned)(hist_grid < HIST_BLOCKS ? hist_grid : HIST_BLOCKS),
-              HIST_THREADS, (p.padded + (p.padded >> 5)) * sizeof(uint32_t),
-              stream>>>(
-        pos, n, nwords, word_shift, p.padded, p.low_bits, s.cursor,
-        s.offsets, s.cursor1, s.chunks);
-    const long long nchunks = div_up(n, STAGE);
-    const int grid1 =
-        (int)(nchunks < SCATTER_BLOCKS ? nchunks : SCATTER_BLOCKS);
-    const int B1 = p.nseg;
-    // the first pass: the high bits (all of them for a one-pass partition)
-    Pass P{pos, p.low_bits ? s.stage : s.pos, n, nwords, word_shift, 1,
-           p.low_bits, B1, p.low_bits ? s.cursor1 : s.cursor, nullptr,
-           nullptr, 0, 0};
-    tp_scatter<<<grid1, THREADS, (STAGE + 3 * B1) * sizeof(uint32_t),
-                 stream>>>(P);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || !p.low_bits) return err;
-    // the second pass: the low bits inside each high bucket, in chunks
-    // that never straddle one
-    const long long nchunks2 = nchunks + p.nseg;
-    const int B2 = 1 << p.low_bits;
-    Pass Q{s.stage, s.pos, n, nwords, word_shift, 0, 0, B2, s.cursor,
-           s.chunks, s.offsets, p.nseg, p.low_bits};
-    tp_scatter<<<(int)(nchunks2 < SCATTER_BLOCKS ? nchunks2
-                                                 : SCATTER_BLOCKS),
-                 THREADS,
-                 (STAGE + 3 * B2 + p.nseg + 1) * sizeof(uint32_t),
-                 stream>>>(Q);
-    return cudaGetLastError();
+    return partition_run((const unsigned long long*)pos, n, nwords,
+                         word_shift, scratch, stream);
 }
 
 // The partition alone: pos uint32 [n], scratch of
@@ -439,6 +505,19 @@ extern "C" int btl_tile_partition(const void* pos, long long n,
     return (int)btl_tile_partition_run((const uint32_t*)pos, n, nwords,
                                        word_shift, (uint32_t*)scratch,
                                        (cudaStream_t)stream);
+}
+
+// The same for wide positions: pos int64 [n], -1 the sentinel; grouped
+// holds each position's low 32 bits.
+extern "C" int btl_tile_partition_wide(const void* pos, long long n,
+                                       long long nwords, int word_shift,
+                                       void* scratch, int device,
+                                       void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)btl_tile_partition_run_wide(
+        (const long long*)pos, n, nwords, word_shift, (uint32_t*)scratch,
+        (cudaStream_t)stream);
 }
 
 // uint32 words of scratch a partition of n positions into the tiles of an

@@ -26,6 +26,15 @@ cudaError_t btl_tile_partition_run(const uint32_t* pos, long long n,
                                    long long nwords, int word_shift,
                                    uint32_t* scratch, cudaStream_t stream);
 
+// The same for wide positions: pos int64 [n] with -1 as the sentinel
+// (Bloom filters from 2**32 bits). The grouped positions hold each
+// position's low 32 bits; the tile gives the rest. Requires word_shift +
+// BTL_TILE_SHIFT + 7 <= 32.
+cudaError_t btl_tile_partition_run_wide(const long long* pos, long long n,
+                                        long long nwords, int word_shift,
+                                        uint32_t* scratch,
+                                        cudaStream_t stream);
+
 // The tiles of an array of nwords words.
 static inline long long btl_ntiles(long long nwords) {
     return (nwords + (1LL << BTL_TILE_SHIFT) - 1) >> BTL_TILE_SHIFT;

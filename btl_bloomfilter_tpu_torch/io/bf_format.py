@@ -86,8 +86,10 @@ def parse_header(data: bytes,
 
 def words_to_bytes(words: np.ndarray, size_in_bytes: int) -> bytes:
     """uint32 words -> the reference's byte layout (LSB-first bits within
-    bytes), which is exactly their little-endian serialization."""
-    return np.asarray(words, dtype="<u4").tobytes()[:size_in_bytes]
+    bytes), which is exactly their little-endian serialization (one copy of
+    the filter)."""
+    return np.asarray(words, dtype="<u4").view(np.uint8)[:size_in_bytes] \
+        .tobytes()
 
 
 def bytes_to_words(buf: bytes) -> np.ndarray:

@@ -25,6 +25,10 @@
 
 ``scatter_ring`` and the last three serve the probes (``probes/``), not the
 build/query paths.
+The Bloom kernels (``nthash_scan``'s positions mode, ``scatter_or``'s two
+routes, ``tile_partition``, ``gather_words``) also take wide int64
+positions, for filters from 2**32 bits, each through an instantiation
+counted on its own (the ``*_wide`` names below).
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
@@ -52,6 +56,12 @@ KERNELS = {
     "scatter_or_tiled": scatter_or.TILED_KERNEL,
     "scatter_add_tiled": scatter_add.TILED_KERNEL,
     "tile_partition": tile_partition.KERNEL,
+    # the wide forms (int64 positions, Bloom filters from 2**32 bits)
+    "nthash_scan_wide": nthash_scan.WIDE_KERNEL,
+    "scatter_or_wide": scatter_or.WIDE_KERNEL,
+    "scatter_or_tiled_wide": scatter_or.TILED_WIDE_KERNEL,
+    "tile_partition_wide": tile_partition.WIDE_KERNEL,
+    "gather_words_wide": gather_words.WIDE_KERNEL,
 }
 
 

@@ -5,8 +5,12 @@ Two modes of one kernel, with the reference's plane-major layouts
 (``btl_bloomfilter_tpu/kernels/nthash_scan.py``):
 
   * ``hash_frames_planes``: hashes int64 [h, B, W] (uint64 bits);
-  * ``positions_planes``:   hash % size as int32 [h, B, W] (uint32 bits),
-    with the sentinel 0xFFFFFFFF (-1) in every slot of an invalid window.
+  * ``positions_planes``:   hash % size with a sentinel (-1) in every slot
+    of an invalid window. Below 2**32 bits the narrow form: int32 [h, B,
+    W] holding uint32 bits, the sentinel 0xFFFFFFFF. From 2**32 bits (at
+    2**32 exactly 0xFFFFFFFF is a real position) up to ``MAX_SIZE`` the
+    wide form: int64 [h, B, W], the sentinel -1. The wide form launches
+    the kernel's 64-bit instantiation and counts as ``WIDE_KERNEL``.
 
 Both also return strand and valid bool [B, W], W = L - k + 1. A CPU tensor
 takes the plain version (``ops/nthash.py``); a CUDA tensor launches the
@@ -22,13 +26,22 @@ import torch
 
 from ..ops import nthash, nthash_tables as T, u64
 from . import _build
-from ._build import SENTINEL
 
-KERNEL = _build.CudaKernel("btl_nthash_scan", [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p])
+ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_ulonglong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+# one entry point; the wide positions mode counts on its own
+KERNEL = _build.CudaKernel("btl_nthash_scan", ARGS)
+WIDE_KERNEL = _build.CudaKernel("btl_nthash_scan", ARGS)
+
+# positions_mode of the entry point
+HASHES, POSITIONS, WIDE_POSITIONS = 0, 1, 2
+
+# Filter sizes from WIDE_SIZE bits take the wide positions form. Sizes stop
+# at MAX_SIZE: a word index p >> 5 then fits 31 bits.
+WIDE_SIZE = 1 << 32
+MAX_SIZE = 1 << 36
 
 # windows a block of the kernel hashes (TILE in csrc/nthash_scan.cu)
 TILE = 2048
@@ -50,9 +63,10 @@ def _check(codes: torch.Tensor, k: int, h: int) -> None:
         raise ValueError(f"sequence length {codes.shape[1]} < k={k}")
 
 
-def _check_size(size: int) -> None:
-    if not 1 <= size < (1 << 32):
-        raise ValueError("positions mode requires 1 <= size < 2**32")
+def check_size(size: int) -> None:
+    if not 1 <= size <= MAX_SIZE:
+        raise ValueError(f"filter size {size} outside [1, 2**36]: a larger "
+                         "filter's word indices pass 2**31")
 
 
 @functools.lru_cache(maxsize=64)
@@ -91,11 +105,12 @@ def hash_frames_planes_plain(codes: torch.Tensor, k: int, h: int):
 
 def positions_planes_plain(codes: torch.Tensor, k: int, h: int, size: int):
     _check(codes, k, h)
-    _check_size(size)
+    check_size(size)
     f = nthash.hash_frames(codes, k, h)
-    pos = torch.where(f.valid[..., None], u64.mod_const(f.hashes, size),
-                      SENTINEL)
-    return u64.to_u32_bits(pos).movedim(-1, 0).contiguous(), f.strand, f.valid
+    pos = torch.where(f.valid[..., None], u64.mod_const(f.hashes, size), -1)
+    if size < WIDE_SIZE:
+        pos = u64.to_u32_bits(pos)
+    return pos.movedim(-1, 0).contiguous(), f.strand, f.valid
 
 
 # ---------------------------------------------------------------------------
@@ -111,17 +126,21 @@ def _launch(codes: torch.Tensor, k: int, h: int, size):
     if B * -(-W // TILE) >= (1 << 31):
         raise ValueError("batch too large for one launch")
     dev = codes.device
-    positions = size is not None
-    out = torch.empty((h, B, W), dtype=torch.int32 if positions
-                      else torch.int64, device=dev)
+    if size is None:
+        mode, kernel, dtype = HASHES, KERNEL, torch.int64
+    elif size < WIDE_SIZE:
+        mode, kernel, dtype = POSITIONS, KERNEL, torch.int32
+    else:
+        mode, kernel, dtype = WIDE_POSITIONS, WIDE_KERNEL, torch.int64
+    out = torch.empty((h, B, W), dtype=dtype, device=dev)
     # strand and valid share one allocation (and not the planes', which a
     # caller holding only valid would keep alive)
     flags = torch.empty((2, B, W), dtype=torch.bool, device=dev)
     strand, valid = flags[0], flags[1]
     if B == 0:
         return out, strand, valid
-    magic, shift = barrett(size) if positions else (0, 0)
-    KERNEL.launch(dev, codes.data_ptr(), B, L, k, h, int(positions),
+    magic, shift = barrett(size) if mode else (0, 0)
+    kernel.launch(dev, codes.data_ptr(), B, L, k, h, mode,
                   size or 0, magic, shift, run_length(k),
                   ctypes.addressof(roll_tables(k)), out.data_ptr(),
                   strand.data_ptr(), valid.data_ptr())
@@ -137,11 +156,12 @@ def hash_frames_planes(codes: torch.Tensor, k: int, h: int):
 
 
 def positions_planes(codes: torch.Tensor, k: int, h: int, size: int):
-    """(pos int32 [h, B, W], strand bool [B, W], valid bool [B, W]):
-    positions are hash % size, or 0xFFFFFFFF (-1) in every slot of a window
-    that holds an N. Requires size < 2**32."""
+    """(pos [h, B, W], strand bool [B, W], valid bool [B, W]): positions
+    are hash % size, or the sentinel in every slot of a window that holds
+    an N; int32 with 0xFFFFFFFF (-1) below 2**32 bits, int64 with -1 from
+    2**32 to 2**36 bits."""
     _check(codes, k, h)
-    _check_size(size)
+    check_size(size)
     if _build.on_cpu(codes):
         return positions_planes_plain(codes, k, h, size)
     return _launch(codes, k, h, size)

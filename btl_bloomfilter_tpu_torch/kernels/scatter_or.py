@@ -2,16 +2,20 @@
 and ``csrc/scatter_or_sorted.cu`` and their plain PyTorch version.
 
 ``scatter_or(words, pos)`` sets bit ``p & 31`` of ``words[p >> 5]`` for
-every position p (int32 holding uint32 bits, any shape, any order,
-duplicates allowed), skipping the sentinel 0xFFFFFFFF and positions past
-the filter. It updates ``words`` (int32 [nwords]) in place and returns it.
-On a CUDA tensor it takes one of two routes, by ``route(nwords, npos)``:
-``scatter_or_direct`` (one atomicOr per position) or ``scatter_or_tiled``
-(the tile partition of ``kernels/tile_partition.py``, then the positions
-applied tile by tile, all in one call of the library).
+every position p (any shape, any order, duplicates allowed), skipping the
+sentinel and positions past the filter. Positions come in the narrow form,
+int32 holding uint32 bits with the sentinel 0xFFFFFFFF (filters below
+2**32 bits), or the wide one, int64 with the sentinel -1 (filters from
+2**32 to 2**36 bits), which launches the ``*_wide`` entry points and
+counts as ``WIDE_KERNEL`` / ``TILED_WIDE_KERNEL``. It updates ``words``
+(int32 [nwords]) in place and returns it. On a CUDA tensor it takes one of
+two routes, by ``route(nwords, npos)``: ``scatter_or_direct`` (one
+atomicOr per position) or ``scatter_or_tiled`` (the tile partition of
+``kernels/tile_partition.py``, then the positions applied tile by tile,
+all in one call of the library).
 
 ``scatter_or_sorted(words, pos_sorted, pos_for_base=None)`` is the same
-insert for sorted positions, the port of the JAX package's
+insert for sorted narrow positions, the port of the JAX package's
 ``kernels/scatter_or.py:scatter_or_sorted``: one atomic per run of equal
 words instead of one per position. It updates ``words`` in place and
 returns ``(words, overflow)``; the overflow is always 0 (Hopper has no
@@ -30,7 +34,6 @@ import torch
 
 from ..ops import u64
 from . import _build, tile_partition
-from ._build import SENTINEL
 
 ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong]
@@ -39,6 +42,10 @@ SORTED_KERNEL = _build.CudaKernel("btl_scatter_or_sorted", ARGS)
 TILED_KERNEL = _build.CudaKernel("btl_scatter_or_tiled",
                                  ARGS + [ctypes.c_void_p],
                                  also=(tile_partition.KERNEL,))
+WIDE_KERNEL = _build.CudaKernel("btl_scatter_or_wide", ARGS)
+TILED_WIDE_KERNEL = _build.CudaKernel("btl_scatter_or_tiled_wide",
+                                      ARGS + [ctypes.c_void_p],
+                                      also=(tile_partition.WIDE_KERNEL,))
 
 # The route rule's constants, from H100 runs of tools/time_kernels.py's
 # grid (uniform positions; PERF.md section 6): the tiled route pays once the
@@ -63,32 +70,40 @@ def route(nwords: int, npos: int) -> str:
     return "direct"
 
 
-def _check(words: torch.Tensor, pos: torch.Tensor) -> None:
-    if words.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("words and pos must be torch.int32 (uint32 bits)")
+def _check(words: torch.Tensor, pos: torch.Tensor,
+           wide: bool = True) -> None:
+    if words.dtype != torch.int32:
+        raise TypeError("words must be torch.int32 (uint32 bits)")
+    if pos.dtype != torch.int32 and not (wide and pos.dtype == torch.int64):
+        raise TypeError("pos must be torch.int32 (uint32 bits)"
+                        + (" or torch.int64" if wide else ""))
     if words.dim() != 1 or not words.is_contiguous():
         raise ValueError("words must be a contiguous 1-D tensor")
 
 
 def scatter_or_plain(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Deduplicate, then add one-bit masks: distinct bits of a word sum
-    without carries, so the add is an OR."""
+    """Deduplicate, then add one-bit masks by word: distinct bits of a word
+    sum without carries, so the add is an OR. Only the words that gain a
+    bit are touched (no delta the size of the filter)."""
     _check(words, pos)
-    p = u64.from_u32_bits(pos.reshape(-1))
-    p = torch.unique(p[p != SENTINEL])
+    p = u64.positions64(pos.reshape(-1))
+    p = torch.unique(p[p >= 0])
     w = p >> 5
     keep = w < words.numel()
     p, w = p[keep], w[keep]
-    delta = torch.zeros_like(words).index_add_(
-        0, w, u64.to_u32_bits(torch.ones_like(p) << (p & 31)))
-    words |= delta
+    uw, inv = torch.unique_consecutive(w, return_inverse=True)
+    delta = torch.zeros(uw.numel(), dtype=torch.int64,
+                        device=words.device).index_add_(
+        0, inv, torch.ones_like(p) << (p & 31))
+    words[uw] |= u64.to_u32_bits(delta)
     return words
 
 
 def launch(kernel: _build.CudaKernel, words: torch.Tensor,
            pos: torch.Tensor) -> None:
-    """Launch ``kernel`` (either entry point above) on CUDA tensors."""
-    _check(words, pos)
+    """Launch ``kernel`` (a direct or sorted entry point above) on CUDA
+    tensors."""
+    _check(words, pos, kernel is WIDE_KERNEL)
     pos = pos.reshape(-1).contiguous()
     if pos.numel():
         kernel.launch(words.device, _build.ptr(pos), pos.numel(),
@@ -107,7 +122,7 @@ def scatter_or_direct(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """The direct route on a CUDA tensor, whatever the rule says."""
     if _build.on_cpu(words, pos):
         return scatter_or_plain(words, pos)
-    launch(KERNEL, words, pos)
+    launch(WIDE_KERNEL if pos.dtype == torch.int64 else KERNEL, words, pos)
     return words
 
 
@@ -119,12 +134,16 @@ def scatter_or_tiled(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     pos = pos.reshape(-1).contiguous()
     if pos.numel() >= 1 << 31:
         raise ValueError("the tiled route takes fewer than 2**31 positions")
+    if tile_partition.ntiles(words.numel()) > tile_partition.MAX_TILES:
+        raise ValueError(f"the tiled route takes at most "
+                         f"{tile_partition.MAX_TILES} tiles")
     if pos.numel():
         buf = tile_partition.scratch(pos.numel(), words.numel(),
                                      words.device)
-        TILED_KERNEL.launch(words.device, _build.ptr(pos), pos.numel(),
-                            _build.ptr(words), words.numel(),
-                            _build.ptr(buf))
+        kernel = (TILED_WIDE_KERNEL if pos.dtype == torch.int64
+                  else TILED_KERNEL)
+        kernel.launch(words.device, _build.ptr(pos), pos.numel(),
+                      _build.ptr(words), words.numel(), _build.ptr(buf))
     return words
 
 

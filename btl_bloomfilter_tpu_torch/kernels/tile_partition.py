@@ -3,14 +3,18 @@ PyTorch version, the first stage of the tiled scatters
 (``kernels/scatter_or.py``, ``kernels/scatter_add.py``).
 
 ``tile_partition(pos, nwords, word_shift)`` groups the live positions p of
-``pos`` (int32 holding uint32 bits, any shape) by tile ``(p >> word_shift)
->> TILE_SHIFT`` of an array of ``nwords`` words, dropping the sentinel
-0xFFFFFFFF and positions whose word ``p >> word_shift`` is past the array.
-It returns ``(offsets, grouped)``: offsets int32 [ntiles + 1], the
-exclusive scan of the tile counts (``offsets[-1]`` the number of live
-positions); grouped int32 [n], tile t's positions in
-``grouped[offsets[t]:offsets[t + 1]]`` in no set order. Entries of grouped
-from ``offsets[-1]`` on are unspecified (the plain version writes -1).
+``pos`` (any shape) by tile ``(p >> word_shift) >> TILE_SHIFT`` of an array
+of ``nwords`` words, dropping the sentinel and positions whose word ``p >>
+word_shift`` is past the array. Positions are narrow, int32 holding uint32
+bits with the sentinel 0xFFFFFFFF, or wide, int64 with the sentinel -1
+(Bloom filters from 2**32 bits; the kernel's wide instantiation counts as
+``WIDE_KERNEL``). It returns ``(offsets, grouped)``: offsets int32 [ntiles
++ 1], the exclusive scan of the tile counts (``offsets[-1]`` the number of
+live positions); grouped int32 [n], the low 32 bits of tile t's positions
+in ``grouped[offsets[t]:offsets[t + 1]]`` in no set order (a tile spans a
+power of two positions that divides 2**32, so the tile gives the rest).
+Entries of grouped from ``offsets[-1]`` on are unspecified (the plain
+version writes -1).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -26,7 +30,6 @@ import torch
 
 from ..ops import u64
 from . import _build
-from ._build import SENTINEL
 
 
 def _define(name: str) -> int:
@@ -42,9 +45,14 @@ def _define(name: str) -> int:
 TILE_SHIFT = _define("BTL_TILE_SHIFT")
 MAX_TILES = _define("BTL_MAX_TILES")
 
-KERNEL = _build.CudaKernel("btl_tile_partition", [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_void_p])
+ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+KERNEL = _build.CudaKernel("btl_tile_partition", ARGS)
+WIDE_KERNEL = _build.CudaKernel("btl_tile_partition_wide", ARGS)
+
+# The kernel's second pass takes the tile index's low 7 bits (LOW_BITS in
+# csrc/tile_partition.cu) from a wide position's low 32 bits.
+_WIDE_MAX_SHIFT = 32 - 7
 
 _scratch_words = None
 
@@ -75,10 +83,13 @@ def scratch(n: int, nwords: int, device) -> torch.Tensor:
 
 def _check(pos: torch.Tensor, nwords: int, word_shift: int,
            tile_shift: int) -> int:
-    if pos.dtype != torch.int32:
-        raise TypeError("pos must be torch.int32 (uint32 bits)")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError("pos must be torch.int32 (uint32 bits) or int64")
     if not 0 <= word_shift < 32 or not 0 <= tile_shift < 32:
         raise ValueError("word_shift and tile_shift must be in [0, 32)")
+    if pos.dtype == torch.int64 and word_shift + tile_shift > _WIDE_MAX_SHIFT:
+        raise ValueError("wide positions need word_shift + tile_shift <= "
+                         f"{_WIDE_MAX_SHIFT}")
     nt = ntiles(nwords, tile_shift)
     if not 1 <= nt <= MAX_TILES:
         raise ValueError(f"{nt} tiles: a partition takes 1 to {MAX_TILES}")
@@ -92,15 +103,15 @@ def tile_partition_plain(pos: torch.Tensor, nwords: int, word_shift: int,
     """A stable argsort on the tile index. ``tile_shift`` other than
     TILE_SHIFT serves the CPU models of the tiled routes at small sizes."""
     nt = _check(pos, nwords, word_shift, tile_shift)
-    flat = pos.reshape(-1)
-    p = u64.from_u32_bits(flat)
-    keep = (p != SENTINEL) & ((p >> word_shift) < nwords)
-    tile = (p[keep] >> word_shift) >> tile_shift
+    p = u64.positions64(pos.reshape(-1))
+    p = p[(p >= 0) & ((p >> word_shift) < nwords)]
+    tile = (p >> word_shift) >> tile_shift
     order = torch.argsort(tile, stable=True)
     offsets = torch.zeros(nt + 1, dtype=torch.int64, device=pos.device)
     offsets[1:] = torch.cumsum(torch.bincount(tile, minlength=nt), 0)
-    grouped = torch.full_like(flat, -1)
-    grouped[:tile.numel()] = flat[keep][order]
+    grouped = torch.full((pos.numel(),), -1, dtype=torch.int32,
+                         device=pos.device)
+    grouped[:tile.numel()] = u64.to_u32_bits(p[order] & 0xFFFFFFFF)
     return offsets.to(torch.int32), grouped
 
 
@@ -111,7 +122,8 @@ def tile_partition(pos: torch.Tensor, nwords: int, word_shift: int):
     pos = pos.reshape(-1).contiguous()
     n = pos.numel()
     buf = scratch(n, nwords, pos.device)
-    KERNEL.launch(pos.device, _build.ptr(pos), n, nwords, word_shift,
+    kernel = WIDE_KERNEL if pos.dtype == torch.int64 else KERNEL
+    kernel.launch(pos.device, _build.ptr(pos), n, nwords, word_shift,
                   _build.ptr(buf))
     at = padded_tiles(nwords) + 1
     return buf[:nt + 1], buf[at:at + n]

@@ -11,8 +11,12 @@ would move 256 MiB for nothing.
 
 The insert and query go through the CUDA kernels ``kernels/scatter_or``
 and ``kernels/gather_words`` when the words lie on a GPU, and through their
-plain versions on the CPU. Filters of 2**32 bits or more are not supported
-yet: the positions are uint32 with 0xFFFFFFFF as the sentinel.
+plain versions on the CPU. Bit positions come in two forms, by filter size
+(``position_dtype``): below 2**32 bits int32 holding uint32 bits, with
+0xFFFFFFFF (-1) as the sentinel; from 2**32 bits int64, with -1 as the
+sentinel (at 2**32 exactly 0xFFFFFFFF is a real position). Filters go up to
+2**36 bits (``nthash_scan.MAX_SIZE``): the reference's word index is int32
+and wraps past that, so larger sizes raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from ..kernels import gather_words, scatter_or
+from ..kernels import gather_words, nthash_scan, scatter_or
 from ..ops import u64
 
 _WORD_BITS = 32
@@ -54,12 +58,18 @@ def _num_words(size: int) -> int:
     return (size + _WORD_BITS - 1) // _WORD_BITS
 
 
+def _check_size(size: int) -> None:
+    if size % 8 != 0:
+        raise ValueError(f"filter size {size} is not a multiple of 8")
+    nthash_scan.check_size(size)
+
+
 def create(size: int, hash_num: int, kmer_size: int, *, dfpr: float = 0.0,
            n_entry: int = 0, t_entry: int = 0,
            device="cuda") -> BloomFilter:
-    """Empty filter of ``size`` bits (a multiple of 8) on ``device``."""
-    if size % 8 != 0:
-        raise ValueError(f"filter size {size} is not a multiple of 8")
+    """Empty filter of ``size`` bits (a multiple of 8, at most 2**36) on
+    ``device``."""
+    _check_size(size)
     return BloomFilter(
         words=torch.zeros(_num_words(size), dtype=torch.int32, device=device),
         size=size, hash_num=hash_num, kmer_size=kmer_size, dfpr=dfpr,
@@ -91,8 +101,7 @@ def from_numpy_words(words_u32: np.ndarray, size: int, hash_num: int,
                      t_entry: int = 0, device="cuda") -> BloomFilter:
     """A filter over existing uint32 words (for example
     ``np.asarray(jax_bf.words)``); the words are copied."""
-    if size % 8 != 0:
-        raise ValueError(f"filter size {size} is not a multiple of 8")
+    _check_size(size)
     w = np.array(words_u32, dtype=np.uint32)    # a writable copy
     if w.shape != (_num_words(size),):
         raise ValueError(f"expected {_num_words(size)} words for size "
@@ -107,15 +116,25 @@ def to_numpy_words(bf: BloomFilter) -> np.ndarray:
     return bf.words.cpu().numpy().view(np.uint32)
 
 
-def _require_u32_size(bf: BloomFilter) -> None:
-    if bf.size >= (1 << 32):
-        raise NotImplementedError("filters of 2**32 bits or more are not "
-                                  "ported yet (positions are uint32)")
+def position_dtype(size: int) -> torch.dtype:
+    """The form of a filter's bit positions: torch.int32 (uint32 bits,
+    sentinel 0xFFFFFFFF) below 2**32 bits, torch.int64 (sentinel -1) from
+    2**32 bits."""
+    return torch.int64 if size >= nthash_scan.WIDE_SIZE else torch.int32
+
+
+def _require_positions(bf: BloomFilter, pos: torch.Tensor) -> None:
+    nthash_scan.check_size(bf.size)
+    if pos.dtype != position_dtype(bf.size):
+        raise TypeError(f"a filter of {bf.size} bits takes positions of "
+                        f"{position_dtype(bf.size)}, got {pos.dtype}")
 
 
 def hash_positions(hashes: torch.Tensor, size: int) -> torch.Tensor:
-    """hash % size as int32 uint32 bits, same shape (size < 2**32)."""
-    return u64.to_u32_bits(u64.mod_const(hashes, size))
+    """hash % size in the form ``position_dtype(size)``, same shape."""
+    nthash_scan.check_size(size)
+    pos = u64.mod_const(hashes, size)
+    return u64.to_u32_bits(pos) if size < nthash_scan.WIDE_SIZE else pos
 
 
 # ---------------------------------------------------------------------------
@@ -124,20 +143,22 @@ def hash_positions(hashes: torch.Tensor, size: int) -> torch.Tensor:
 
 def insert_sentinel_positions(bf: BloomFilter,
                               pos: torch.Tensor) -> BloomFilter:
-    """Insert bit positions already reduced mod size (int32 holding uint32
-    bits, any shape and order), skipping 0xFFFFFFFF (-1): the array the
-    ntHash kernel's positions mode writes. Updates ``bf.words`` in place."""
-    _require_u32_size(bf)
+    """Insert bit positions already reduced mod size (any shape and order,
+    in the form ``position_dtype(bf.size)``), skipping the sentinel -1: the
+    array the ntHash kernel's positions mode writes. Updates ``bf.words``
+    in place."""
+    _require_positions(bf, pos)
     scatter_or.scatter_or(bf.words, pos.to(bf.device))
     return bf
 
 
 def contains_sentinel_positions(bf: BloomFilter,
                                 pos: torch.Tensor) -> torch.Tensor:
-    """Membership for position planes pos int32 [h, ...] reduced mod size,
-    where invalid windows carry the sentinel in every slot. Returns hit
-    bool [...], False for invalid windows."""
-    _require_u32_size(bf)
+    """Membership for position planes pos [h, ...] reduced mod size (in
+    the form ``position_dtype(bf.size)``), where invalid windows carry the
+    sentinel in every slot. Returns hit bool [...], False for invalid
+    windows."""
+    _require_positions(bf, pos)
     return gather_words.gather_words(bf.words, pos.to(bf.device))
 
 
@@ -146,7 +167,6 @@ def insert(bf: BloomFilter, hashes: torch.Tensor,
     """Insert frames: hashes int64 [..., h] (uint64 bits); ``valid`` is an
     optional bool mask broadcastable to hashes.shape[:-1] (frames with
     valid False contribute nothing). Updates ``bf.words`` in place."""
-    _require_u32_size(bf)
     hashes = hashes.to(bf.device)
     pos = hash_positions(hashes, bf.size)
     if valid is not None:
@@ -158,7 +178,6 @@ def insert(bf: BloomFilter, hashes: torch.Tensor,
 def contains(bf: BloomFilter, hashes: torch.Tensor) -> torch.Tensor:
     """Membership of frames: hashes int64 [..., h] -> bool [...] (all h
     bits set)."""
-    _require_u32_size(bf)
     pos = hash_positions(hashes.to(bf.device), bf.size)
     return contains_sentinel_positions(bf, pos.movedim(-1, 0))
 
@@ -184,8 +203,9 @@ def insert_and_check_sequential(bf: BloomFilter, hashes: torch.Tensor,
     No scan: for every bit position p of a valid frame, ``first[p]`` is
     the smallest valid frame index that holds p (a ``scatter_reduce`` with
     ``amin``), and ``found_i = valid_i & AND_j(set_before(p_ij) |
-    first[p_ij] < i)``."""
-    _require_u32_size(bf)
+    first[p_ij] < i)``. Filters up to 2**32 bits, as the reference's."""
+    if bf.size > nthash_scan.WIDE_SIZE:
+        raise NotImplementedError("sequential check requires size <= 2**32")
     hashes = hashes.to(bf.device)
     h = hashes.shape[-1]
     frames = hashes.shape[:-1]
@@ -210,9 +230,15 @@ def insert_and_check_sequential(bf: BloomFilter, hashes: torch.Tensor,
     return bf, found.reshape(frames)
 
 
+# words a popcount takes at a time: its int64 temporaries over a whole
+# filter of 2**36 bits would take several times the filter's 8 GiB
+_POP_CHUNK = 1 << 26
+
+
 def get_pop(bf: BloomFilter) -> int:
     """Number of set bits."""
-    return int(u64.popcount32(bf.words).sum())
+    return int(sum(u64.popcount32(bf.words[i:i + _POP_CHUNK]).sum()
+                   for i in range(0, bf.words.numel(), _POP_CHUNK)))
 
 
 def get_fpr(bf: BloomFilter) -> float:

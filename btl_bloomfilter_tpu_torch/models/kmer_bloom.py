@@ -23,7 +23,8 @@ def _codes_on(bf: bloom.BloomFilter, codes) -> torch.Tensor:
 
 
 def _positions(bf: bloom.BloomFilter, codes: torch.Tensor):
-    """Positions planes [h, B, W] and valid [B, W] for codes [..., L]
+    """Positions planes [h, B, W] (in the form
+    ``bloom.position_dtype(bf.size)``) and valid [B, W] for codes [..., L]
     flattened to [B, L]."""
     flat = codes.reshape(-1, codes.shape[-1])
     pos, _strand, valid = nthash_scan.positions_planes(

@@ -74,14 +74,15 @@ def mul_const(a: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def mod_const(x: torch.Tensor, m: int) -> torch.Tensor:
-    """Unsigned x % m for a python int 1 <= m < 2**32; result int64 in
+    """Unsigned x % m for a python int 1 <= m < 2**47; result int64 in
     [0, m).
 
     The high 32 bits are reduced first; the low 32 bits are then folded in
-    16 bits at a time, so no intermediate passes 2**48 and every ``%`` acts
-    on non-negative int64 values."""
-    if not 1 <= m < (1 << 32):
-        raise ValueError(f"modulus {m} outside [1, 2**32)")
+    16 bits at a time. Each fold shifts a remainder below m left by 16, so
+    no intermediate reaches 2**63 while m < 2**47, and every ``%`` acts on
+    non-negative int64 values (Bloom filters go up to 2**36 bits)."""
+    if not 1 <= m < (1 << 47):
+        raise ValueError(f"modulus {m} outside [1, 2**47)")
     r = shr(x, 32) % m
     r = ((r << 16) | ((x >> 16) & 0xFFFF)) % m
     return ((r << 16) | (x & 0xFFFF)) % m
@@ -95,6 +96,17 @@ def to_u32_bits(x: torch.Tensor) -> torch.Tensor:
 def from_u32_bits(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> their unsigned value as int64."""
     return x.to(torch.int64) & _MASK32
+
+
+def positions64(pos: torch.Tensor) -> torch.Tensor:
+    """Bit positions in either form -> int64 values, -1 for the sentinel.
+    The narrow form (filters below 2**32 bits) is int32 holding uint32
+    bits with 0xFFFFFFFF (-1) as the sentinel; the wide form is int64 with
+    -1, and is returned as it is."""
+    if pos.dtype == torch.int64:
+        return pos
+    p = from_u32_bits(pos)
+    return torch.where(p == _MASK32, -1, p)
 
 
 def unsigned(x: torch.Tensor) -> torch.Tensor:

@@ -105,6 +105,25 @@ counters, batches of 3072 reads x 2048 bases):
         2048 batches at 2**30 bits (the second repeating half of the
         first's reads): words and found equal the plain path, and every
         valid repeated window is found.
+  9. Bloom filters past 2**32 bits, on the wide forms of the Bloom kernels
+     (int64 positions, -1 the sentinel), at 2**32 bits (0xFFFFFFFF a real
+     position), 2**34 (the largest filter the tiled route takes, 32768
+     tiles) and 59,427,361,984 bits (write_bloom's sizing of a 3.1e9-byte
+     FASTA, a human genome, at -p 0.0001; 113,349 tiles, direct route), k=31:
+     a. the wide ntHash positions mode at h = 4 and 13 on a 2%-N 512 x 2048
+        batch, both insert routes (where the tiles allow), the partition
+        and the gather (inserted and fresh reads) against their plain
+        versions, bitwise;
+     b. their times at one h = 13 ACGT batch (13,431,808 positions): at
+        59.4 Gbit the hash, the direct insert and the gather, at 2**34 the
+        tiled insert and the partition; the insert and query steps;
+     c. the main path through api.BloomPipeline at h = 13, at 59.4 Gbit
+        and at 2**34 bits: 16 batches inserted, the same reads queried
+        (every valid window hits), 4 fresh batches queried (hit fraction in
+        the FPR band), the launch counts (the direct route at 59.4 Gbit,
+        the tiled one at 2**34, no narrow kernel), and the filter and fresh
+        hits against the plain path;
+     d. a .bf store/load round trip at 2**32 + 1000 bits.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -161,6 +180,15 @@ DMA_ROW = (64, 8)              # the copy sweep (k, rows) of the kernel record
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 GOLDEN_README = os.path.join(GOLDEN_DIR, "bf_readme.bf")
 CBF_SEQ = "ACGTACACTGGACTGAGTCT"
+# Bloom past 2**32 bits (phase 9): 2**32 (0xFFFFFFFF a real position),
+# 2**34 (the largest filter the tiled route takes) and write_bloom's sizing
+# of a 3.1e9-byte FASTA (a human genome) at its default -p 0.0001, h = 13
+GENOME_BITS = 59_427_361_984
+TILED_WIDE_BITS = 1 << 34
+WIDE_SIZES = (1 << 32, TILED_WIDE_BITS, GENOME_BITS)
+H_WIDE = 13
+BF_WIDE_SIZE = (1 << 32) + 1000
+WIDE_ROUTED = {"direct": "scatter_or_wide", "tiled": "scatter_or_tiled_wide"}
 
 
 def log(msg: str) -> None:
@@ -219,15 +247,17 @@ def unsigned(t: torch.Tensor) -> torch.Tensor:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest |a - b| over the unsigned values (hashes as uint64)."""
+    """Largest |a - b| over the unsigned values (hashes as uint64), taken
+    over the elements that differ (a filter of 59.4 Gbit is 7.4 GB)."""
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    bad = a != b
+    if not bool(bad.any()):
+        return 0
+    a, b = a[bad], b[bad]
     if a.dtype == torch.int64 and b.dtype == torch.int64:
-        bad = (a != b).nonzero()
-        if bad.numel() == 0:
-            return 0
-        av = a[a != b].cpu().numpy().view(np.uint64)
-        bv = b[a != b].cpu().numpy().view(np.uint64)
+        av = a.cpu().numpy().view(np.uint64)
+        bv = b.cpu().numpy().view(np.uint64)
         return max(abs(int(x) - int(y)) for x, y in zip(av, bv))
     return int((unsigned(a) - unsigned(b)).abs().max())
 
@@ -245,10 +275,12 @@ def bound_ms(nbytes: int) -> float:
 
 
 def distinct_words(pos: torch.Tensor, shift: int) -> int:
-    """Distinct words p >> shift of positions pos (int32 uint32 bits),
+    """Distinct words p >> shift of positions pos (narrow or wide),
     sentinels left out."""
-    p = unsigned(pos.reshape(-1))
-    return int(torch.unique(p[p != 0xFFFFFFFF] >> shift).numel())
+    from btl_bloomfilter_tpu_torch.ops import u64
+
+    p = u64.positions64(pos.reshape(-1))
+    return int(torch.unique(p[p >= 0] >> shift).numel())
 
 
 def sector_floors(floors: dict, what: str, card_line: str) -> None:
@@ -262,24 +294,28 @@ def sector_floors(floors: dict, what: str, card_line: str) -> None:
 
 
 def partition_err(what: str, got, ref, word_shift: int) -> int:
-    """The tile partition against its plain version: the offsets bitwise,
-    every grouped position inside its run's tile, and the grouped positions
-    equal as a multiset; the order inside a tile is free."""
+    """The tile partition against its plain version: the offsets bitwise;
+    each grouped entry (a position, or a wide position's low 32 bits) in
+    its run's tile; the positions, put back together from tile and low
+    bits, equal as a multiset (the order inside a tile is free)."""
     from btl_bloomfilter_tpu_torch.kernels import tile_partition
 
     err = require_equal(f"{what} offsets", got[0], ref[0])
     total = int(got[0][-1])
-    counts = (got[0][1:] - got[0][:-1]).long()
-    tiles = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=counts.device), counts)
-    require_equal(f"{what} tiles", (unsigned(got[1][:total]) >> word_shift)
-                  >> tile_partition.TILE_SHIFT, tiles)
+    span = tile_partition.TILE_SHIFT + word_shift
 
-    def canon(offsets, grouped):
-        return torch.sort(unsigned(grouped[:total])).values
+    def whole(offsets, grouped):
+        tiles = torch.repeat_interleave(
+            torch.arange(offsets.numel() - 1, device=offsets.device),
+            (offsets[1:] - offsets[:-1]).long())
+        low = unsigned(grouped[:total])
+        if not torch.equal(low >> span, tiles & ((1 << (32 - span)) - 1)):
+            raise AssertionError(f"{what}: a grouped position lies outside "
+                                 "its run's tile")
+        return torch.sort((tiles << span) | (low & ((1 << span) - 1))).values
 
-    return max(err, require_equal(f"{what} grouped", canon(*got),
-                                  canon(*ref)))
+    return max(err, require_equal(f"{what} grouped", whole(*got),
+                                  whole(*ref)))
 
 
 # the kernel each route of the two scatters launches, by record name
@@ -1497,6 +1533,276 @@ def probe_phases(dev: torch.device, card_line: str):
     return err, ms, launches, bounds, library
 
 
+def wide_phases(dev: torch.device, card_line: str):
+    """Phase 9: Bloom filters past 2**32 bits, on the wide forms of the
+    Bloom kernels (int64 positions, -1 the sentinel). Returns (err, ms,
+    launches, bounds) for the five wide kernels."""
+    from btl_bloomfilter_tpu_torch import api, kernels
+    from btl_bloomfilter_tpu_torch.io import bf_format
+    from btl_bloomfilter_tpu_torch.kernels import (_build, gather_words,
+                                                   nthash_scan, scatter_or,
+                                                   tile_partition)
+    from btl_bloomfilter_tpu_torch.models import bloom, kmer_bloom
+
+    err = dict.fromkeys(WIDE_ROUTED.values(), 0)
+    err.update(nthash_scan_wide=0, tile_partition_wide=0,
+               gather_words_wide=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    rng = np.random.default_rng(SEED + 9)
+    codes = torch.from_numpy(make_codes(rng)).to(dev)
+    fresh = torch.from_numpy(make_codes(rng)).to(dev)
+
+    # ---- 9a. each wide kernel against its plain version ----------------
+    for size in WIDE_SIZES:
+        nwords = (size + 31) // 32
+        for h in (H, H_WIDE):
+            before = nthash_scan.WIDE_KERNEL.launches
+            got = nthash_scan.positions_planes(codes, K, h, size)
+            if nthash_scan.WIDE_KERNEL.launches != before + 1:
+                raise AssertionError("nthash_scan_wide did not launch once")
+            ref = nthash_scan.positions_planes_plain(codes, K, h, size)
+            for name, a, b in zip(("positions", "strand", "valid"), got, ref):
+                err["nthash_scan_wide"] = max(
+                    err["nthash_scan_wide"],
+                    require_equal(f"[9a] size {size} h={h} {name}", a, b))
+            pos, valid = got[0], got[2]
+            if pos.dtype != torch.int64 or not torch.equal(pos[0] == -1,
+                                                           ~valid):
+                raise AssertionError("wide positions: not int64, or the "
+                                     "sentinel does not mark invalid windows")
+            del got, ref
+        start = torch.randint(-(1 << 31), 1 << 31, (nwords,),
+                              dtype=torch.int32, device=dev,
+                              generator=gen) & 0x01010101
+        ref = scatter_or.scatter_or_plain(start.clone(), pos)
+        routes = ["direct"]
+        if tile_partition.ntiles(nwords) <= tile_partition.MAX_TILES:
+            routes.append("tiled")
+            err["tile_partition_wide"] = max(
+                err["tile_partition_wide"], partition_err(
+                    f"[9a] size {size} tile_partition_wide",
+                    tile_partition.tile_partition(pos, nwords, 5),
+                    tile_partition.tile_partition_plain(pos, nwords, 5), 5))
+        for route in routes:
+            name = WIDE_ROUTED[route]
+            err[name] = max(err[name], require_equal(
+                f"[9a] size {size} {name}",
+                getattr(scatter_or, f"scatter_or_{route}")(start.clone(),
+                                                           pos), ref))
+        del start
+        # the batch inserted into ref: its valid windows hit; a fresh batch
+        fpos = nthash_scan.positions_planes(fresh, K, H_WIDE, size)[0]
+        for label, q in (("inserted", pos), ("fresh", fpos)):
+            hit = gather_words.gather_words(ref, q)
+            err["gather_words_wide"] = max(
+                err["gather_words_wide"], require_equal(
+                    f"[9a] size {size} {label} hits", hit,
+                    gather_words.gather_words_plain(ref, q)))
+            if label == "inserted" and not torch.equal(hit, valid):
+                raise AssertionError("[9a] an inserted window missed")
+        log(f"[9a] size {size} ({tile_partition.ntiles(nwords)} tiles): "
+            f"nthash_scan_wide (h = {H}, {H_WIDE}), scatter_or_wide, "
+            + ("scatter_or_tiled_wide, tile_partition_wide, "
+               if len(routes) == 2 else "")
+            + f"gather_words_wide kernel == plain (bitwise) on the 2%-N "
+            f"batch, {pos.numel()} positions; the rule's route: "
+            f"{scatter_or.route(nwords, pos.numel())}")
+        del ref, pos, fpos, hit
+        torch.cuda.empty_cache()
+
+    # ---- 9b. times at one h = 13 ACGT batch ----------------------------
+    acgt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, size=(B, L), dtype=np.uint8)).to(dev)
+    ms, bounds, floors = {}, {}, {}
+    for size in (GENOME_BITS, TILED_WIDE_BITS):
+        nwords = (size + 31) // 32
+        pos = nthash_scan.positions_planes(acgt, K, H_WIDE, size)[0]
+        words = torch.zeros(nwords, dtype=torch.int32, device=dev)
+        n_words = distinct_words(pos, 5)
+        n_sect = distinct_words(pos, 8)
+        scatter_bound = bound_ms(8 * pos.numel() + 8 * n_words)
+        label = f"{size} bits"
+        if size == GENOME_BITS:
+            ms["nthash_scan_wide"] = (
+                kernel_times(lambda: nthash_scan.positions_planes(
+                    acgt, K, H_WIDE, size)),
+                median_ms(lambda: nthash_scan.positions_planes_plain(
+                    acgt, K, H_WIDE, size)))
+            bounds["nthash_scan_wide"] = bound_ms(
+                acgt.numel() + 8 * pos.numel() + 2 * pos[0].numel())
+            ms["scatter_or_wide"] = (
+                kernel_times(lambda: scatter_or.scatter_or_direct(words, pos),
+                             setup=words.zero_),
+                median_ms(lambda: scatter_or.scatter_or_plain(words, pos),
+                          setup=words.zero_))
+            bounds["scatter_or_wide"] = scatter_bound
+            scatter_or.scatter_or(words, pos)      # every query below hits
+            ms["gather_words_wide"] = (
+                kernel_times(lambda: gather_words.gather_words(words, pos)),
+                median_ms(lambda: gather_words.gather_words_plain(words,
+                                                                  pos)))
+            bounds["gather_words_wide"] = bound_ms(
+                8 * pos.numel() + pos[0].numel() + 4 * n_words)
+            fpos = nthash_scan.positions_planes(fresh, K, H_WIDE, size)[0]
+            fresh_t = kernel_times(lambda: gather_words.gather_words(words,
+                                                                     fpos))
+            log(f"[9b] gather_words_wide on a fresh batch at {label}: "
+                f"{fresh_t:.4f} ms ({card_line})")
+            floors.update({
+                "scatter_or_wide": 8 * pos.numel() + 64 * n_sect,
+                "gather_words_wide": 8 * pos.numel() + pos[0].numel()
+                + 32 * n_sect})
+            del fpos
+        else:
+            live = int((pos >= 0).sum())
+            ms["scatter_or_tiled_wide"] = (
+                kernel_times(lambda: scatter_or.scatter_or_tiled(words, pos),
+                             setup=words.zero_),
+                median_ms(lambda: scatter_or.scatter_or_plain(words, pos),
+                          setup=words.zero_))
+            bounds["scatter_or_tiled_wide"] = scatter_bound
+            ms["tile_partition_wide"] = (
+                kernel_times(lambda: tile_partition.tile_partition(
+                    pos, nwords, 5)),
+                median_ms(lambda: tile_partition.tile_partition_plain(
+                    pos, nwords, 5)))
+            bounds["tile_partition_wide"] = bound_ms(
+                8 * pos.numel() + 4 * live
+                + 4 * (tile_partition.ntiles(nwords) + 1))
+            direct_t = kernel_times(
+                lambda: scatter_or.scatter_or_direct(words, pos),
+                setup=words.zero_)
+            log(f"[9b] scatter_or_wide (direct) at {label}: {direct_t:.4f} "
+                f"ms, beside the tiled route the rule names ({card_line})")
+            floors.update({
+                "scatter_or_tiled_wide": 8 * pos.numel() + 64 * n_sect,
+                "scatter_or_tiled_wide full sweep": 8 * pos.numel()
+                + 8 * nwords})
+        # the insert and query steps (hash + scatter, hash + gather) on
+        # device-resident codes, as phase 5 times them
+        bfw = bloom.BloomFilter(words=words, size=size, hash_num=H_WIDE,
+                                kmer_size=K)
+        for step, fn in (("insert", lambda: kmer_bloom.insert_seq(bfw, acgt)),
+                         ("query", lambda: kmer_bloom.contains_seq(bfw,
+                                                                   acgt))):
+            t = median_ms(fn)
+            log(f"[9b] {step} step at {label}, h={H_WIDE}: {t:.4f} ms per "
+                f"{B}x{L} batch, {B * W / (t / 1e3):.6e} k-mers/s "
+                f"({card_line})")
+        del words, pos, bfw
+        torch.cuda.empty_cache()
+    sector_floors(floors, "9b", card_line)
+    for name, (tk, tp) in ms.items():
+        log(f"[9b] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms ({B}x{L} ACGT, h={H_WIDE}, "
+            f"{H_WIDE * B * W} positions; {card_line})")
+
+    # ---- 9c. the main path at 59.4 Gbit (direct) and 2**34 (tiled) -------
+    rng = np.random.default_rng(SEED + 10)
+    batches = [make_codes(rng) for _ in range(N_INSERT)]
+    fresh_b = [make_codes(rng) for _ in range(N_FRESH)]
+    launches = dict.fromkeys(err, 0)
+    rates = {}
+    for size in (GENOME_BITS, TILED_WIDE_BITS):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        pipe = api.BloomPipeline(bloom.create(size, H_WIDE, K, device=dev))
+        t0 = time.perf_counter()
+        for c in batches:
+            pipe.insert_batch(c)
+        torch.cuda.synchronize()
+        t_ins = time.perf_counter() - t0
+        n_valid = 0
+        t0 = time.perf_counter()
+        for c in batches:
+            hit, valid = pipe.query_batch(c)
+            if not torch.equal(hit, valid):
+                raise AssertionError(f"[9c] size {size}: a valid window of "
+                                     "an inserted read missed")
+            n_valid += int(valid.sum())
+        t_qry = time.perf_counter() - t0
+        f_valid = f_hit = 0
+        f_hits = []
+        for c in fresh_b:
+            hit, valid = pipe.query_batch(c)
+            f_hits.append(hit)
+            f_valid += int(valid.sum())
+            f_hit += int(hit.sum())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        route = scatter_or.route((size + 31) // 32, H_WIDE * B * W)
+        log(f"[9c] size {size}: launches on the main path: "
+            + str({k: v for k, v in counts.items() if v}))
+        for name in ("nthash_scan_wide", "gather_words_wide"):
+            if counts[name] < 1:
+                raise AssertionError(f"{name} never launched on the main "
+                                     f"path at {size} bits")
+        want = {"scatter_or_wide": N_INSERT * (route == "direct"),
+                "scatter_or_tiled_wide": N_INSERT * (route == "tiled"),
+                "tile_partition_wide": N_INSERT * (route == "tiled"),
+                "nthash_scan": 0, "scatter_or": 0, "gather_words": 0}
+        wrong = {k: counts[k] for k, v in want.items() if counts[k] != v}
+        if wrong:
+            raise AssertionError(f"[9c] size {size}: launches {wrong}, the "
+                                 f"rule names the {route} route: {want}")
+        for name in launches:
+            launches[name] += counts[name]
+        bf = pipe.bf
+        bound = 3 * bloom.calc_fpr_num_inserted(bf, n_valid) + 1e-5
+        fresh_frac = f_hit / f_valid
+        kmers = N_INSERT * B * W
+        rates[size] = (kmers / t_ins, kmers / t_qry)
+        log(f"[9c] size {size}, h={H_WIDE}: the {N_INSERT} inserts took the "
+            f"{route} route; {n_valid} valid windows all hit; fresh-read "
+            f"hit fraction {fresh_frac} ({f_hit}/{f_valid}), bound {bound}; "
+            f"pop {bloom.get_pop(bf)}; insert {rates[size][0]:.6e} "
+            f"k-mers/s, query {rates[size][1]:.6e} k-mers/s (host clock, "
+            f"{N_INSERT} batches; {card_line})")
+        if not fresh_frac < bound:
+            raise AssertionError("[9c] fresh-read hit fraction outside the "
+                                 "FPR band")
+        # the plain path on the same batches: the same words, the same hits
+        words_p = torch.zeros_like(bf.words)
+        for c in batches:
+            scatter_or.scatter_or_plain(
+                words_p, nthash_scan.positions_planes_plain(
+                    torch.from_numpy(c).to(dev), K, H_WIDE, size)[0])
+        if not torch.equal(words_p, bf.words):
+            raise AssertionError(f"[9c] size {size}: kernel path != plain "
+                                 "path (words)")
+        for c, hit in zip(fresh_b, f_hits):
+            hp = gather_words.gather_words_plain(
+                words_p, nthash_scan.positions_planes_plain(
+                    torch.from_numpy(c).to(dev), K, H_WIDE, size)[0])
+            if not torch.equal(hp, hit):
+                raise AssertionError(f"[9c] size {size}: kernel path != "
+                                     "plain path (fresh hits)")
+        log(f"[9c] size {size}: words and fresh hits kernel path == plain "
+            f"path (bitwise); peak card memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del pipe, bf, words_p, f_hits, hit, valid
+        torch.cuda.empty_cache()
+
+    # ---- 9d. the .bf round trip at 2**32 + 1000 bits --------------------
+    bf = bloom.create(BF_WIDE_SIZE, H_WIDE, K, device=dev)
+    kmer_bloom.insert_seq(bf, codes)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "wide.bf")
+        bf_format.store_bloom(bf, path)
+        back = bf_format.load_bloom(path, device=dev)
+        if not (torch.equal(back.words, bf.words) and
+                (back.size, back.hash_num, back.kmer_size) ==
+                (bf.size, bf.hash_num, bf.kmer_size)):
+            raise AssertionError("[9d] .bf round trip changed the filter")
+        log(f"[9d] .bf round trip at {BF_WIDE_SIZE} bits: "
+            f"{os.path.getsize(path)} bytes, words equal")
+    del bf, back
+    torch.cuda.empty_cache()
+    return err, ms, launches, bounds
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1916,6 +2222,13 @@ def main() -> None:
     bounds.update(p_bounds)
     launches.update(p_launches)
 
+    # ---- 9. Bloom past 2**32 bits ------------------------------------------
+    w_err, w_ms, w_launches, w_bounds = wide_phases(dev, card_line)
+    err.update(w_err)
+    ms.update(w_ms)
+    bounds.update(w_bounds)
+    launches.update(w_launches)
+
     src = "btl_bloomfilter_tpu_torch/csrc/"
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
@@ -1978,6 +2291,24 @@ def main() -> None:
                      "sorts ahead of "
                      "btl_bloomfilter_tpu/kernels/scatter_ring.py:480 and "
                      "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
+        # the wide forms: Bloom filters from 2**32 bits (the JAX package's
+        # u64 branch, btl_bloomfilter_tpu/models/bloom.py:173-193)
+        {"name": "nthash_scan_wide", "route": "cuda",
+         "source": src + "nthash_scan.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/nthash_scan.py:276"},
+        {"name": "scatter_or_wide", "route": "cuda",
+         "source": src + "scatter_or.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_ring.py:480"},
+        {"name": "scatter_or_tiled_wide", "route": "cuda",
+         "source": src + "scatter_or.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_ring.py:480"},
+        {"name": "tile_partition_wide", "route": "cuda",
+         "source": src + "tile_partition.cu",
+         "replaces": "btl_bloomfilter_tpu/models/bloom.py:181: the sort "
+                     "ahead of the u64 branch's scatter"},
+        {"name": "gather_words_wide", "route": "cuda",
+         "source": src + "gather_words.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297"},
     ]}
     idle = [r["name"] for r in record["kernels"] if launches[r["name"]] < 1]
     if idle:

@@ -6,6 +6,8 @@ Inputs are made with numpy from fixed seeds and handed to both sides; all
 compared outputs are integers or bools, so the tolerance is zero.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,12 +171,29 @@ def test_sizing_math_matches_jax(entries, fpr, h):
 
 
 def test_size_rules():
+    """Sizes must be multiples of 8; from 2**32 bits positions are wide
+    (int64, sentinel -1) and the insert takes them, 0xFFFFFFFF being a real
+    position; past 2**36 bits every entry raises ValueError. The filters'
+    words are cut to two: positions past them are dropped."""
     with pytest.raises(ValueError):
         bloom.create(1001, 4, 5, device="cpu")
-    big = bloom.BloomFilter(words=torch.zeros(1, dtype=torch.int32),
+    big = bloom.BloomFilter(words=torch.zeros(2, dtype=torch.int32),
                             size=1 << 32, hash_num=1, kmer_size=5)
-    with pytest.raises(NotImplementedError):
+    bloom.insert_sentinel_positions(
+        big, torch.tensor([0, 33, -1, 0xFFFFFFFF], dtype=torch.int64))
+    assert big.words.tolist() == [1, 2]
+    with pytest.raises(TypeError):       # the narrow form is ambiguous here
         bloom.insert_sentinel_positions(big, torch.zeros(1, dtype=torch.int32))
+    too_big = (1 << 36) + 64
+    with pytest.raises(ValueError):
+        bloom.create(too_big, 4, 5, device="cpu")
+    huge = dataclasses.replace(big, size=too_big)
+    for fn in (bloom.insert_sentinel_positions,
+               bloom.contains_sentinel_positions):
+        with pytest.raises(ValueError):
+            fn(huge, torch.zeros((1, 1), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        bloom.insert(huge, torch.zeros((1, 1), dtype=torch.int64))
 
 
 jax_insert_and_check = jax.jit(jax_bloom.insert_and_check)

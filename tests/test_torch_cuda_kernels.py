@@ -251,7 +251,7 @@ def test_wrappers_refuse_mixed_devices(dev):
         scatter_or.scatter_or(words, torch.zeros(4, dtype=torch.int32))
     with pytest.raises(TypeError):
         gather_words.gather_words(words, torch.zeros(
-            (2, 4), dtype=torch.int64, device=dev))
+            (2, 4), dtype=torch.int16, device=dev))
 
 
 def random_words(n, seed):
@@ -1168,3 +1168,133 @@ def test_insert_and_check_on_cuda_matches_cpu(dev, form):
     if form == "insert_and_check_sequential":
         again = valid[20:] & valid[:20]     # both copies valid
         assert bool(out[0][1][1][20:][again].all())
+
+
+# ---------------------------------------------------------------------------
+# wide positions (int64, sentinel -1): Bloom filters from 2**32 bits
+# ---------------------------------------------------------------------------
+
+# 2**32 (0xFFFFFFFF a real position), 2**34 (the tiled route's largest
+# filter, MAX_TILES tiles) and write_bloom's sizing of a 3.1e9-byte FASTA
+# at -p 0.0001 (113,349 tiles: the direct route only)
+WIDE_SIZES = [1 << 32, 1 << 34, 59_427_361_984]
+
+
+def wide_positions(size, shape, seed):
+    """int64 positions < size + 5000 (some past the filter), whole windows
+    (axis 0 = slots) and stray slots set to -1, and positions whose low 32
+    bits are 0xFFFFFFFF, the narrow form's sentinel."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, size + 5000, size=shape, dtype=np.int64)
+    pos[:, rng.random(shape[1:]) < 0.05] = -1
+    pos[rng.random(shape) < 0.01] = -1
+    lows = np.arange(0xFFFFFFFF, size, 1 << 32)
+    pos.reshape(-1)[1:1 + 40 * lows.size] = np.repeat(lows, 40)
+    return torch.from_numpy(pos)
+
+
+@pytest.mark.parametrize("h", [4, 13])
+@pytest.mark.parametrize("size", WIDE_SIZES)
+def test_nthash_wide_matches_plain(dev, size, h):
+    """The positions mode's wide instantiation on a 2%-N batch."""
+    codes = random_codes(64, 2048, 0.02, size % 1001 + h).to(dev)
+    before = nthash_scan.WIDE_KERNEL.launches
+    got = nthash_scan.positions_planes(codes, 31, h, size)
+    assert nthash_scan.WIDE_KERNEL.launches == before + 1
+    assert got[0].dtype == torch.int64
+    for a, b in zip(got, nthash_scan.positions_planes_plain(codes, 31, h,
+                                                             size)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("size,route", [
+    (1 << 32, "direct"), (1 << 32, "tiled"), (1 << 34, "direct"),
+    (1 << 34, "tiled"), (59_427_361_984, "direct")])
+def test_scatter_or_wide_routes_match_plain(dev, size, route):
+    nwords = (size + 31) // 32
+    pos = wide_positions(size, (13, 400_000), size % 997).to(dev)
+    start = torch.randint(-(1 << 31), 1 << 31, (nwords,), dtype=torch.int32,
+                          device=dev) & 0x01010101
+    kernel = {"direct": scatter_or.WIDE_KERNEL,
+              "tiled": scatter_or.TILED_WIDE_KERNEL}[route]
+    before = kernel.launches
+    got = getattr(scatter_or, f"scatter_or_{route}")(start.clone(), pos)
+    assert kernel.launches == before + 1
+    ref = scatter_or.scatter_or_plain(start, pos)
+    assert torch.equal(got, ref)
+
+
+def test_scatter_or_wide_tiled_refuses_past_max_tiles(dev):
+    nwords = (tile_partition.MAX_TILES << tile_partition.TILE_SHIFT) + 1
+    words = torch.zeros(nwords, dtype=torch.int32, device=dev)
+    assert scatter_or.route(nwords, 1 << 26) == "direct"
+    with pytest.raises(ValueError):
+        scatter_or.scatter_or_tiled(words, torch.zeros(
+            10, dtype=torch.int64, device=dev))
+
+
+def wide_canonical(offsets, grouped, word_shift):
+    """The grouped positions put back together from their tile and low 32
+    bits, sorted within the whole: the grouping with the free order inside
+    a tile taken out."""
+    total = int(offsets[-1])
+    tiles = torch.repeat_interleave(
+        torch.arange(offsets.numel() - 1, device=offsets.device),
+        (offsets[1:] - offsets[:-1]).long())
+    span = tile_partition.TILE_SHIFT + word_shift
+    low = grouped[:total].to(torch.int64) & ((1 << span) - 1)
+    return offsets, torch.sort((tiles << span) | low).values
+
+
+@pytest.mark.parametrize("size", [(1 << 25) + 96, 1 << 32, 1 << 34])
+def test_tile_partition_wide_matches_plain(dev, size):
+    """One scatter pass (65 tiles) and two (8192 and MAX_TILES tiles), on
+    positions with a hot one and low bits equal to 0xFFFFFFFF."""
+    nwords = (size + 31) // 32
+    pos = wide_positions(size, (13, 300_000), size % 991).to(dev)
+    pos.view(-1)[100_000:150_000] = pos.view(-1)[7]
+    before = tile_partition.WIDE_KERNEL.launches
+    got = tile_partition.tile_partition(pos, nwords, 5)
+    assert tile_partition.WIDE_KERNEL.launches == before + 1
+    ref = tile_partition.tile_partition_plain(pos, nwords, 5)
+    g_off, g_pos = wide_canonical(*got, 5)
+    r_off, r_pos = wide_canonical(*ref, 5)
+    assert torch.equal(g_off, r_off) and torch.equal(g_pos, r_pos)
+
+
+@pytest.mark.parametrize("h", [4, 13])
+@pytest.mark.parametrize("size", WIDE_SIZES)
+def test_gather_words_wide_matches_plain(dev, size, h):
+    nwords = (size + 31) // 32
+    words = torch.randint(-(1 << 31), 1 << 31, (nwords,), dtype=torch.int32,
+                          device=dev)
+    words |= torch.randint_like(words, -(1 << 31), 1 << 31)
+    if h == 13:
+        words |= torch.randint_like(words, -(1 << 31), 1 << 31)
+    pos = wide_positions(size, (h, 200_000), size % 983 + h).to(dev)
+    before = gather_words.WIDE_KERNEL.launches
+    got = gather_words.gather_words(words, pos)
+    assert gather_words.WIDE_KERNEL.launches == before + 1
+    ref = gather_words.gather_words_plain(words, pos)
+    assert got.any() and torch.equal(got, ref)
+
+
+def test_kmer_bloom_wide_on_cuda_matches_cpu(dev):
+    """The k-mer wrappers at 2**32 + 1000 bits through the wide kernels."""
+    codes = random_codes(16, 700, 0.02, 15)
+    size, h, k = (1 << 32) + 1000, 13, 31
+    kernels.reset_launch_counts()
+    bf_gpu = kmer_bloom.insert_seq(bloom.create(size, h, k, device=dev),
+                                   codes)
+    bf_cpu = kmer_bloom.insert_seq(bloom.create(size, h, k, device="cpu"),
+                                   codes)
+    assert torch.equal(bf_gpu.words.cpu(), bf_cpu.words)
+    probe = torch.cat([codes[:8], random_codes(8, 700, 0.02, 16)])
+    hit_g, valid_g = kmer_bloom.contains_seq(bf_gpu, probe)
+    hit_c, valid_c = kmer_bloom.contains_seq(bf_cpu, probe)
+    assert torch.equal(hit_g.cpu(), hit_c) and torch.equal(valid_g.cpu(),
+                                                           valid_c)
+    counts = kernels.launch_counts()
+    assert counts["nthash_scan_wide"] == 2 and counts["nthash_scan"] == 0
+    assert counts["scatter_or_wide"] == 1 and counts["gather_words_wide"] == 1
+    assert counts["scatter_or"] == counts["gather_words"] == 0

@@ -165,9 +165,15 @@ def test_unsigned_helpers():
 
 
 def test_positions_reject_size_2_32():
+    """The narrow form stops below 2**32 bits: from 2**32 the positions are
+    wide (int64, the sentinel -1), and past 2**36 bits the call raises."""
+    codes = torch.zeros((2, 50), dtype=torch.uint8)
+    codes[1, 10] = 4
+    pos, _strand, valid = nthash_scan.positions_planes(codes, 31, 4, 1 << 32)
+    assert pos.dtype == torch.int64
+    assert torch.equal(pos[0] == -1, ~valid) and bool((pos >= -1).all())
     with pytest.raises(ValueError):
-        nthash_scan.positions_planes(torch.zeros((2, 50), dtype=torch.uint8),
-                                     31, 4, 1 << 32)
+        nthash_scan.positions_planes(codes, 31, 4, (1 << 36) + 8)
 
 
 def test_cuda_wrapper_rejects_other_devices():
