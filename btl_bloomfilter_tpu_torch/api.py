@@ -6,18 +6,22 @@ padded up to powers of two with the N code, so padded windows are invalid)
 and move host batches to the filter's device. ``BloomPipeline`` runs the
 build/query path of ``models/kmer_bloom.py``: on a GPU, the ntHash,
 scatter-OR and gather kernels. ``MIBFConstructPipeline`` runs the 4-phase
-MIBF build of ``models/mibf_construct.py``: on a GPU, the ntHash,
-scatter-OR and MIBF rank kernels.
+MIBF build of ``models/mibf_construct.py``: on a GPU, the ntHash (or, for a
+filter with spaced seeds, the spaced-hash), scatter-OR and MIBF rank
+kernels.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
 import numpy as np
 import torch
 
-from .kernels import nthash_scan
+from .kernels import nthash_scan, spaced_scan
 from .models import bloom, kmer_bloom, mibf_construct
-from .ops import nthash, nthash_tables
+from .ops import nthash, nthash_tables, seeds
 
 
 def bucket_length(n: int, minimum: int = 64) -> int:
@@ -34,18 +38,31 @@ def pad_codes(codes: np.ndarray, bucket: int) -> np.ndarray:
 
 
 class HashPipeline:
-    """ntHash frames (hashes [..., W, h]) of single reads or read lists,
-    padded to length buckets, hashed on ``device`` by the ntHash kernel's
-    hash mode (its plain version on the CPU)."""
+    """Frames (hashes [..., W, h]) of single reads or read lists, padded to
+    length buckets and hashed on ``device``: ntHash by the ntHash kernel's
+    hash mode, or, with ``seed_strings``, the spaced-seed stHash by the
+    spaced-hash kernel (their plain versions on the CPU). With seeds, h is
+    the total hash count, as in the reference: each seed gives m2 =
+    max(1, h // len(seeds)) hashes, so a frame holds len(seeds) * m2."""
 
-    def __init__(self, k: int, h: int, device="cuda"):
+    def __init__(self, k: int, h: int, seed_strings: Tuple[str, ...] = (),
+                 device="cuda"):
         self.k = k
         self.h = h
+        self.seed_strings = tuple(seed_strings)
         self.device = torch.device(device)
 
-    def _frames(self, codes: np.ndarray) -> nthash.NtHashFrames:
+    def _frames(self, codes: np.ndarray):
+        codes = torch.from_numpy(codes).to(self.device)
+        if self.seed_strings:
+            m2 = max(1, self.h // len(self.seed_strings))
+            planes, strand, valid = spaced_scan.spaced_frames_planes(
+                codes, self.seed_strings, m2)
+            return seeds.SpacedFrames(hashes=planes.movedim(0, -1),
+                                      strand=strand.movedim(0, -1),
+                                      valid=valid)
         planes, strand, valid = nthash_scan.hash_frames_planes(
-            torch.from_numpy(codes).to(self.device), self.k, self.h)
+            codes, self.k, self.h)
         return nthash.NtHashFrames(hashes=planes.movedim(0, -1),
                                    strand=strand, valid=valid)
 
@@ -56,8 +73,8 @@ class HashPipeline:
             return None
         bucket = bucket_length(len(codes), max(64, self.k))
         f = self._frames(pad_codes(np.asarray(codes), bucket)[None])
-        return nthash.NtHashFrames(hashes=f.hashes[0], strand=f.strand[0],
-                                   valid=f.valid[0])
+        return dataclasses.replace(f, hashes=f.hashes[0],
+                                   strand=f.strand[0], valid=f.valid[0])
 
     def frames_batch(self, codes_list):
         """Hash a list of sequences as one [R, bucket] batch padded to the
@@ -93,11 +110,9 @@ class MIBFConstructPipeline:
     place."""
 
     def __init__(self, state: mibf_construct.BitVectorState):
-        if state.sseeds:
-            raise NotImplementedError("spaced seeds are not ported yet")
         self.state = state
         self.hash = HashPipeline(state.kmer_size, state.hash_num,
-                                 device=state.bv_words.device)
+                                 state.sseeds, device=state.bv_words.device)
 
     def insert_bv_seq(self, codes: np.ndarray) -> None:
         fr = self.hash.frames(codes)

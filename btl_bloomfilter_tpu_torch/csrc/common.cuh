@@ -24,6 +24,20 @@ __device__ __forceinline__ bool btl_is_sentinel(long long p) {
 // Threads per block of every kernel here.
 #define BTL_BLOCK 256
 
+// The multi-hash derivation (nthash.hpp:537-542): hash i of a k-mer's h
+// from its canonical hash, km = k * BTL_MULTI_SEED; hash 0 is the
+// canonical hash itself. ntHash and the spaced-seed hash both derive with
+// it.
+#define BTL_MULTI_SEED 0x90B45D39FB6DA1FAULL
+#define BTL_MULTI_SHIFT 27
+
+__device__ __forceinline__ uint64_t btl_derive_hash(uint64_t canon, int i,
+                                                    uint64_t km) {
+    if (i == 0) return canon;
+    const uint64_t v = canon * ((uint64_t)i ^ km);
+    return v ^ (v >> BTL_MULTI_SHIFT);
+}
+
 // Make sure the launch lands on the card the tensors live on. The wrapper
 // makes that device current before the call (kernels/_build.py), so this
 // only reads the current device; it sets it where a caller did not.

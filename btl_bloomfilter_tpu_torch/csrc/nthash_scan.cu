@@ -43,8 +43,6 @@
 
 #include "common.cuh"
 
-#define MULTI_SEED 0x90B45D39FB6DA1FAULL
-#define MULTI_SHIFT 27
 #define CODE_N 4
 
 // The roll's XOR terms by (out, in) code pair, index out * 5 + in.
@@ -176,7 +174,7 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
     long long nw = W - p0;
     if (nw > TILE) nw = TILE;
     const long long plane = B * W;
-    const uint64_t km = (uint64_t)k * MULTI_SEED;
+    const uint64_t km = (uint64_t)k * BTL_MULTI_SEED;
     for (int w = threadIdx.x; w < nw; w += BTL_BLOCK) {
         const int t = w / R, r = w % R;
         const uint64_t canon = s_canon[r * STRIDE + t];
@@ -184,11 +182,7 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
         const bool ok = f & 2u;
         const long long idx = b * W + p0 + w;
         for (int i = 0; i < h; ++i) {
-            uint64_t v = canon;
-            if (i > 0) {
-                v = canon * ((uint64_t)i ^ km);
-                v ^= v >> MULTI_SHIFT;
-            }
+            const uint64_t v = btl_derive_hash(canon, i, km);
             if (kWide) {
                 ((long long*)out)[i * plane + idx] =
                     ok ? (long long)mod_size64(v, size, magic, shift) : -1LL;

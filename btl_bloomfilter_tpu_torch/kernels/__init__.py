@@ -19,6 +19,10 @@
   * ``mibf_rank``    - MIBF rank, hit and ID of bit positions
   * ``mibf_frame_scan`` - MIBF classification's per-read pass C, as prefix
     scans
+  * ``spaced_scan``  - spaced-seed ntHash frames (stHash: m seeds x m2
+    hashes, strand flags, valid)
+  * ``mibf_random_insert`` - MIBF random-order, strand-carrying insert
+    (MIBloomFilter::insert), frames walked in order on one thread
   * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
   * ``window_scatter`` - static-window Bloom scatter in shared memory
   * ``dma_sweep``    - chunked copy sweep
@@ -34,9 +38,9 @@ Every wrapper counts the launches of its kernel; ``launch_counts`` and
 """
 
 from . import (conservative_step, dma_sweep, gather_counters, gather_words,
-               mibf_frame_scan, mibf_rank, nthash_scan, scatter_add,
-               scatter_or, scatter_ring, tile_partition, vmem_sort,
-               window_scatter)
+               mibf_frame_scan, mibf_random_insert, mibf_rank, nthash_scan,
+               scatter_add, scatter_or, scatter_ring, spaced_scan,
+               tile_partition, vmem_sort, window_scatter)
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
@@ -62,6 +66,9 @@ KERNELS = {
     "scatter_or_tiled_wide": scatter_or.TILED_WIDE_KERNEL,
     "tile_partition_wide": tile_partition.WIDE_KERNEL,
     "gather_words_wide": gather_words.WIDE_KERNEL,
+    # the spaced-seed MIBF path
+    "spaced_scan": spaced_scan.KERNEL,
+    "mibf_random_insert": mibf_random_insert.KERNEL,
 }
 
 

@@ -33,7 +33,8 @@ SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "gather_counters.cu", "scatter_add.cu", "mibf_rank.cu",
            "mibf_frame_scan.cu", "scatter_or_sorted.cu", "block_sort.cu",
            "window_scatter.cu", "dma_sweep.cu", "conservative_step.cu",
-           "tile_partition.cu", "errors.cu")
+           "tile_partition.cu", "spaced_scan.cu", "mibf_random_insert.cu",
+           "errors.cu")
 HEADERS = ("common.cuh", "tile_partition.cuh", "tile_stream.cuh")
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it

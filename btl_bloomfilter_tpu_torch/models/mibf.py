@@ -305,3 +305,33 @@ def calc_frame_probs(m: MIBloomFilter, num_ids: int, allowed_miss: int):
             occupancy, m.hash_num, counts[i] / total if total else 0.0,
             allowed_miss)
     return probs, sat_prop
+
+
+def get_id_counts_strand(m: MIBloomFilter, num_ids: int):
+    """Histogram of stored IDs with the strand bit stripped
+    (getIDCountsStrand, MIBloomFilter.hpp:557-569): a saturated entry keeps
+    its ID bits (``s_id_mask``), any other loses only the strand bit.
+    Returns (counts int64 [num_ids], saturated count)."""
+    d = u64.unsigned(m.data)
+    sat = d > m.s_mask
+    ids = torch.where(sat, d & m.s_id_mask, d & (m.width_mask & ~m.s_strand))
+    counts = torch.bincount(ids[ids < num_ids], minlength=num_ids)
+    return counts, int(sat.sum())
+
+
+def calc_frame_probs_strand(m: MIBloomFilter, num_ids: int,
+                            allowed_miss: int):
+    """calcFrameProbsStrand (MIBloomFilter.hpp:683-707): as
+    :func:`calc_frame_probs` over :func:`get_id_counts_strand`, normalised,
+    as the reference does, by the whole count table, index 0 included."""
+    occupancy = m.d_size / m.size
+    counts, sat = get_id_counts_strand(m, num_ids)
+    counts = counts.cpu().numpy()
+    total = int(counts.sum())
+    sat_prop = float(sat) / total if total else 0.0
+    probs = [0.0] * num_ids
+    for i in range(1, num_ids):
+        probs[i] = calc_prob_single_frame(
+            occupancy, m.hash_num, counts[i] / total if total else 0.0,
+            allowed_miss)
+    return probs, sat_prop

@@ -17,6 +17,11 @@ counts as duplicated).
 Phase 1 goes through the scatter-OR kernel (``kernels/scatter_or``), the
 rank lookups of phases 3 and 4 through the MIBF rank kernel
 (``kernels/mibf_rank``) when the state lies on a GPU; the rest is torch.
+
+Beside the four phases, MIBloomFilter::insert, the single-pass,
+random-order, strand-carrying insert: ``insert_random_order``, the host
+mirror, and ``insert_random_order_device``, which walks the frames in order
+with the ``kernels/mibf_random_insert`` kernel on a GPU.
 Unlike the reference, whose functions return new arrays, every phase
 updates the bit vector, ``m.data`` and ``counts`` in place (and returns
 them).
@@ -39,10 +44,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..kernels import scatter_or
+from ..kernels import mibf_random_insert, scatter_or
 from ..kernels._build import SENTINEL
 from ..ops import u64
 from ..ops.replay import replay_depth
+from ..utils import stdcpp
 from . import mibf as mibf_mod
 from .mibf import MIBloomFilter
 
@@ -438,3 +444,118 @@ def insert_saturation(m: MIBloomFilter, counts: torch.Tensor,
     saturation_ranks_many(m.data, counts, rk, v, ids, m.d_size,
                           m.data_width, max_entangled, domain_size=m.size)
     return m, counts
+
+
+# ---------------------------------------------------------------------------
+# MIBloomFilter::insert: the single-pass random-order insert
+# ---------------------------------------------------------------------------
+
+def insert_random_order(m: MIBloomFilter, hashes, id_value: int,
+                        max_count: int, strand=None):
+    """The host mirror of MIBloomFilter::insert (MIBloomFilter.hpp:312-438):
+    frame by frame, a random-order, non-overwriting insert of ``id_value``
+    into the frame's slots, in the order minstd_rand + std::shuffle give
+    (``utils/stdcpp``), with the saturation fallback; ``strand`` bool [n,
+    h] adds the strand bit where a slot's strand differs from the insert's
+    direction. hashes: uint64 [n, h] (numpy) or int64 [n, h] (uint64 bits).
+    Walks the filter's arrays on the host and writes the IDs back into
+    ``m.data`` in place; returns (m, success bool [n] numpy). A frame that
+    places nothing and is not saturated asserts ``max_count == 1``, as the
+    reference does."""
+    mibf_mod.check_width(m.data_width)
+    if isinstance(hashes, torch.Tensor):
+        hashes = u64.to_numpy(hashes)
+    bv_words, cum, data = mibf_mod.to_numpy(m)
+    data = data.copy()
+    s_mask, s_anti = m.s_mask, m.s_anti_mask
+    if strand is not None:
+        strand = np.asarray(torch.as_tensor(strand).cpu())
+
+    def rank_of(posv):
+        word = posv >> 5
+        before = int(bv_words[word]) & ((1 << (posv & 31)) - 1)
+        return int(cum[word]) + bin(before).count("1")
+
+    results = []
+    strand_dir = bool(max_count % 2)
+    for fi, row in enumerate(np.asarray(hashes, dtype=np.uint64)):
+        count = 0
+        hash_order = []
+        saturated = True
+        rand_value = id_value
+        vals = []
+        for i, hv in enumerate(row):
+            rk = rank_of(int(hv) % m.size)
+            value = id_value
+            if strand is not None and strand_dir ^ bool(strand[fi][i]):
+                value = id_value | m.s_strand
+            vals.append((rk, value))
+            old = int(data[rk])
+            oldv = old & s_anti if old > s_mask else old
+            if old <= s_mask:
+                saturated = False
+            if oldv == value:
+                count += 1
+            else:
+                hash_order.append(i)
+            if count >= max_count:
+                results.append(True)
+                break
+            rand_value ^= int(hv)
+        else:
+            g = stdcpp.MinstdRand(rand_value)
+            inserted = False
+            for i in stdcpp.shuffle(hash_order, g):
+                rk, value = vals[i]
+                old = int(data[rk])
+                if old == 0:
+                    data[rk] = value
+                if old > s_mask:
+                    old &= s_anti
+                else:
+                    saturated = False
+                if old == 0:
+                    count += 1
+                if count >= max_count:
+                    results.append(True)
+                    inserted = True
+                    break
+            if not inserted:
+                if count == 0:
+                    if not saturated:
+                        assert max_count == 1, (
+                            "spaced seed is probably not symmetric")
+                        for rk, _ in vals:
+                            data[rk] |= s_mask
+                    results.append(False)
+                else:
+                    results.append(True)
+    m.data.copy_(torch.from_numpy(data.view(
+        mibf_mod._NP_SIGNED[m.data_width])))
+    return m, np.array(results, dtype=bool)
+
+
+def insert_random_order_device(m: MIBloomFilter, hashes: torch.Tensor,
+                               id_value: int, max_count: int, strand=None,
+                               valid=None):
+    """MIBloomFilter::insert of frames hashes int64 [..., h] on the
+    filter's device, bit for bit the host mirror
+    :func:`insert_random_order` (the strand-aware overload when ``strand``
+    bool [..., h] is given; ``valid`` bool [...] masks frames). The frames
+    are walked in order by the ``kernels/mibf_random_insert`` kernel on a
+    GPU, by its plain version on the CPU. Where the host mirror asserts,
+    this saturates. Updates ``m.data`` in place; returns (m, success bool
+    [...])."""
+    mibf_mod.check_width(m.data_width)
+    dev = m.device
+    h = hashes.shape[-1]
+    lead = hashes.shape[:-1]
+    flat = hashes.to(dev).reshape(-1, h)
+    st = None if strand is None else \
+        torch.as_tensor(strand).to(dev).reshape(-1, h)
+    v = None if valid is None else \
+        torch.as_tensor(valid).to(dev).broadcast_to(lead).reshape(-1)
+    success = mibf_random_insert.random_insert(
+        m.bv_words, m.cum_ranks, m.rank_dir, m.data, flat, m.size,
+        int(id_value), max_count, st, v)
+    return m, success.reshape(lead)

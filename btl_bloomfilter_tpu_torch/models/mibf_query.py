@@ -21,6 +21,10 @@ uint32 guard (its fallback to the dense-carry scan for large ``num_ids``
 or W >= 2**16) is not needed. The frame lookups (rank, hit, ID) go through
 the ``kernels/mibf_rank`` kernel. The candidate ranking (``summarize``)
 runs on the host on the small tables.
+
+Paired-end reads run the same engine over the two reads' frames
+interleaved on the device (``interleave_paired_frames``);
+``get_match_signature`` gives a read's per-frame match signature.
 """
 
 from __future__ import annotations
@@ -94,6 +98,71 @@ def query_device_batch(m: MIBloomFilter, hashes: torch.Tensor, valid,
     ev = None if st_mode else torch.as_tensor(valid).to(m.device)
     return query_frames_batch(m, raw, hit, usable, misses, min_count,
                               num_ids, extra_frame_limit, frame_eval=ev,
+                              st_mode=st_mode)
+
+
+def interleave_paired_frames(fr1, fr2, valid1, valid2):
+    """The paired-end frame interleave (MIBFQuerySupport.hpp:111-130), on
+    the frames' device with no host sync. The reference alternates the two
+    reads' iterators while both yield and then drains the survivor; over
+    valid-frame ordinals that is a closed form: with n1 / n2 valid frames
+    and m = min(n1, n2), slot k takes read 1 iff (k < 2m and k even) or
+    (k >= 2m and n1 >= n2), at the read's valid ordinal k // 2 (both
+    alive) or k - m (drain).
+
+    fr1 / fr2: (raw [R, W, h], hit [R, W, h], usable [R, W], misses [R,
+    W]) of each read; valid1 / valid2 bool [R, W] mark yielded frames.
+    Returns (raw, hit, usable, misses, live) with W1 + W2 slots a pair,
+    dead slots unusable; ``live`` marks slots that carry a yielded frame
+    (the nt path's evalCount bumps)."""
+    raw1, hit1, u1, mi1 = fr1
+    raw2, hit2, u2, mi2 = fr2
+    v1 = torch.as_tensor(valid1).to(raw1.device)
+    v2 = torch.as_tensor(valid2).to(raw1.device)
+    R, W1 = v1.shape
+    W2 = v2.shape[1]
+    n1 = v1.sum(dim=1, dtype=torch.int64)[:, None]
+    n2 = v2.sum(dim=1, dtype=torch.int64)[:, None]
+    mmin = torch.minimum(n1, n2)
+    k = torch.arange(W1 + W2, device=v1.device)[None, :]
+    both = k < 2 * mmin
+    from1 = torch.where(both, k % 2 == 0, n1 >= n2)
+    ordinal = torch.where(both, k // 2, k - mmin)
+    live = k < n1 + n2
+
+    def index(v, W):
+        # the j-th valid frame's index: a stable sort puts them first
+        order = torch.sort((~v).to(torch.uint8), dim=1, stable=True)[1]
+        return order.gather(1, ordinal.clamp(0, W - 1))
+
+    i1, i2 = index(v1, W1), index(v2, W2)
+
+    def pick(a1, a2):
+        if a1.dim() == 3:
+            x1 = a1.gather(1, i1[..., None].expand(-1, -1, a1.shape[2]))
+            x2 = a2.gather(1, i2[..., None].expand(-1, -1, a2.shape[2]))
+            return torch.where(from1[..., None], x1, x2)
+        return torch.where(from1, a1.gather(1, i1), a2.gather(1, i2))
+
+    usable = pick(u1, u2) & live
+    misses = torch.where(live, pick(mi1, mi2), 0).to(mi1.dtype)
+    return pick(raw1, raw2), pick(hit1, hit2), usable, misses, live
+
+
+def query_paired_device_batch(m: MIBloomFilter, hashes1: torch.Tensor,
+                              valid1, hashes2: torch.Tensor, valid2,
+                              min_count, max_miss: int, num_ids: int,
+                              extra_frame_limit: int, st_mode: bool = False):
+    """R read pairs, hashes int64 [R, W1, h] / [R, W2, h] -> the engine's
+    tables over each pair's interleaved frames: both ends' lookups, the
+    interleave and :func:`query_frames_batch`, on the filter's device."""
+    fr1 = prep_frames(m, hashes1, valid1, max_miss)
+    fr2 = prep_frames(m, hashes2, valid2, max_miss)
+    raw, hit, usable, misses, live = interleave_paired_frames(
+        fr1, fr2, valid1, valid2)
+    return query_frames_batch(m, raw, hit, usable, misses, min_count,
+                              num_ids, extra_frame_limit,
+                              frame_eval=None if st_mode else live,
                               st_mode=st_mode)
 
 
@@ -303,10 +372,33 @@ class MIBFQuerySupport:
         """Batched query: hashes int64 [R, W, h], valid bool [R, W]; one
         result list per read. ``sat_count`` and ``eval_count`` become the
         batch's totals."""
-        out = query_device_batch(
+        return self._summarize(query_device_batch(
             self.m, hashes, valid, min_count_vec, self.max_miss,
             len(self.per_frame_prob), self.extra_frame_limit,
-            st_mode=bool(self.m.sseeds))
+            st_mode=bool(self.m.sseeds)))
+
+    def query_paired(self, hashes1: torch.Tensor, valid1,
+                     hashes2: torch.Tensor, valid2,
+                     min_count_vec) -> List[QueryResult]:
+        """Paired-end query (MIBFQuerySupport.hpp:111-130): the two reads'
+        frames interleaved, then whichever read still has frames."""
+        return self.query_paired_many(
+            hashes1[None], torch.as_tensor(valid1)[None], hashes2[None],
+            torch.as_tensor(valid2)[None], min_count_vec)[0]
+
+    def query_paired_many(self, hashes1: torch.Tensor, valid1,
+                          hashes2: torch.Tensor, valid2,
+                          min_count_vec) -> List[List[QueryResult]]:
+        """Batched paired-end query: hashes int64 [R, W1, h] and [R, W2,
+        h], valid bool [R, W1] and [R, W2]; one result list per pair."""
+        return self._summarize(query_paired_device_batch(
+            self.m, hashes1, valid1, hashes2, valid2, min_count_vec,
+            self.max_miss, len(self.per_frame_prob), self.extra_frame_limit,
+            st_mode=bool(self.m.sseeds)))
+
+    def _summarize(self, out) -> List[List[QueryResult]]:
+        """The engine's tables of a batch -> one ranked result list a read
+        (or pair), on the host; the batch's sat and eval counts."""
         out = {k: v.cpu().numpy() for k, v in out.items()}
         self.sat_count = int(out["sat_count"].sum())
         self.eval_count = int(out["eval_count"].sum())
@@ -314,4 +406,23 @@ class MIBFQuerySupport:
                           out["best"][r], self.per_frame_prob,
                           self.min_count, self.extra_count,
                           self.best_hit_agree)
-                for r in range(hashes.shape[0])]
+                for r in range(out["best"].shape[0])]
+
+    def get_match_signature(self, hashes: torch.Tensor, valid):
+        """getMatchSignature (MIBFQuerySupport.hpp:158-217) of one read's
+        frames hashes int64 [W, h]: (match_pos int64 [n_match] numpy, the
+        evaluated frames' count, ids uint32 [n_match, h], sat bool [n_match,
+        h]), matches in window order. A frame matches when its misses are
+        within ``max_miss`` on a spaced-seed filter and when every slot
+        hits otherwise; a slot gives (value & s_anti_mask, saturated) where
+        it hits and (0, False) where it misses."""
+        _, hit, raw = mibf_mod.at_rank_data(self.m, hashes)
+        v = torch.as_tensor(valid).to(self.m.device)
+        misses = (~hit).sum(dim=-1)
+        match = v & (misses <= (self.max_miss if self.m.sseeds else 0))
+        ids = torch.where(hit, raw & self.m.s_anti_mask, 0)
+        sat = hit & (raw > self.m.s_mask)
+        match_pos = torch.nonzero(match).reshape(-1)
+        return (match_pos.cpu().numpy(), int(v.sum()),
+                ids[match_pos].cpu().numpy().astype(np.uint32),
+                sat[match_pos].cpu().numpy())

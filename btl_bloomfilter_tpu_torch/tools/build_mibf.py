@@ -1,10 +1,12 @@
 """Build a multi-index Bloom filter from a multi-FASTA on a GPU (or the
 CPU): each record gets an ID (1-based record order), for per-reference
 read classification. The 4-phase MIBFConstructSupport pipeline with the
-flags of the reference's ``tools/build_mibf.py``; writes the ``.mibf``, its
-``.sdsl`` sidecar and an ``.ids`` table of record names.
+flags of the reference's ``tools/build_mibf.py``; writes the ``.mibf`` (with
+the spaced seeds, if any, in its header), its ``.sdsl`` sidecar and an
+``.ids`` table of record names.
 
     python -m btl_bloomfilter_tpu_torch.tools.build_mibf -f refs.fa -k 25 -o refs.mibf
+    python -m btl_bloomfilter_tpu_torch.tools.build_mibf -f refs.fa -s 11011111,11111011 -o refs.mibf
 """
 
 from __future__ import annotations
@@ -47,18 +49,20 @@ def main(argv=None) -> None:
                     help="reference sequences (multi-FASTA; one ID each)")
     ap.add_argument("-k", dest="k", type=int, default=25)
     ap.add_argument("-g", dest="hash_num", type=int, default=4,
-                    help="hash functions per k-mer")
+                    help="hash functions per k-mer (in all, with spaced "
+                    "seeds: len(seeds) * max(1, g // len(seeds)))")
     ap.add_argument("-b", dest="occupancy", type=float, default=0.5,
                     help="target bit-vector occupancy")
     ap.add_argument("-s", dest="seeds", default="",
-                    help="comma-separated spaced seeds (not ported yet)")
+                    help="comma-separated spaced seeds (overrides -k)")
     ap.add_argument("-o", dest="out", default="filter.mibf")
     ap.add_argument("--device", default="cuda",
                     help="torch device holding the filter (default cuda)")
     args = ap.parse_args(argv)
 
-    if any(args.seeds.split(",")):
-        raise NotImplementedError("spaced seeds are not ported yet")
+    seed_strings = tuple(s for s in args.seeds.split(",") if s)
+    if seed_strings:
+        args.k = len(seed_strings[0])
     records = list(fasta.read_fasta(args.fasta))
     if not records:
         sys.exit("no FASTA records found")
@@ -68,7 +72,8 @@ def main(argv=None) -> None:
     t0 = time.time()
     st = mibf_construct.create(
         expected_entries=total_bases, k=args.k, hash_num=args.hash_num,
-        occupancy=args.occupancy, device=args.device)
+        occupancy=args.occupancy, spaced_seeds=seed_strings,
+        device=args.device)
     pipe = api.MIBFConstructPipeline(st)
     encoded = [nthash_tables.encode_seq(seq) for _, seq in records]
     for codes in encoded:

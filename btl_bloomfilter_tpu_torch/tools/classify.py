@@ -2,7 +2,10 @@
 
 Streams a FASTA of reads, runs the MIBFQuerySupport engine on batches of
 reads, and prints per read: header, best ID, best reference header, and
-the evidence counts, as the reference's ``tools/classify.py`` does.
+the evidence counts, as the reference's ``tools/classify.py`` does. A
+filter built with spaced seeds hashes the reads with its seeds and runs the
+engine's spaced-seed mode, where frames with up to ``--max-miss`` missing
+positions count.
 
     python -m btl_bloomfilter_tpu_torch.tools.classify -f reads.fa -b refs.mibf -m 2
 """
@@ -36,9 +39,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     m = mibf_format.load_mibf(args.mibf, device=args.device)
-    if m.sseeds:
-        raise NotImplementedError("filters with spaced seeds are not ported "
-                                  "yet")
     id_names = {}
     try:
         with open(args.mibf + ".ids") as f:
@@ -58,7 +58,7 @@ def main(argv=None) -> None:
         min_count=1, best_hit_agree=args.best_hit_agree)
     mc = np.full(num_ids, args.min_count, np.int32)
     k = m.kmer_size
-    hp = api.HashPipeline(k, m.hash_num, device=m.device)
+    hp = api.HashPipeline(k, m.hash_num, tuple(m.sseeds), device=m.device)
 
     def emit(header, res):
         if not res:

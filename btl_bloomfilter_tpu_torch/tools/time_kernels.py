@@ -37,6 +37,12 @@ queued``), and for a call that needs no setup the host's time to issue it
     rank + ID at the classification's, at bench.py's MIBF config and at
     chip_smoke.py 7c's size, and ``mibf.freeze`` at bench.py's config
     (``rank_calls``);
+  * ``spaced_scan``: the spaced-seed hash at bench.py's ACGT batch with
+    chip_smoke.py phase 10's two mirrored seeds of length 31, m2 = 2;
+  * ``mibf_random_insert``: MIBloomFilter::insert of 4096 random frames (h
+    = 4, random strands, max_count 1) into an empty width-2 ID array over
+    a random bit vector of chip_smoke.py 7c's 96,817,664 bits; each call
+    first copies the 97 MB array back to zeros (about 0.06 ms of a call);
   * ``dma_sweep``: each copy sweep of ``probes/partition_probe.py``, and
     ``copy_`` of the same tensor beside it;
   * ``scatter_or``: the Bloom insert at bench.py's batch (512 x 2048 ACGT
@@ -274,6 +280,48 @@ def rank_calls(dev) -> dict:
     return out
 
 
+SPACED_SEEDS = ("1101111011111011111111011111111",
+                "1111111101111111101111101111011")
+
+
+def spaced_calls(dev) -> dict:
+    try:
+        from btl_bloomfilter_tpu_torch.kernels import spaced_scan
+    except ImportError:
+        return {"spaced_scan": "not in this tree"}
+    codes = acgt_codes(dev, 512)
+    return {"spaced_scan acgt": lambda: spaced_scan.spaced_frames_planes(
+        codes, SPACED_SEEDS, 2)}
+
+
+def random_insert_calls(dev) -> dict:
+    try:
+        from btl_bloomfilter_tpu_torch.kernels import mibf_random_insert
+    except ImportError:
+        return {"mibf_random_insert": "not in this tree"}
+    from btl_bloomfilter_tpu_torch.models import mibf
+    from btl_bloomfilter_tpu_torch.ops import u64
+
+    size = 96817664
+    rng = np.random.default_rng(11)
+    words = torch.from_numpy(rng.integers(
+        0, 1 << 32, size=size // 32, dtype=np.uint64).astype(np.uint32)
+        .view(np.int32)).to(dev)
+    m = mibf.freeze(words, size, 4, 31, 2)
+    hashes = u64.from_numpy(rng.integers(0, 1 << 64, size=(4096, 4),
+                                         dtype=np.uint64)).to(dev)
+    strand = torch.from_numpy(rng.random((4096, 4)) < 0.5).to(dev)
+    zero = torch.zeros_like(m.data)
+
+    def call():
+        m.data.copy_(zero)
+        return mibf_random_insert.random_insert(
+            m.bv_words, m.cum_ranks, m.rank_dir, m.data, hashes, size, 7, 1,
+            strand)
+
+    return {"mibf_random_insert 4096 frames": call}
+
+
 def sweep_calls(dev) -> dict:
     from btl_bloomfilter_tpu_torch.probes import partition_probe
 
@@ -493,6 +541,8 @@ CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
          "gather_words": gather_calls, "bloom_steps": bloom_step_calls,
          "counting_steps": counting_step_calls,
          "mibf_frame_scan": frame_scan_calls, "mibf_rank": rank_calls,
+         "spaced_scan": spaced_calls,
+         "mibf_random_insert": random_insert_calls,
          "dma_sweep": sweep_calls, "scatter_or": scatter_or_calls,
          "scatter_add": scatter_add_calls, "tile_partition": partition_calls,
          "sorted_scatter": sorted_scatter_calls,

@@ -123,7 +123,32 @@ counters, batches of 3072 reads x 2048 bases):
         the FPR band), the launch counts (the direct route at 59.4 Gbit,
         the tiled one at 2**34, no narrow kernel), and the filter and fresh
         hits against the plain path;
-     d. a .bf store/load round trip at 2**32 + 1000 bits.
+     d. a .bf store/load round trip at 2**32 + 1000 bits;
+ 10. the spaced-seed MIBF, two seeds of length 31 (one the mirror of the
+     other, four '0' columns each), m2 = 2 (h = 4):
+     a. spaced_scan against its plain version, bitwise, on a 2%-N 512 x
+        2048 batch with 1, 2 and 4 seeds and m2 = 1-3, at k = 1 and 129,
+        on reads shorter than k (padded with N) and an unaligned view; a
+        batch shorter than k raises;
+     b. the main path at 7c's size (64 x 262,144 bases, occupancy 0.5,
+        width-2 IDs): the seeded build through api.MIBFConstructPipeline,
+        256 reads x 2048 bases through query_many and 128 pairs of 2 x 1024
+        bases (mate 2 the reverse complement of the fragment's other end)
+        through query_paired_many, with 1% point mutations and max_miss 1,
+        then MIBloomFilter::insert (insert_random_order_device) of
+        reference 1's first 2**16 frames with their strands into an empty
+        ID array over the same bit vector: the correct fractions (>= 0.95
+        for reads and pairs), the launch counts (spaced_scan, the direct
+        scatter_or, mibf_rank, mibf_frame_scan, mibf_random_insert, no
+        nthash_scan), and the whole path against the plain path;
+     c. mibf_random_insert against the host mirror insert_random_order on
+        2**16 frames of that filter (a quarter duplicates) at widths 1, 2
+        and 4: max_count 1 with and without strand over pre-set and
+        saturated IDs, max_count 2 without strand and with strand (frames
+        with no cross-frame position collision, the inputs the reference
+        defines) from empty IDs; at width 2 also against its plain version;
+     d. the seeded build's k-mers/s and the classification's reads/s (a
+        warm run of b), the two kernels' times.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -189,6 +214,16 @@ WIDE_SIZES = (1 << 32, TILED_WIDE_BITS, GENOME_BITS)
 H_WIDE = 13
 BF_WIDE_SIZE = (1 << 32) + 1000
 WIDE_ROUTED = {"direct": "scatter_or_wide", "tiled": "scatter_or_tiled_wide"}
+# the spaced-seed MIBF (phase 10): two seeds of length 31, one the mirror of
+# the other, each with four '0' columns; m2 = 2, so h = 4 (bench.py's h)
+SPACED_SEEDS = ("1101111011111011111111011111111",
+                "1111111101111111101111101111011")
+S_M2 = 2
+S_MUT = 0.01                 # point mutations a base of the classified reads
+S_PAIRS, S_MATE_L, S_GAP = 128, 1024, 300   # read pairs, mate length, gap
+S_MAX_MISS = 1
+RI_FRAMES = 1 << 16          # frames of MIBloomFilter::insert
+RI_ID = 7
 
 
 def log(msg: str) -> None:
@@ -859,20 +894,25 @@ def counting_phases(dev: torch.device, card_line: str):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the kernel wrappers of the MIBF path and of the Bloom
-    insert_and_check pair to their plain versions (on the card too): the
-    path every kernel is held against."""
+    """Route the kernel wrappers of the MIBF paths (plain k-mers and spaced
+    seeds) and of the Bloom insert_and_check pair to their plain versions
+    (on the card too): the path every kernel is held against."""
     from btl_bloomfilter_tpu_torch.kernels import (gather_words,
                                                    mibf_frame_scan,
+                                                   mibf_random_insert,
                                                    mibf_rank, nthash_scan,
-                                                   scatter_or)
+                                                   scatter_or, spaced_scan)
     swaps = [(nthash_scan, "hash_frames_planes",
               nthash_scan.hash_frames_planes_plain),
              (scatter_or, "scatter_or", scatter_or.scatter_or_plain),
              (gather_words, "gather_words", gather_words.gather_words_plain),
              (mibf_rank, "rank_lookup", mibf_rank.rank_lookup_plain),
              (mibf_frame_scan, "frame_scan",
-              mibf_frame_scan.frame_scan_plain)]
+              mibf_frame_scan.frame_scan_plain),
+             (spaced_scan, "spaced_frames_planes",
+              spaced_scan.spaced_frames_planes_plain),
+             (mibf_random_insert, "random_insert",
+              mibf_random_insert.random_insert_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1803,6 +1843,311 @@ def wide_phases(dev: torch.device, card_line: str):
     return err, ms, launches, bounds
 
 
+def mutate(codes: np.ndarray, rng) -> np.ndarray:
+    """Point mutations: each base, with probability S_MUT, another base."""
+    hit = rng.random(codes.shape) < S_MUT
+    return np.where(hit, (codes + rng.integers(1, 4, size=codes.shape)) % 4,
+                    codes).astype(np.uint8)
+
+
+def seeded_phases(dev: torch.device, card_line: str):
+    """Phase 10: the spaced-seed MIBF path on the card. Returns (err, ms,
+    launches, bounds) for spaced_scan and mibf_random_insert, and the
+    launch counts of the phase's main path."""
+    from btl_bloomfilter_tpu_torch import api, kernels
+    from btl_bloomfilter_tpu_torch.kernels import mibf_random_insert as ri
+    from btl_bloomfilter_tpu_torch.kernels import (mibf_rank, scatter_or,
+                                                   spaced_scan)
+    from btl_bloomfilter_tpu_torch.models import (mibf, mibf_construct,
+                                                  mibf_query)
+    from btl_bloomfilter_tpu_torch.ops import u64
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+    from btl_bloomfilter_tpu_torch.tools.timing import KernelTimes
+
+    def results(res):
+        return [[dataclasses.astuple(r) for r in rs] for rs in res]
+
+    err = {"spaced_scan": 0, "mibf_random_insert": 0}
+    rng = np.random.default_rng(SEED + 10)
+    codes = torch.from_numpy(make_codes(rng)).to(dev)
+
+    # ---- 10a. spaced_scan against its plain version ---------------------
+    four = SPACED_SEEDS + ("1011101111101111101111111101111",
+                           "1111011111111011111011111011101")
+    short = codes[:64].clone()
+    short[::2, 20:] = 4              # reads shorter than k, padded with N
+    unaligned = torch.cat([codes.new_zeros(1),
+                           codes[:64].reshape(-1)])[1:].view(64, L)
+    k129 = "".join("0" if i % 3 == 1 else "1" for i in range(129))
+    cases = [("k=31, 1 seed, m2=1", codes, SPACED_SEEDS[:1], 1),
+             ("k=31, 2 seeds, m2=2", codes, SPACED_SEEDS, 2),
+             ("k=31, 4 seeds, m2=3", codes, four, 3),
+             ("k=1, 1 seed, m2=2", codes[:64], ("1",), 2),
+             ("k=129, 2 seeds, m2=2", codes[:64], (k129, k129[::-1]), 2),
+             ("short reads", short, SPACED_SEEDS, 2),
+             ("unaligned view", unaligned, SPACED_SEEDS, 2)]
+    for what, c, seeds_, m2 in cases:
+        before = spaced_scan.KERNEL.launches
+        got = spaced_scan.spaced_frames_planes(c, seeds_, m2)
+        if spaced_scan.KERNEL.launches != before + 1:
+            raise AssertionError("spaced_scan did not launch once")
+        for name, a, b in zip(("hashes", "strand", "valid"), got,
+                              spaced_scan.spaced_frames_planes_plain(
+                                  c, seeds_, m2)):
+            err["spaced_scan"] = max(err["spaced_scan"], require_equal(
+                f"[10a] spaced_scan {what} {name}", a, b))
+    if bool(spaced_scan.spaced_frames_planes(short, SPACED_SEEDS,
+                                             S_M2)[2][::2].any()):
+        raise AssertionError("[10a] a read shorter than k has a valid "
+                             "window")
+    try:
+        spaced_scan.spaced_frames_planes(codes[:, :20], SPACED_SEEDS, S_M2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("[10a] reads shorter than k did not raise")
+    log(f"[10a] spaced_scan ({', '.join(c[0] for c in cases)}; 2%-N "
+        f"{B}x{L} batch) kernel == plain (bitwise); a batch shorter than k "
+        "raises ValueError")
+
+    # ---- 10b. the main path at the size users build ---------------------
+    refs = rng.integers(0, 4, size=(U_REFS, U_REF_L), dtype=np.uint8)
+    M_R, M_L = mb.R, mb.L
+    reads, srcs = mb.reads_from(refs, M_R, M_L, rng)
+    reads = mutate(reads, rng)
+    p_srcs = rng.integers(0, U_REFS, size=S_PAIRS)
+    p_starts = rng.integers(0, U_REF_L - 2 * S_MATE_L - S_GAP, size=S_PAIRS)
+    mates1 = mutate(np.stack([refs[s_, o: o + S_MATE_L]
+                              for s_, o in zip(p_srcs, p_starts)]), rng)
+    # mate 2: the reverse complement of the fragment's other end
+    o2 = p_starts + S_MATE_L + S_GAP
+    mates2 = mutate(np.stack([(3 - refs[s_, o: o + S_MATE_L])[::-1]
+                              for s_, o in zip(p_srcs, o2)]), rng)
+    pfp = [0.0] + [0.1] * U_REFS
+    mc = np.full(U_REFS + 1, 2, np.int32)
+
+    def main_path():
+        """Build through api.MIBFConstructPipeline with the seeds, classify
+        the reads (query_many) and the pairs (query_paired_many) with
+        max_miss 1, then MIBloomFilter::insert of reference 1's first
+        RI_FRAMES frames with their strands into an empty ID array over
+        the same bit vector."""
+        t0 = time.perf_counter()
+        pipe = api.MIBFConstructPipeline(mibf_construct.create(
+            U_REFS * U_REF_L, K, H, occupancy=0.5,
+            spaced_seeds=SPACED_SEEDS, device=dev))
+        for c in refs:
+            pipe.insert_bv_seq(c)
+        pipe.freeze(2)
+        pipe.insert_mibf_batch(list(refs), range(1, U_REFS + 1))
+        pipe.insert_saturation_batch(list(refs), range(1, U_REFS + 1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        qs = mibf_query.MIBFQuerySupport(
+            m=pipe.m, per_frame_prob=pfp, extra_count=2.0,
+            extra_frame_limit=10**6, max_miss=S_MAX_MISS, min_count=1,
+            best_hit_agree=False)
+        fr = pipe.hash.frames_batch(list(reads))
+        res = qs.query_many(fr.hashes, fr.valid, mc)
+        counts1 = (qs.sat_count, qs.eval_count)
+        t2 = time.perf_counter()
+        f1 = pipe.hash.frames_batch(list(mates1))
+        f2 = pipe.hash.frames_batch(list(mates2))
+        res_p = qs.query_paired_many(f1.hashes, f1.valid, f2.hashes,
+                                     f2.valid, mc)
+        counts2 = (qs.sat_count, qs.eval_count)
+        t3 = time.perf_counter()
+        m_ri = mibf.freeze(pipe.m.bv_words, pipe.m.size, H, K, 2,
+                           SPACED_SEEDS)
+        f0 = pipe.hash.frames(refs[0])
+        _, ok = mibf_construct.insert_random_order_device(
+            m_ri, f0.hashes[:RI_FRAMES], 1, 1,
+            strand=f0.strand[:RI_FRAMES], valid=f0.valid[:RI_FRAMES])
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        return (pipe, results(res), results(res_p), counts1 + counts2, m_ri,
+                ok, (t1 - t0, t2 - t1, t3 - t2, t4 - t3))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    pipe, res, res_p, counts, m_ri, ok, times = main_path()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    m = pipe.m
+    log(f"[10b] launches on the spaced-seed MIBF main path: {launches}")
+    for name in ("spaced_scan", "scatter_or", "mibf_rank", "mibf_frame_scan",
+                 "mibf_random_insert"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the spaced-seed "
+                                 f"MIBF main path: {launches}")
+    if launches["nthash_scan"]:
+        raise AssertionError("the spaced-seed path launched nthash_scan")
+    require_routes("[10b] phase 1", launches, "scatter_or",
+                   [scatter_or.route(m.bv_words.numel(),
+                                     (U_REF_L - K + 1) * H)] * U_REFS)
+    correct = sum(1 for r, s_ in zip(res, srcs) if r and r[0][0] == s_ + 1)
+    correct_p = sum(1 for r, s_ in zip(res_p, p_srcs)
+                    if r and r[0][0] == s_ + 1)
+    log(f"[10b] {U_REFS} x {U_REF_L} bases, seeds {SPACED_SEEDS}, m2 "
+        f"{S_M2}: bit vector {m.size} bits, d_size {m.d_size} (occupancy "
+        f"{m.d_size / m.size:.4f}), {mibf.get_pop_saturated(m)} saturated; "
+        f"{M_R} reads x {M_L} and {S_PAIRS} pairs x 2 x {S_MATE_L} ({S_MUT} "
+        f"point mutations a base, max_miss {S_MAX_MISS}): correct fraction "
+        f"{correct / M_R} reads, {correct_p / S_PAIRS} pairs (sat / eval "
+        f"counts {counts}); MIBloomFilter::insert of {RI_FRAMES} frames: "
+        f"{int(ok.sum())} placed, {int((m_ri.data != 0).sum())} entries "
+        f"set; first calls: build {times[0]:.3f} s, reads {times[1]:.3f} s, "
+        f"pairs {times[2]:.3f} s, insert {times[3]:.3f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if correct / M_R < 0.95 or correct_p / S_PAIRS < 0.95:
+        raise AssertionError("fewer than 95% of the reads or pairs classify "
+                             "to their source")
+    # the whole main path again with every kernel swapped for its plain
+    # version: the same filter, result lists and inserted IDs
+    with plain_kernels():
+        pipe_p, res_pp, res_pp2, counts_p, m_ri_p, ok_p, _ = main_path()
+    for what, a, b in (("bit vector", m.bv_words, pipe_p.m.bv_words),
+                       ("cum_ranks", m.cum_ranks, pipe_p.m.cum_ranks),
+                       ("ID plane", m.data, pipe_p.m.data),
+                       ("counts", pipe.counts, pipe_p.counts),
+                       ("insert IDs", m_ri.data, m_ri_p.data),
+                       ("insert success", ok, ok_p)):
+        require_equal(f"[10b] {what}", a, b)
+    if (res, res_p, counts) != (res_pp, res_pp2, counts_p):
+        raise AssertionError("[10b] classification: kernel path != plain "
+                             "path")
+    log(f"[10b] build (bit vector, cum_ranks, IDs, counts), {M_R} read and "
+        f"{S_PAIRS} pair result lists and the inserted IDs: kernel path == "
+        "plain path")
+    del pipe_p, m_ri_p
+    torch.cuda.empty_cache()
+
+    # ---- 10c. mibf_random_insert against the host mirror ----------------
+    f1 = pipe.hash.frames(refs[1])
+    distinct = 3 * RI_FRAMES // 4
+    hs, st = f1.hashes[:distinct], f1.strand[:distinct]
+    pos = u64.mod_const(hs, m.size)
+    _, inv, cnt = torch.unique(pos, return_inverse=True, return_counts=True)
+    # frames none of whose positions another frame (or slot) shares: the
+    # inputs on which the reference defines max_count > 1 with strand
+    free = torch.nonzero((cnt[inv] == 1).all(-1)).reshape(-1)
+
+    def with_dups(idx):
+        idx = torch.cat([idx, idx[torch.from_numpy(rng.integers(
+            0, idx.numel(), size=RI_FRAMES - idx.numel())).to(dev)]])
+        idx = idx[torch.from_numpy(rng.permutation(RI_FRAMES)).to(dev)]
+        return hs[idx].contiguous(), st[idx].contiguous()
+
+    sets = {"all": with_dups(torch.arange(distinct, device=dev)),
+            "collision-free": with_dups(free)}
+    ri_cases = [(1, False, "all", True), (1, True, "all", True),
+                (2, False, "all", False), (2, True, "collision-free", False)]
+    for width in M_WIDTHS:
+        mw = mibf.freeze(m.bv_words, m.size, H, K, width, SPACED_SEEDS)
+        if width == 2:
+            preset = m.data.clone()
+        else:
+            d = np.zeros(mw.d_size, np.int64)
+            d[rng.integers(0, mw.d_size, size=mw.d_size // 3)] = 5
+            d[rng.integers(0, mw.d_size, size=mw.d_size // 7)] = \
+                mw.s_mask | 5
+            preset = mibf.to_storage(torch.from_numpy(d), width).to(dev)
+        for maxc, use_strand, which, pre in ri_cases:
+            hashes, strand = sets[which]
+            strand = strand if use_strand else None
+            start = preset if pre else torch.zeros_like(preset)
+            a = start.clone()
+            ok_k = ri.random_insert(mw.bv_words, mw.cum_ranks, mw.rank_dir,
+                                    a, hashes, m.size, RI_ID, maxc, strand)
+            host = dataclasses.replace(mw, data=start.cpu().clone())
+            _, ok_h = mibf_construct.insert_random_order(
+                host, hashes.cpu(), RI_ID, maxc,
+                None if strand is None else strand.cpu())
+            what = (f"[10c] width {width} max_count {maxc} strand "
+                    f"{use_strand} {which}")
+            err["mibf_random_insert"] = max(
+                err["mibf_random_insert"],
+                require_equal(f"{what} IDs", a.cpu(), host.data),
+                require_equal(f"{what} success", ok_k.cpu(),
+                              torch.from_numpy(ok_h)))
+            if width == 2:
+                b = start.clone()
+                ok_p = ri.random_insert_plain(
+                    mw.bv_words, mw.cum_ranks, mw.rank_dir, b, hashes,
+                    m.size, RI_ID, maxc, strand)
+                require_equal(f"{what} IDs (plain)", a, b)
+                require_equal(f"{what} success (plain)", ok_k, ok_p)
+        del mw, preset
+    log(f"[10c] mibf_random_insert on {RI_FRAMES} frames of that filter "
+        f"({distinct} distinct, the rest duplicates; {free.numel()} "
+        f"collision-free) at widths {M_WIDTHS}: max_count 1 with and "
+        "without strand over pre-set and saturated entries, max_count 2 "
+        "without strand and with strand (collision-free frames) from empty "
+        "IDs, kernel == host mirror insert_random_order (bitwise; at width "
+        "2 also == plain)")
+
+    # ---- 10d. times -----------------------------------------------------
+    # the seeded path's rates from a second, warm run of the main path
+    _, _, _, _, _, _, times = main_path()
+    total_kmers = U_REFS * (U_REF_L - K + 1)
+    log(f"[10d] warm main path: build {times[0]:.4f} s "
+        f"({total_kmers / times[0]:.6e} k-mers/s), {M_R} reads "
+        f"{times[1]:.4f} s ({M_R / times[1]:.2f} reads/s), {S_PAIRS} pairs "
+        f"{times[2]:.4f} s ({S_PAIRS / times[2]:.2f} pairs/s), "
+        f"MIBloomFilter::insert of {RI_FRAMES} frames {times[3]:.4f} s "
+        f"(host clock, hashing included; {card_line})")
+    hashes, strand = sets["all"]
+    data = m.data.clone()
+
+    def restore():
+        data.copy_(m.data)
+
+    def run(fn):
+        return lambda: fn(m.bv_words, m.cum_ranks, m.rank_dir, data, hashes,
+                          m.size, RI_ID, 1, strand)
+
+    ms = {
+        "spaced_scan": (
+            kernel_times(lambda: spaced_scan.spaced_frames_planes(
+                codes, SPACED_SEEDS, S_M2)),
+            median_ms(lambda: spaced_scan.spaced_frames_planes_plain(
+                codes, SPACED_SEEDS, S_M2), 3, 1)),
+        "mibf_random_insert": (
+            KernelTimes(median_ms(run(ri.random_insert), 3, 1, setup=restore),
+                        median_ms(run(ri.random_insert), 3, 1, queued=True,
+                                  setup=restore)),
+            median_ms(run(ri.random_insert_plain), 1, 1, setup=restore)),
+    }
+    W_ = L - K + 1
+    h_s = len(SPACED_SEEDS) * S_M2
+    rk = mibf_rank.rank_lookup(m.bv_words, m.cum_ranks, m.rank_dir,
+                               u64.to_u32_bits(u64.mod_const(hashes,
+                                                             m.size)))[0]
+    blocks = (u64.from_u32_bits(u64.to_u32_bits(u64.mod_const(
+        hashes, m.size))) >> 5) // mibf_rank.BLOCK_WORDS
+    bounds = {
+        # codes in; hashes, strand flags and valid out
+        "spaced_scan": bound_ms(B * L + B * W_ * (9 * h_s + 1)),
+        # hashes and strand flags in, success out; each distinct ID entry
+        # read and written, each distinct rank-directory block read
+        "mibf_random_insert": bound_ms(
+            hashes.numel() * 9 + RI_FRAMES
+            + 2 * 2 * int(torch.unique(rk).numel())
+            + 32 * int(torch.unique(blocks).numel())),
+    }
+    for name, (tk, tp) in ms.items():
+        log(f"[10d] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms ({card_line})")
+    log(f"[10d] shapes: spaced_scan on the 2%-N {B}x{L} batch, k={K}, "
+        f"{len(SPACED_SEEDS)} seeds, m2 {S_M2}; mibf_random_insert on "
+        f"{RI_FRAMES} frames, width 2, max_count 1 with strand, from the "
+        "built IDs")
+    del pipe, m, m_ri, data, sets, f1
+    torch.cuda.empty_cache()
+    return err, ms, launches, bounds
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2229,6 +2574,18 @@ def main() -> None:
     bounds.update(w_bounds)
     launches.update(w_launches)
 
+    # ---- 10. the spaced-seed MIBF ------------------------------------------
+    s_err, s_ms, s_launches, s_bounds = seeded_phases(dev, card_line)
+    err.update(s_err)
+    ms.update(s_ms)
+    bounds.update(s_bounds)
+    for name in s_err:
+        launches[name] = s_launches[name]
+    # phase 10's main path runs the MIBF kernels a third time
+    for name in ("scatter_or", "scatter_or_tiled", "tile_partition",
+                 "mibf_rank", "mibf_frame_scan"):
+        launches[name] += s_launches[name]
+
     src = "btl_bloomfilter_tpu_torch/csrc/"
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
@@ -2309,6 +2666,15 @@ def main() -> None:
         {"name": "gather_words_wide", "route": "cuda",
          "source": src + "gather_words.cu",
          "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297"},
+        # the spaced-seed MIBF path: no Pallas twins
+        {"name": "spaced_scan", "route": "cuda",
+         "source": src + "spaced_scan.cu",
+         "replaces": "btl_bloomfilter_tpu/ops/seeds.py:74 "
+                     "(spaced_hash_frames, XLA under jax.jit)"},
+        {"name": "mibf_random_insert", "route": "cuda",
+         "source": src + "mibf_random_insert.cu",
+         "replaces": "btl_bloomfilter_tpu/models/mibf_construct.py:1213 "
+                     "(lax.scan of insert_random_order_device)"},
     ]}
     idle = [r["name"] for r in record["kernels"] if launches[r["name"]] < 1]
     if idle:

@@ -11,6 +11,7 @@ All outputs are integers or bools: the tolerance is zero.
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1298,3 +1299,132 @@ def test_kmer_bloom_wide_on_cuda_matches_cpu(dev):
     assert counts["nthash_scan_wide"] == 2 and counts["nthash_scan"] == 0
     assert counts["scatter_or_wide"] == 1 and counts["gather_words_wide"] == 1
     assert counts["scatter_or"] == counts["gather_words"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the spaced-seed MIBF path: spaced_scan and mibf_random_insert
+# ---------------------------------------------------------------------------
+
+def seeds_of(k, m, seed):
+    """m seeds of length k with about a fifth of their columns '0'."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(m):
+        s = np.array(list("1" * k))
+        if k > 1:
+            s[rng.choice(k, size=max(1, k // 5), replace=False)] = "0"
+        out.append("".join(s))
+    return out
+
+
+SPACED = [  # B, L, k, seeds, m2, nfrac
+    (2, 40, 1, 1, 2, 0.05),
+    (3, 300, 9, 2, 3, 0.1),
+    (4, 31, 31, 2, 2, 0.0),             # one window a read
+    (5, 2048, 31, 4, 3, 0.02),
+    (3, 700, 129, 1, 1, 0.002),
+    (2, 800, 700, 2, 2, 0.0002),        # tables past 48 KB of shared memory
+    (2, 3100, 3000, 1, 2, 0.0),         # tables read from global memory
+]
+
+
+@pytest.mark.parametrize("B,L,k,m,m2,nfrac", SPACED)
+def test_spaced_scan_kernel_matches_plain(dev, B, L, k, m, m2, nfrac):
+    from btl_bloomfilter_tpu_torch.kernels import spaced_scan
+    seed_strings = seeds_of(k, m, k + m)
+    codes = random_codes(B, L, nfrac, B * L + k)
+    codes[0, L // 2:] = 4                 # a read padded with N
+    for what, c in (("aligned", codes.to(dev)),
+                    ("unaligned", torch.cat([codes.new_zeros(1).to(dev),
+                                             codes.reshape(-1).to(dev)])
+                     [1:].view(B, L))):
+        before = spaced_scan.KERNEL.launches
+        got = spaced_scan.spaced_frames_planes(c, seed_strings, m2)
+        assert spaced_scan.KERNEL.launches == before + 1
+        ref = spaced_scan.spaced_frames_planes_plain(c, seed_strings, m2)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape, what
+            assert torch.equal(a, b), what
+
+
+def test_spaced_scan_refuses_short_reads_and_unequal_seeds(dev):
+    from btl_bloomfilter_tpu_torch.kernels import spaced_scan
+    codes = random_codes(2, 8, 0.0, 1).to(dev)
+    before = spaced_scan.KERNEL.launches
+    with pytest.raises(ValueError):
+        spaced_scan.spaced_frames_planes(codes, ["110110111"], 1)
+    with pytest.raises(ValueError):
+        spaced_scan.spaced_frames_planes(codes, ["1101", "11011"], 1)
+    assert spaced_scan.KERNEL.launches == before
+
+
+RANDOM_CASES = [  # max_count, strand, duplicate frames, h, size
+    (1, False, False, 4, 4096),
+    (1, True, False, 3, 4096),
+    (2, False, True, 4, 4096),
+    (3, False, True, 5, 4096),
+    (2, True, True, 4, 1 << 20),
+    (1, True, True, 1, 1 << 16),        # one slot a frame
+    (1, False, False, 300, 1 << 22),    # many slots a frame
+]
+
+
+def random_filter(maxc, use_strand, dup, h, size, width, dev):
+    """A filter whose bit vector holds the frames' positions, pre-set and
+    pre-saturated entries at max_count 1, and the frames."""
+    from btl_bloomfilter_tpu_torch.models import mibf, mibf_construct
+    rng = np.random.default_rng(maxc * 100 + h + width)
+    n = 2000 if h < 300 else 200
+    hashes = rng.integers(0, 1 << 64, size=(n, h), dtype=np.uint64)
+    strand = rng.random(hashes.shape) < 0.5 if use_strand else None
+    if dup:
+        idx = rng.integers(0, n, size=2 * n)
+        hashes = hashes[idx]
+        strand = None if strand is None else strand[idx]
+    hashes = u64.from_numpy(hashes).to(dev)
+    st = mibf_construct.BitVectorState(
+        bv_words=torch.zeros(size // 32, dtype=torch.int32, device=dev),
+        filter_size=size, kmer_size=5, hash_num=h, occupancy=0.5, sseeds=())
+    mibf_construct.insert_bv(st, hashes)
+    m, _ = mibf_construct.get_empty_mibf(st, width)
+    if maxc == 1:
+        d = m.data.cpu().numpy()
+        d[rng.integers(0, len(d), size=len(d) // 3)] = 5
+        d[rng.integers(0, len(d), size=len(d) // 7)] = (m.s_mask | 5) - (
+            (1 << 8 * width) if width > 1 else 0)
+        m.data.copy_(torch.from_numpy(d))
+    valid = torch.from_numpy(rng.random(hashes.shape[0]) < 0.9).to(dev)
+    return m, hashes, None if strand is None else \
+        torch.from_numpy(strand).to(dev), valid
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("maxc,use_strand,dup,h,size", RANDOM_CASES)
+def test_mibf_random_insert_kernel_matches_plain(dev, maxc, use_strand, dup,
+                                                 h, size, width):
+    from btl_bloomfilter_tpu_torch.kernels import mibf_random_insert as ri
+    from btl_bloomfilter_tpu_torch.models import mibf_construct
+    m, hashes, strand, valid = random_filter(maxc, use_strand, dup, h, size,
+                                             width, dev)
+    for v in (None, valid):
+        args = (m.bv_words, m.cum_ranks, m.rank_dir)
+        a, b = m.data.clone(), m.data.clone()
+        before = ri.KERNEL.launches
+        got = ri.random_insert(*args, a, hashes, size, 0x1234567, maxc,
+                               strand, v)
+        assert ri.KERNEL.launches == before + 1
+        ref = ri.random_insert_plain(*args, b, hashes, size, 0x1234567, maxc,
+                                     strand, v)
+        assert torch.equal(got, ref) and torch.equal(a, b)
+        assert got.any() and not torch.equal(a, m.data)
+    # the host mirror (no frame mask) on the host
+    host = mibf_construct.insert_random_order(
+        dataclasses.replace(m, data=m.data.cpu(), bv_words=m.bv_words.cpu(),
+                            cum_ranks=m.cum_ranks.cpu()), hashes.cpu(),
+        0x1234567 & m.width_mask, maxc,
+        None if strand is None else strand.cpu())
+    a = m.data.clone()
+    got = ri.random_insert(m.bv_words, m.cum_ranks, m.rank_dir, a, hashes,
+                           size, 0x1234567 & m.width_mask, maxc, strand)
+    assert torch.equal(a.cpu(), host[0].data)
+    assert np.array_equal(got.cpu().numpy(), host[1])

@@ -37,6 +37,7 @@ def test_entry_point_defaults_to_cuda(fn):
     lambda: bloom.create(64, 2, 5),
     lambda: counting.create(64, 2, 5, 1),
     lambda: mibf_construct.create(100, 5, 2),
+    lambda: mibf_construct.create(100, 5, 4, spaced_seeds=("11011", "11011")),
     lambda: mibf.from_numpy(np.zeros(2, np.uint32), np.zeros(0, np.uint16),
                             size=64, hash_num=2, kmer_size=5, data_width=2),
 ])
@@ -67,3 +68,16 @@ def test_probe_mains_default_to_the_card(main, argv):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             main(argv + ["--reps", "1"])
+
+
+def test_seeded_hash_pipeline_defaults_to_the_card():
+    """The spaced-seed HashPipeline hashes on the card unless asked for the
+    CPU; without a card it raises."""
+    hp = api.HashPipeline(5, 4, ("11011", "10111"))
+    assert hp.device == torch.device("cuda")
+    codes = np.zeros(40, np.uint8)
+    if torch.cuda.is_available():
+        assert hp.frames(codes).hashes.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            hp.frames(codes)

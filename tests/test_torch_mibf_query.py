@@ -4,7 +4,9 @@ tables (saturated values, duplicate raws, misses, invalid frames, early
 exits, out-of-range IDs, and an ID count past the JAX engine's uint32 key
 guard), ``MIBFQuerySupport.query`` / ``query_many`` on a filter built by the
 JAX package and carried across, and the ``build_mibf`` / ``classify`` CLIs
-against the JAX package's pipeline and engine on the same FASTA.
+against the JAX package's pipeline and engine on the same FASTA; paired-end reads
+(``query_paired`` / ``query_paired_many`` and the frame interleave) and
+``get_match_signature`` on a plain k-mer filter and a spaced-seed one.
 
 Inputs are made with numpy from fixed seeds and handed to both sides. All
 compared outputs are integers, bools, bytes or text, except each result's
@@ -26,6 +28,7 @@ from btl_bloomfilter_tpu.models import mibf as jax_mibf
 from btl_bloomfilter_tpu.models import mibf_construct as jax_construct
 from btl_bloomfilter_tpu.models import mibf_query as jax_query
 from btl_bloomfilter_tpu.ops import nthash_tables as jax_tables
+from btl_bloomfilter_tpu.ops.u64 import U64
 from btl_bloomfilter_tpu_torch import api
 from btl_bloomfilter_tpu_torch.models import mibf, mibf_query
 from btl_bloomfilter_tpu_torch.tools import build_mibf, classify
@@ -54,7 +57,6 @@ def small_filter(h, width=2):
     rng = np.random.default_rng(h)
     hashes = jnp.asarray(rng.integers(0, 1 << 32, size=(150, h, 2),
                                       dtype=np.uint32))
-    from btl_bloomfilter_tpu.ops.u64 import U64
     st = jax_construct.BitVectorState(
         bv_words=jnp.zeros(1024 // 32, jnp.uint32), filter_size=1024,
         kmer_size=11, hash_num=h, occupancy=0.5, sseeds=())
@@ -358,3 +360,122 @@ def test_cli_build_batching_changes_nothing(tmp_path, monkeypatch):
     for ext in ("", ".sdsl"):
         with open(one + ext, "rb") as a, open(many + ext, "rb") as b:
             assert a.read() == b.read(), ext
+
+
+# ---------------------------------------------------------------------------
+# paired-end reads and match signatures
+# ---------------------------------------------------------------------------
+
+SEEDS = ("1101111011111", "1111101111011")
+
+
+@pytest.fixture(scope="module")
+def seeded():
+    """A JAX-built spaced-seed filter (two mirrored seeds, m2 = 2), its port
+    copy, and mutated reads of its references hashed by both sides."""
+    refs = references(seed=15, n=5)
+    codes = [jax_tables.encode_seq(s) for s in refs]
+    k = len(SEEDS[0])
+    pipe = jax_api.MIBFConstructPipeline(jax_construct.create(
+        expected_entries=sum(map(len, refs)), k=k, hash_num=4,
+        occupancy=0.5, spaced_seeds=SEEDS))
+    for c in codes:
+        pipe.insert_bv_seq(c)
+    pipe.freeze(2)
+    ids = list(range(1, len(refs) + 1))
+    pipe.insert_mibf_batch(codes, ids)
+    pipe.insert_saturation_batch(codes, ids)
+    jm = pipe.m
+    m = mibf.from_numpy(np.asarray(jm.bv_words), np.asarray(jm.data),
+                        size=jm.size, hash_num=jm.hash_num, kmer_size=k,
+                        data_width=2, sseeds=SEEDS, device="cpu")
+    reads = [jax_tables.encode_seq(s) for s in reads_of(refs, seed=16)]
+    jfr = jax_api.HashPipeline(k, 4, SEEDS).frames_batch(reads)
+    fr = api.HashPipeline(k, 4, SEEDS, device="cpu").frames_batch(reads)
+    return jm, m, len(refs) + 1, jfr, fr
+
+
+def halves(jfr, fr, cut):
+    """Mates of 12 pairs on both sides: reads 0-11 whole and reads 12-23
+    cut to their first ``cut`` windows (another window count), one mate of
+    pair 3 without a valid frame."""
+    jv2 = np.asarray(jfr.valid[12:, :cut]).copy()
+    v2 = fr.valid[12:, :cut].clone()
+    jv2[3] = v2[3] = False
+    hi, lo = jfr.hashes.hi, jfr.hashes.lo
+    return ((U64(hi[:12], lo[:12]), np.asarray(jfr.valid[:12]),
+             U64(hi[12:, :cut], lo[12:, :cut]), jv2),
+            (fr.hashes[:12], fr.valid[:12], fr.hashes[12:, :cut], v2))
+
+
+@pytest.mark.parametrize("which,max_miss", [("built", 0), ("seeded", 1)])
+def test_query_paired_matches_jax(built, seeded, which, max_miss):
+    jm, m, num_ids, jfr, fr = built if which == "built" else seeded
+    pfp = [0.0] + [0.1] * (num_ids - 1)
+    kw = dict(per_frame_prob=pfp, extra_count=2.0, extra_frame_limit=10**6,
+              max_miss=max_miss, min_count=1, best_hit_agree=False)
+    jqs = jax_query.MIBFQuerySupport(m=jm, **kw)
+    qs = mibf_query.MIBFQuerySupport(m=m, **kw)
+    mc = np.full(num_ids, 2, np.int32)
+    j, p = halves(jfr, fr, 90)
+    jres = jqs.query_paired_many(*j, mc)
+    res = qs.query_paired_many(*p, mc)
+    assert result_fields(res) == result_fields(jres)
+    assert (qs.sat_count, qs.eval_count) == (jqs.sat_count, jqs.eval_count)
+    assert sum(1 for r in res if r) >= 6
+    one = qs.query_paired(p[0][5], p[1][5], p[2][5], p[3][5], mc)
+    assert result_fields([one]) == result_fields([jres[5]])
+
+
+def test_interleave_paired_frames_matches_jax():
+    """The closed-form interleave on frame tables whose reads have more,
+    fewer, equal and no valid frames."""
+    rng = np.random.default_rng(8)
+    R, W1, W2, h = 6, 9, 5, 3
+
+    def tables(W):
+        raw = rng.integers(0, 50, size=(R, W, h)).astype(np.uint32)
+        hit = rng.random((R, W, h)) < 0.8
+        usable = rng.random((R, W)) < 0.7
+        misses = (~hit).sum(-1).astype(np.int32)
+        return raw, hit, usable, misses
+
+    t1, t2 = tables(W1), tables(W2)
+    v1, v2 = rng.random((R, W1)) < 0.6, rng.random((R, W2)) < 0.6
+    v1[0], v2[1], v1[2], v2[2] = False, False, False, False
+    v2[3] = True
+    got = mibf_query.interleave_paired_frames(
+        tuple(torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                               else a) for a in t1),
+        tuple(torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                               else a) for a in t2),
+        torch.from_numpy(v1), torch.from_numpy(v2))
+    ref = jax.jit(jax_query.interleave_paired_frames)(
+        tuple(jnp.asarray(a) for a in t1), tuple(jnp.asarray(a) for a in t2),
+        jnp.asarray(v1), jnp.asarray(v2))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("which,max_miss", [("built", 0), ("built", 1),
+                                            ("seeded", 1), ("seeded", 2)])
+def test_match_signature_matches_jax(built, seeded, which, max_miss):
+    """A frame matches with every slot hit on a plain k-mer filter
+    (max_miss is then not read) and within max_miss on a seeded one."""
+    jm, m, num_ids, jfr, fr = built if which == "built" else seeded
+    kw = dict(per_frame_prob=[0.0] * num_ids, extra_count=2.0,
+              extra_frame_limit=10**6, max_miss=max_miss, min_count=1,
+              best_hit_agree=False)
+    jqs = jax_query.MIBFQuerySupport(m=jm, **kw)
+    qs = mibf_query.MIBFQuerySupport(m=m, **kw)
+    for r in (0, 3, 5):
+        got = qs.get_match_signature(fr.hashes[r], fr.valid[r])
+        ref = jqs.get_match_signature(
+            U64(jfr.hashes.hi[r], jfr.hashes.lo[r]), jfr.valid[r])
+        np.testing.assert_array_equal(got[0], ref[0])
+        assert got[1] == ref[1]
+        for a, b in zip(got[2:], ref[2:]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        if r != 5:
+            assert len(got[0]) > 0

@@ -38,7 +38,11 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.probes.partition_probe, "
             "btl_bloomfilter_tpu_torch.probes.kernel_lab, "
             "btl_bloomfilter_tpu_torch.tools.time_kernels, "
-            "btl_bloomfilter_tpu_torch.tools.timing; "
+            "btl_bloomfilter_tpu_torch.tools.timing, "
+            "btl_bloomfilter_tpu_torch.ops.seeds, "
+            "btl_bloomfilter_tpu_torch.utils.stdcpp, "
+            "btl_bloomfilter_tpu_torch.kernels.spaced_scan, "
+            "btl_bloomfilter_tpu_torch.kernels.mibf_random_insert; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
             "m.startswith('btl_bloomfilter_tpu.')]; "
