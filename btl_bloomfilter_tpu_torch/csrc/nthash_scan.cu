@@ -19,8 +19,9 @@
 // (srol: ntHash's split rotation, the low 33 and the high 31 bits rotating
 // independently; sror its inverse). The two XOR terms of a step depend only
 // on the pair (out, in) of base codes, so the host builds them once per k
-// as two 5 x 5 tables (kernels/nthash_scan.py roll_tables; N's seed is 0),
-// and the kernel keeps them in shared memory. A run's first window is
+// as two 5 x 5 tables (kernels/nthash_scan.py roll_tables; N's seed is 0;
+// RollTables in nthash_roll.cuh, shared with the spaced-seed hash), and
+// the kernel keeps them in shared memory. A run's first window is
 // rolled in from the all-N window (hashes 0) with k steps whose out-base is
 // N: the same step, with no table by offset, so any k takes one code path.
 //
@@ -42,26 +43,7 @@
 #include <cstring>
 
 #include "common.cuh"
-
-#define CODE_N 4
-
-// The roll's XOR terms by (out, in) code pair, index out * 5 + in.
-struct RollTables {
-    uint64_t f[25];   // srol^k(seed(out)) ^ seed(in)
-    uint64_t r[25];   // sror(rcseed(out)) ^ srol^(k-1)(rcseed(in))
-};
-
-// srol and sror: the low 33 and the high 31 bits rotate by one, each on
-// its own.
-__device__ __forceinline__ uint64_t srol1(uint64_t v) {
-    return ((v << 1) & ~(1ULL << 33)) | ((v >> 32) & 1ULL)
-           | ((v >> 30) & (1ULL << 33));
-}
-
-__device__ __forceinline__ uint64_t sror1(uint64_t v) {
-    return ((v >> 1) & ~(1ULL << 32)) | ((v & 1ULL) << 32)
-           | ((v & (1ULL << 33)) << 30);
-}
+#include "nthash_roll.cuh"
 
 // v % size: a mask when magic == 0 (size a power of two), else Barrett:
 // q = mulhi(v, magic) >> shift is floor(v/size) or one less, for any size

@@ -22,7 +22,8 @@
   * ``spaced_scan``  - spaced-seed ntHash frames (stHash: m seeds x m2
     hashes, strand flags, valid)
   * ``mibf_random_insert`` - MIBF random-order, strand-carrying insert
-    (MIBloomFilter::insert), frames walked in order on one thread
+    (MIBloomFilter::insert): parallel rounds of frames that share no ID
+    entry, then an in-order tail on one thread
   * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
   * ``window_scatter`` - static-window Bloom scatter in shared memory
   * ``dma_sweep``    - chunked copy sweep

@@ -35,7 +35,8 @@ SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "window_scatter.cu", "dma_sweep.cu", "conservative_step.cu",
            "tile_partition.cu", "spaced_scan.cu", "mibf_random_insert.cu",
            "errors.cu")
-HEADERS = ("common.cuh", "tile_partition.cuh", "tile_stream.cuh")
+HEADERS = ("common.cuh", "nthash_roll.cuh", "tile_partition.cuh",
+           "tile_stream.cuh")
 
 # uint32 position of an invalid window (BTL_SENTINEL in csrc/common.cuh); it
 # is -1 in the int32 position tensors.

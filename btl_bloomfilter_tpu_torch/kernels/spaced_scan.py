@@ -11,6 +11,11 @@ ntHash frames. Seeds of unequal length and reads shorter than k raise
 ``ValueError``. A CPU tensor takes the plain version
 (``spaced_frames_planes_plain``); a CUDA tensor launches the kernel or
 raises.
+
+The kernel rolls each window's unmasked hashes as the ntHash kernel does
+(``nthash_scan.roll_tables``, ``nthash_scan.run_length``), then XORs out
+each seed's masked terms from ``masked_tables``, the rows of
+``offset_tables`` at the masked offsets ``seed_info`` lists.
 """
 
 from __future__ import annotations
@@ -22,12 +27,16 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops import nthash, nthash_tables as T, seeds, u64
-from . import _build
+from . import _build, nthash_scan
 
 KERNEL = _build.CudaKernel("btl_spaced_scan", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p])
+
+# windows a block of the kernel hashes (TILE in csrc/spaced_scan.cu)
+TILE = 1024
 
 
 def _check(codes: torch.Tensor, seed_strings: Sequence[str], m2: int) -> int:
@@ -46,7 +55,7 @@ def _check(codes: torch.Tensor, seed_strings: Sequence[str], m2: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def offset_tables(k: int) -> torch.Tensor:
-    """The kernel's terms by (offset i, base code c) at index i * 5 + c, as
+    """A window's terms by (offset i, base code c) at index i * 5 + c, as
     10 k int64 (uint64 bits): k * 5 forward terms srol^(k-1-i)(seed(c)),
     then k * 5 reverse terms srol^i(rcseed(c)). N's seed is 0."""
     i = torch.arange(k)[:, None]
@@ -69,9 +78,23 @@ def seed_info(seed_strings: Tuple[str, ...]) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _on_device(k: int, seed_strings: Tuple[str, ...], device: torch.device):
-    """The tables and the seed info on ``device``, copied once a seed set."""
-    return (offset_tables(k).to(device), seed_info(seed_strings).to(device))
+def masked_tables(seed_strings: Tuple[str, ...]) -> torch.Tensor:
+    """int64 [Z * 10]: for each masked offset of ``seed_info``, in its
+    order, the 5 forward terms of ``offset_tables`` by base code, then the
+    5 reverse terms (80 B an offset)."""
+    k = seeds.seed_length(seed_strings)
+    tab = offset_tables(k)
+    tf, tr = tab[:5 * k].view(k, 5), tab[5 * k:].view(k, 5)
+    z = [i for zs in seeds.parse_seed_strings(seed_strings) for i in zs]
+    return torch.cat([tf[z], tr[z]], 1).reshape(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _on_device(seed_strings: Tuple[str, ...], device: torch.device):
+    """The masked rows and the seed info on ``device``, copied once a seed
+    set."""
+    return (masked_tables(seed_strings).to(device),
+            seed_info(seed_strings).to(device))
 
 
 def spaced_frames_planes_plain(codes: torch.Tensor,
@@ -93,14 +116,19 @@ def spaced_frames_planes(codes: torch.Tensor, seed_strings: Sequence[str],
     codes = codes.contiguous()
     B, L = codes.shape
     W = L - k + 1
+    if B * -(-W // TILE) >= (1 << 31):
+        raise ValueError("batch too large for one launch")
     h = len(seed_strings) * m2
     dev = codes.device
     hashes = torch.empty((h, B, W), dtype=torch.int64, device=dev)
     strand = torch.empty((h, B, W), dtype=torch.bool, device=dev)
     valid = torch.empty((B, W), dtype=torch.bool, device=dev)
     if B:
-        tables, info = _on_device(k, tuple(seed_strings), dev)
+        masked, info = _on_device(tuple(seed_strings), dev)
         KERNEL.launch(dev, codes.data_ptr(), B, L, k, len(seed_strings), m2,
-                      tables.data_ptr(), info.data_ptr(), hashes.data_ptr(),
+                      nthash_scan.run_length(k),
+                      ctypes.addressof(nthash_scan.roll_tables(k)),
+                      masked.data_ptr(), info.data_ptr(),
+                      masked.numel() // 10, hashes.data_ptr(),
                       strand.data_ptr(), valid.data_ptr())
     return hashes, strand, valid

@@ -20,8 +20,9 @@ rank lookups of phases 3 and 4 through the MIBF rank kernel
 
 Beside the four phases, MIBloomFilter::insert, the single-pass,
 random-order, strand-carrying insert: ``insert_random_order``, the host
-mirror, and ``insert_random_order_device``, which walks the frames in order
-with the ``kernels/mibf_random_insert`` kernel on a GPU.
+mirror, and ``insert_random_order_device``, the same result from the
+``kernels/mibf_random_insert`` kernel on a GPU (parallel rounds of frames
+that share no ID entry, then an in-order tail).
 Unlike the reference, whose functions return new arrays, every phase
 updates the bit vector, ``m.data`` and ``counts`` in place (and returns
 them).
@@ -541,9 +542,10 @@ def insert_random_order_device(m: MIBloomFilter, hashes: torch.Tensor,
     """MIBloomFilter::insert of frames hashes int64 [..., h] on the
     filter's device, bit for bit the host mirror
     :func:`insert_random_order` (the strand-aware overload when ``strand``
-    bool [..., h] is given; ``valid`` bool [...] masks frames). The frames
-    are walked in order by the ``kernels/mibf_random_insert`` kernel on a
-    GPU, by its plain version on the CPU. Where the host mirror asserts,
+    bool [..., h] is given; ``valid`` bool [...] masks frames). On a GPU
+    the ``kernels/mibf_random_insert`` kernel runs the frames in parallel
+    rounds of frames that share no ID entry, then walks the rest in
+    order; on the CPU its plain version walks them all in order. Where the host mirror asserts,
     this saturates. Updates ``m.data`` in place; returns (m, success bool
     [...])."""
     mibf_mod.check_width(m.data_width)

@@ -37,12 +37,17 @@ queued``), and for a call that needs no setup the host's time to issue it
     rank + ID at the classification's, at bench.py's MIBF config and at
     chip_smoke.py 7c's size, and ``mibf.freeze`` at bench.py's config
     (``rank_calls``);
-  * ``spaced_scan``: the spaced-seed hash at bench.py's ACGT batch with
-    chip_smoke.py phase 10's two mirrored seeds of length 31, m2 = 2;
+  * ``spaced_scan``: the spaced-seed hash with chip_smoke.py phase 10's
+    two mirrored seeds of length 31, m2 = 2, at ``nthash_scan``'s 2%-N
+    batch and at bench.py's ACGT batch;
   * ``mibf_random_insert``: MIBloomFilter::insert of 4096 random frames (h
     = 4, random strands, max_count 1) into an empty width-2 ID array over
     a random bit vector of chip_smoke.py 7c's 96,817,664 bits; each call
     first copies the 97 MB array back to zeros (about 0.06 ms of a call);
+    and of 2**16 frames in three forms: random, a quarter of them
+    duplicates at random places (phase 10c's mix), and every frame one
+    k-mer (one chain as long as the batch), 3 calls a repetition, no host
+    time;
   * ``dma_sweep``: each copy sweep of ``probes/partition_probe.py``, and
     ``copy_`` of the same tensor beside it;
   * ``scatter_or``: the Bloom insert at bench.py's batch (512 x 2048 ACGT
@@ -289,9 +294,15 @@ def spaced_calls(dev) -> dict:
         from btl_bloomfilter_tpu_torch.kernels import spaced_scan
     except ImportError:
         return {"spaced_scan": "not in this tree"}
+    rng = np.random.default_rng(0)
+    n_codes = rng.integers(0, 4, size=(512, 2048), dtype=np.uint8)
+    n_codes[rng.random(n_codes.shape) < 0.02] = 4
+    n_codes = torch.from_numpy(n_codes).to(dev)
     codes = acgt_codes(dev, 512)
-    return {"spaced_scan acgt": lambda: spaced_scan.spaced_frames_planes(
-        codes, SPACED_SEEDS, 2)}
+    return {"spaced_scan": lambda: spaced_scan.spaced_frames_planes(
+                n_codes, SPACED_SEEDS, 2),
+            "spaced_scan acgt": lambda: spaced_scan.spaced_frames_planes(
+                codes, SPACED_SEEDS, 2)}
 
 
 def random_insert_calls(dev) -> dict:
@@ -319,7 +330,32 @@ def random_insert_calls(dev) -> dict:
             m.bv_words, m.cum_ranks, m.rank_dir, m.data, hashes, size, 7, 1,
             strand)
 
-    return {"mibf_random_insert 4096 frames": call}
+    def frames(hs, st):
+        def run():
+            m.data.copy_(zero)
+            return mibf_random_insert.random_insert(
+                m.bv_words, m.cum_ranks, m.rank_dir, m.data, hs, size, 7, 1,
+                st)
+        # the copy as setup too: no host time (a call takes up to a
+        # fifth of a second on the one-thread walk), 3 calls a repetition
+        return run, run, 3
+
+    n = 1 << 16
+    hs = u64.from_numpy(rng.integers(0, 1 << 64, size=(n, 4),
+                                     dtype=np.uint64)).to(dev)
+    st = torch.from_numpy(rng.random((n, 4)) < 0.5).to(dev)
+    # a quarter of the frames repeat one of the first three quarters, at
+    # random places (chip_smoke.py phase 10c's mix)
+    dup = np.concatenate([np.arange(3 * n // 4),
+                          rng.integers(0, 3 * n // 4, size=n // 4)])
+    dup = torch.from_numpy(rng.permutation(dup)).to(dev)
+    return {"mibf_random_insert 4096 frames": call,
+            "mibf_random_insert 65536 random frames": frames(hs, st),
+            "mibf_random_insert 65536 frames, a quarter duplicates":
+                frames(hs[dup].contiguous(), st[dup].contiguous()),
+            "mibf_random_insert 65536 frames of one k-mer":
+                frames(hs[:1].expand(n, 4).contiguous(),
+                       st[:1].expand(n, 4).contiguous())}
 
 
 def sweep_calls(dev) -> dict:
@@ -585,8 +621,11 @@ def main(argv=None) -> None:
             if isinstance(call, str):
                 out[label] = call
                 continue
-            fn, setup = call if isinstance(call, tuple) else (call, None)
-            t = timing.kernel_times(fn, setup=setup)
+            fn, setup, *inner = call if isinstance(call, tuple) \
+                else (call, None)
+            t = timing.kernel_times(fn, setup=setup,
+                                    inner=inner[0] if inner else
+                                    timing.INNER)
             out[label], out[label + " queued"] = t.issued, t.card
             if setup is None:
                 out[label + " host"] = timing.host_ms(fn)

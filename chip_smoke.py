@@ -1850,6 +1850,105 @@ def mutate(codes: np.ndarray, rng) -> np.ndarray:
                     codes).astype(np.uint8)
 
 
+def schedule_cases(m, hs, st, rng, dev) -> int:
+    """Phase 10c's schedule cases: RI_FRAMES frames (max_count 1, with
+    strand, over pre-set and saturated entries) that force each path of
+    mibf_random_insert's rounds and tail, at widths 1, 2 and 4, kernel ==
+    plain and == the host mirror insert_random_order (IDs and success),
+    and the kernel's (rounds, frames in rounds, tail) == round_schedule's.
+    The host mirror reads past the ID array at a rank of d_size, where the
+    reference is undefined: that case holds the kernel to the plain version
+    alone. Returns the largest error (0)."""
+    from btl_bloomfilter_tpu_torch.kernels import mibf_random_insert as ri
+    from btl_bloomfilter_tpu_torch.models import mibf, mibf_construct
+    from btl_bloomfilter_tpu_torch.ops import u64
+
+    n, h = RI_FRAMES, hs.shape[1]
+    words = m.bv_words
+    # the top 1/64 of the bit vector cleared: positions there rank d_size
+    cut = words.clone()
+    cut[-(words.numel() // 64):] = 0
+    top = 32 * (words.numel() - words.numel() // 64)
+    # the last set bit: positions below it rank below d_size
+    iw = int(torch.nonzero(words).max())
+    last = 32 * iw + int(unsigned(words[iw])).bit_length() - 1
+    pick = torch.from_numpy(rng.integers(0, hs.shape[0], size=n)).to(dev)
+    frames, strand = hs[pick].contiguous(), st[pick].contiguous()
+    repeated = frames.clone()
+    repeated[:, 2] = repeated[:, 0]
+    repeated[::3, 3] = repeated[::3, 1]
+    # frames repeated 2-64 times (the last fewer), in random order
+    reps = rng.integers(2, 65, size=n)
+    reps = reps[:int(np.searchsorted(np.cumsum(reps), n)) + 1]
+    reps[-1] -= reps.sum() - n
+    idx = torch.from_numpy(rng.permutation(np.repeat(
+        np.arange(reps.size), reps))).to(dev)
+    unset = torch.from_numpy(rng.integers(0, last, size=(n, h))).to(dev)
+    past = torch.where(
+        torch.from_numpy(rng.random((n, h)) < 0.3).to(dev),
+        torch.from_numpy(rng.integers(top, m.size, size=(n, h))).to(dev),
+        frames)
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    cases = [  # name, hashes, strand, bit vector, valid, host mirror defined
+        ("one k-mer", hs[:1].expand(n, h).contiguous(),
+         st[:1].expand(n, h).contiguous(), words, None, True),
+        ("repeats 2-64", frames[idx].contiguous(), strand[idx].contiguous(),
+         words, None, True),
+        ("unset bits", unset, strand, words, None, True),
+        ("past the last set bit", past, strand, cut, None, False),
+        ("repeated slots", repeated, strand, words, None, True),
+        ("invalid interleaved", frames, strand, words, valid, True)]
+    lines = []
+    for width in M_WIDTHS:
+        for name, hashes, strand, bv, v, host_ok in cases:
+            mw = mibf.freeze(bv, m.size, H, K, width, SPACED_SEEDS)
+            d = np.zeros(mw.d_size, np.int64)
+            d[rng.integers(0, mw.d_size, size=mw.d_size // 3)] = 5
+            d[rng.integers(0, mw.d_size, size=mw.d_size // 7)] = \
+                mw.s_mask | 5
+            start = mibf.to_storage(torch.from_numpy(d), width).to(dev)
+            s_k = torch.zeros(3, dtype=torch.int32, device=dev)
+            s_p = torch.zeros(3, dtype=torch.int32)
+            a, b = start.clone(), start.clone()
+            ok_k = ri.random_insert(mw.bv_words, mw.cum_ranks, mw.rank_dir,
+                                    a, hashes, m.size, RI_ID, 1, strand, v,
+                                    schedule=s_k)
+            ok_p = ri.random_insert_plain(
+                mw.bv_words, mw.cum_ranks, mw.rank_dir, b, hashes, m.size,
+                RI_ID, 1, strand, v, schedule=s_p)
+            what = f"[10c] width {width} {name}"
+            require_equal(f"{what} IDs (plain)", a, b)
+            require_equal(f"{what} success (plain)", ok_k, ok_p)
+            if s_k.tolist() != s_p.tolist():
+                raise AssertionError(f"{what}: the kernel's schedule "
+                                     f"{s_k.tolist()} != round_schedule's "
+                                     f"{s_p.tolist()}")
+            if host_ok:
+                keep = torch.ones(n, dtype=torch.bool, device=dev) \
+                    if v is None else v
+                host = dataclasses.replace(mw, data=start.cpu().clone())
+                _, ok_h = mibf_construct.insert_random_order(
+                    host, hashes[keep].cpu(), RI_ID, 1, strand[keep].cpu())
+                want = torch.zeros(n, dtype=torch.bool)
+                want[keep.cpu()] = torch.from_numpy(ok_h)
+                require_equal(f"{what} IDs", a.cpu(), host.data)
+                require_equal(f"{what} success", ok_k.cpu(), want)
+            elif not bool((ri.slot_keys(mw.bv_words, mw.cum_ranks,
+                                        mw.rank_dir, hashes, m.size,
+                                        mw.d_size) == mw.d_size - 1).any()):
+                raise AssertionError(f"{what}: no slot ranks past the IDs")
+            if width == M_WIDTHS[0]:
+                lines.append(f"{name} {s_k.tolist()}")
+            del mw, start, a, b
+    log(f"[10c] mibf_random_insert schedule cases, {n} frames, max_count 1 "
+        "with strand over pre-set and saturated entries, widths "
+        f"{M_WIDTHS}: kernel == plain, == host mirror where the reference "
+        "is defined (not past the last set bit; valid frames only), the "
+        "kernel's [rounds, frames in rounds, tail] == round_schedule's: "
+        + "; ".join(lines))
+    return 0
+
+
 def seeded_phases(dev: torch.device, card_line: str):
     """Phase 10: the spaced-seed MIBF path on the card. Returns (err, ms,
     launches, bounds) for spaced_scan and mibf_random_insert, and the
@@ -1879,13 +1978,26 @@ def seeded_phases(dev: torch.device, card_line: str):
     unaligned = torch.cat([codes.new_zeros(1),
                            codes[:64].reshape(-1)])[1:].view(64, L)
     k129 = "".join("0" if i % 3 == 1 else "1" for i in range(129))
+    # half its columns masked: 2 x 1500 rows of 80 B, past the kernel's
+    # shared memory, so it reads them from global memory
+    k3000 = "".join("0" if i % 2 else "1" for i in range(3000))
     cases = [("k=31, 1 seed, m2=1", codes, SPACED_SEEDS[:1], 1),
              ("k=31, 2 seeds, m2=2", codes, SPACED_SEEDS, 2),
              ("k=31, 4 seeds, m2=3", codes, four, 3),
              ("k=1, 1 seed, m2=2", codes[:64], ("1",), 2),
              ("k=129, 2 seeds, m2=2", codes[:64], (k129, k129[::-1]), 2),
              ("short reads", short, SPACED_SEEDS, 2),
-             ("unaligned view", unaligned, SPACED_SEEDS, 2)]
+             ("unaligned view", unaligned, SPACED_SEEDS, 2),
+             # the edges of the rolled runs and the tiles
+             ("k=9 < the run", codes[:64, :300], ("110111011",) * 2, 2),
+             ("W=10 < the run", codes[:64, :40], SPACED_SEEDS, 2),
+             ("one window a read", codes[:64, :K], SPACED_SEEDS, 2),
+             ("W not a multiple of the tile",
+              codes[:64].reshape(32, 2 * L)[:, :2048 + K - 1 + 300],
+              SPACED_SEEDS, 2),
+             ("k=3000 past shared memory",
+              codes[:8].reshape(4, 2 * L)[:, :3100], (k3000, k3000[::-1]),
+              1)]
     for what, c, seeds_, m2 in cases:
         before = spaced_scan.KERNEL.launches
         got = spaced_scan.spaced_frames_planes(c, seeds_, m2)
@@ -2086,6 +2198,8 @@ def seeded_phases(dev: torch.device, card_line: str):
         "without strand and with strand (collision-free frames) from empty "
         "IDs, kernel == host mirror insert_random_order (bitwise; at width "
         "2 also == plain)")
+    err["mibf_random_insert"] = max(err["mibf_random_insert"],
+                                    schedule_cases(m, hs, st, rng, dev))
 
     # ---- 10d. times -----------------------------------------------------
     # the seeded path's rates from a second, warm run of the main path
@@ -2099,6 +2213,17 @@ def seeded_phases(dev: torch.device, card_line: str):
         f"(host clock, hashing included; {card_line})")
     hashes, strand = sets["all"]
     data = m.data.clone()
+    sched = torch.zeros(3, dtype=torch.int32, device=dev)
+    ri.random_insert(m.bv_words, m.cum_ranks, m.rank_dir, data, hashes,
+                     m.size, RI_ID, 1, strand, schedule=sched)
+    plan = ri.schedule_counts(ri.round_schedule(ri.slot_keys(
+        m.bv_words, m.cum_ranks, m.rank_dir, hashes, m.size, m.d_size)))
+    got = tuple(sched.tolist())
+    log(f"[10d] mibf_random_insert's schedule at the timed case: "
+        f"{got[0]} rounds, {got[1]} frames in rounds, a tail of {got[2]} "
+        f"(round_schedule: {plan})")
+    if got != plan:
+        raise AssertionError("[10d] the kernel's schedule != round_schedule")
 
     def restore():
         data.copy_(m.data)

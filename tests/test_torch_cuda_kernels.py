@@ -1305,33 +1305,37 @@ def test_kmer_bloom_wide_on_cuda_matches_cpu(dev):
 # the spaced-seed MIBF path: spaced_scan and mibf_random_insert
 # ---------------------------------------------------------------------------
 
-def seeds_of(k, m, seed):
-    """m seeds of length k with about a fifth of their columns '0'."""
+def seeds_of(k, m, seed, zfrac=0.2):
+    """m seeds of length k with about zfrac of their columns '0'."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(m):
         s = np.array(list("1" * k))
         if k > 1:
-            s[rng.choice(k, size=max(1, k // 5), replace=False)] = "0"
+            s[rng.choice(k, size=max(1, int(k * zfrac)), replace=False)] = "0"
         out.append("".join(s))
     return out
 
 
-SPACED = [  # B, L, k, seeds, m2, nfrac
-    (2, 40, 1, 1, 2, 0.05),
-    (3, 300, 9, 2, 3, 0.1),
-    (4, 31, 31, 2, 2, 0.0),             # one window a read
-    (5, 2048, 31, 4, 3, 0.02),
-    (3, 700, 129, 1, 1, 0.002),
-    (2, 800, 700, 2, 2, 0.0002),        # tables past 48 KB of shared memory
-    (2, 3100, 3000, 1, 2, 0.0),         # tables read from global memory
+SPACED = [  # B, L, k, seeds, m2, nfrac, fraction of '0' columns
+    (2, 40, 1, 1, 2, 0.05, 0.2),
+    (3, 300, 9, 2, 3, 0.1, 0.2),        # k < the run (16 windows)
+    (4, 31, 31, 2, 2, 0.0, 0.2),        # one window a read
+    (3, 40, 31, 2, 2, 0.05, 0.2),       # W = 10 < the run
+    (5, 2048, 31, 4, 3, 0.02, 0.2),
+    (3, 2048 + 30 + 300, 31, 2, 2, 0.02, 0.2),  # W not a multiple of TILE
+    (2, 4096 + 63 + 33, 64, 1, 2, 0.01, 0.3),   # runs of 32, a ragged tile
+    (3, 700, 129, 1, 1, 0.002, 0.2),
+    (2, 800, 700, 2, 2, 0.0002, 0.2),   # masked rows past 48 KB with the
+    (2, 3100, 3000, 1, 2, 0.0, 0.2),    # static arrays
+    (2, 3100, 3000, 2, 1, 0.001, 0.5),  # past SHARED_MAX: global memory
 ]
 
 
-@pytest.mark.parametrize("B,L,k,m,m2,nfrac", SPACED)
-def test_spaced_scan_kernel_matches_plain(dev, B, L, k, m, m2, nfrac):
+@pytest.mark.parametrize("B,L,k,m,m2,nfrac,zfrac", SPACED)
+def test_spaced_scan_kernel_matches_plain(dev, B, L, k, m, m2, nfrac, zfrac):
     from btl_bloomfilter_tpu_torch.kernels import spaced_scan
-    seed_strings = seeds_of(k, m, k + m)
+    seed_strings = seeds_of(k, m, k + m, zfrac)
     codes = random_codes(B, L, nfrac, B * L + k)
     codes[0, L // 2:] = 4                 # a read padded with N
     for what, c in (("aligned", codes.to(dev)),
@@ -1428,3 +1432,102 @@ def test_mibf_random_insert_kernel_matches_plain(dev, maxc, use_strand, dup,
                            size, 0x1234567 & m.width_mask, maxc, strand)
     assert torch.equal(a.cpu(), host[0].data)
     assert np.array_equal(got.cpu().numpy(), host[1])
+
+
+RANDOM_SCHEDULES = ["one_kmer", "repeats", "unset_bits", "past_last_bit",
+                    "repeated_slots", "invalid_interleaved"]
+
+
+def schedule_filter(kind, width, dev, n=3000):
+    """A filter and frames (h = 4) on which the kernel's rounds and tail
+    take the path ``kind`` names: every frame one k-mer (frame 0 in a
+    round, the rest in the tail), frames repeated 2-64 times at random
+    places, slots whose bit is unset (below the last set bit, so ranks
+    alias), slots past the last set bit (rank d_size, clamped reads),
+    frames whose slots repeat a key, and interleaved invalid frames.
+    Returns (m, hashes, strand, valid, max_count, host) with ``host``
+    False where the host mirror is undefined (ranks past the ID array)."""
+    from btl_bloomfilter_tpu_torch.models import mibf_construct
+    rng = np.random.default_rng(RANDOM_SCHEDULES.index(kind) * 7 + width)
+    size, h = 1 << 16, 4
+    distinct = rng.integers(0, 1 << 64, size=(n // 8, h), dtype=np.uint64)
+    built, strand, valid, maxc = distinct, None, None, 1
+    if kind == "one_kmer":
+        hashes = np.repeat(distinct[:1], n, axis=0)
+        strand = np.repeat(rng.random((1, h)) < 0.5, n, axis=0)
+    elif kind == "repeats":
+        idx = np.repeat(np.arange(n // 33), rng.integers(2, 65,
+                                                          size=n // 33))
+        hashes = distinct[rng.permutation(idx)]
+        maxc = 2
+    elif kind == "unset_bits":
+        last = int((distinct % np.uint64(size)).max())
+        hashes = rng.integers(0, last, size=(n // 2, h), dtype=np.uint64)
+        hashes = hashes[rng.integers(0, n // 2, size=n)]
+        strand = rng.random(hashes.shape) < 0.5
+    elif kind == "past_last_bit":
+        built = rng.integers(0, size // 2, size=(n // 8, h), dtype=np.uint64)
+        hashes = np.where(rng.random((n, h)) < 0.4,
+                          rng.integers(size // 2, size, size=(n, h),
+                                       dtype=np.uint64),
+                          built.reshape(-1)[rng.integers(
+                              0, built.size, size=(n, h))])
+        maxc = 2
+    elif kind == "repeated_slots":
+        hashes = distinct[rng.integers(0, len(distinct), size=n)].copy()
+        hashes[:, 2] = hashes[:, 0]
+        hashes[::3, 3] = hashes[::3, 1]
+        strand = rng.random(hashes.shape) < 0.5
+    else:
+        hashes = distinct[rng.integers(0, len(distinct), size=n)]
+        strand = rng.random(hashes.shape) < 0.5
+        valid = rng.random(n) < 0.7
+    st = mibf_construct.BitVectorState(
+        bv_words=torch.zeros(size // 32, dtype=torch.int32, device=dev),
+        filter_size=size, kmer_size=5, hash_num=h, occupancy=0.5, sseeds=())
+    mibf_construct.insert_bv(st, u64.from_numpy(built).to(dev))
+    m, _ = mibf_construct.get_empty_mibf(st, width)
+    if maxc == 1 and kind != "one_kmer":
+        d = m.data.cpu().numpy()
+        d[rng.integers(0, len(d), size=len(d) // 3)] = 5
+        d[rng.integers(0, len(d), size=len(d) // 7)] = (m.s_mask | 5) - (
+            (1 << 8 * width) if width > 1 else 0)
+        m.data.copy_(torch.from_numpy(d))
+    return (m, u64.from_numpy(hashes).to(dev),
+            None if strand is None else torch.from_numpy(strand).to(dev),
+            None if valid is None else torch.from_numpy(valid).to(dev),
+            maxc, kind != "past_last_bit")
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("kind", RANDOM_SCHEDULES)
+def test_mibf_random_insert_schedules_match_plain(dev, kind, width):
+    """The kernel's rounds and tail on frames that force each path: IDs
+    and success equal the plain version's and (where defined, without a
+    frame mask) the host mirror's; the kernel's round count, frames run in
+    rounds and tail length equal round_schedule's."""
+    from btl_bloomfilter_tpu_torch.kernels import mibf_random_insert as ri
+    from btl_bloomfilter_tpu_torch.models import mibf_construct
+    m, hashes, strand, valid, maxc, host = schedule_filter(kind, width, dev)
+    args = (m.bv_words, m.cum_ranks, m.rank_dir)
+    a, b = m.data.clone(), m.data.clone()
+    got_s = torch.zeros(3, dtype=torch.int32, device=dev)
+    ref_s = torch.zeros(3, dtype=torch.int32)
+    before = ri.KERNEL.launches
+    got = ri.random_insert(*args, a, hashes, m.size, 9, maxc, strand, valid,
+                           schedule=got_s)
+    assert ri.KERNEL.launches == before + 1
+    ref = ri.random_insert_plain(*args, b, hashes, m.size, 9, maxc, strand,
+                                 valid, schedule=ref_s)
+    assert torch.equal(got, ref) and torch.equal(a, b)
+    assert got_s.tolist() == ref_s.tolist()
+    if kind == "one_kmer":
+        assert got_s.tolist() == [1, 1, hashes.shape[0] - 1]
+    if host and valid is None:
+        hm = mibf_construct.insert_random_order(
+            dataclasses.replace(m, data=m.data.cpu(),
+                                bv_words=m.bv_words.cpu(),
+                                cum_ranks=m.cum_ranks.cpu()),
+            hashes.cpu(), 9, maxc, None if strand is None else strand.cpu())
+        assert torch.equal(a.cpu(), hm[0].data)
+        assert np.array_equal(got.cpu().numpy(), hm[1])

@@ -226,3 +226,124 @@ def test_strand_carrying_classification_matches_jax(strand_filter):
                                      num_ids, 10**6)
     totals = tables["counts"][:, 2]
     assert totals[64:].sum() > 0 and totals[1:64].sum() > 0
+
+
+SCHEDULE_KINDS = ["one_kmer", "repeats", "unset_bits", "past_last_bit",
+                  "repeated_slots", "invalid_interleaved"]
+
+
+def schedule_inputs(kind, width):
+    """(JAX filter, hashes uint64 [n, h], strand, valid, max_count) of one
+    adversarial schedule case at h = 4 in a 4096-bit vector; the cases at
+    max_count 1 but one_kmer start from pre-set and pre-saturated entries
+    (at max_count 2 those reach the reference's assert)."""
+    rng = np.random.default_rng(SCHEDULE_KINDS.index(kind) * 10 + width)
+    size, h = 4096, 4
+    distinct = rng.integers(0, 1 << 64, size=(60, h), dtype=np.uint64)
+    strand = None
+    valid = None
+    maxc = 1
+    built = distinct
+    if kind == "one_kmer":
+        hashes = np.repeat(distinct[:1], 300, axis=0)
+        strand = np.repeat(rng.random((1, h)) < 0.5, 300, axis=0)
+    elif kind == "repeats":
+        idx = np.repeat(np.arange(40), rng.integers(2, 65, size=40))
+        hashes = distinct[rng.permutation(idx)]
+        maxc = 2
+    elif kind == "unset_bits":
+        # positions mostly unset, below the last set bit: each slot reads
+        # the rank of the next set bit, which other slots alias
+        last = int((distinct % np.uint64(size)).max())
+        hashes = rng.integers(0, last, size=(200, h), dtype=np.uint64)
+        hashes = hashes[rng.integers(0, 200, size=400)]
+        strand = rng.random(hashes.shape) < 0.5
+    elif kind == "past_last_bit":
+        # set bits only in the low half; slots in the high half rank d_size
+        built = rng.integers(0, size // 2, size=(60, h), dtype=np.uint64)
+        hashes = np.where(rng.random((300, h)) < 0.4,
+                          rng.integers(size // 2, size, size=(300, h),
+                                       dtype=np.uint64),
+                          built.reshape(-1)[rng.integers(0, 60 * h,
+                                                         size=(300, h))])
+        maxc = 2
+    elif kind == "repeated_slots":
+        hashes = distinct[rng.integers(0, 60, size=300)].copy()
+        hashes[:, 2] = hashes[:, 0]
+        hashes[::3, 3] = hashes[::3, 1]
+        strand = rng.random(hashes.shape) < 0.5
+    else:
+        hashes = distinct[rng.integers(0, 60, size=400)]
+        strand = rng.random(hashes.shape) < 0.5
+        valid = rng.random(400) < 0.7
+    st = jax_construct.BitVectorState(
+        bv_words=jnp.zeros(size // 32, jnp.uint32), filter_size=size,
+        kmer_size=5, hash_num=h, occupancy=0.5, sseeds=())
+    st = jax_construct.insert_bv(st, jax_u64.from_numpy(built))
+    jm, _ = jax_construct.get_empty_mibf(st, data_width=width)
+    if kind != "one_kmer" and maxc == 1:
+        d0 = np.asarray(jm.data).copy()
+        d0[rng.integers(0, len(d0), size=len(d0) // 3)] = 5
+        d0[rng.integers(0, len(d0), size=len(d0) // 7)] = jm.s_mask | 5
+        jm = dataclasses.replace(jm, data=jnp.asarray(d0))
+    return jm, hashes, strand, valid, maxc
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("kind", SCHEDULE_KINDS)
+def test_round_schedule_replay_matches_jax(kind, width):
+    """The kernel's rounds, replayed with each round's frames in reverse
+    index order (any order inside a round must do), then the tail in
+    order, give the JAX host mirror's IDs and success flags."""
+    jm, hashes, strand, valid, maxc = schedule_inputs(kind, width)
+    m = port_copy(jm)
+    h = u64.from_numpy(hashes)
+    st = None if strand is None else torch.from_numpy(strand)
+    v = None if valid is None else torch.from_numpy(valid)
+    keys = mibf_random_insert.slot_keys(m.bv_words, m.cum_ranks, m.rank_dir,
+                                        h, m.size, m.d_size)
+    sched = mibf_random_insert.round_schedule(keys, v)
+    n = hashes.shape[0]
+    rounds = int(sched.max()) + 1
+    for r in range(rounds):
+        frames = torch.nonzero(sched == r).reshape(-1)
+        assert frames.numel()
+        pairs = torch.unique(torch.stack([
+            frames[:, None].expand(-1, keys.shape[1]), keys[frames]], -1)
+            .reshape(-1, 2), dim=0)
+        # no two frames of a round share a key
+        assert torch.unique(pairs[:, 1]).numel() == pairs.shape[0]
+    order = [f for r in range(rounds)
+             for f in reversed(torch.nonzero(sched == r).reshape(-1).tolist())]
+    order += torch.nonzero(sched == mibf_random_insert.TAIL).reshape(-1) \
+        .tolist()
+    counts = torch.zeros(3, dtype=torch.int32)
+    ok = mibf_random_insert.random_insert_plain(
+        m.bv_words, m.cum_ranks, m.rank_dir, m.data, h, m.size, 9, maxc, st,
+        v, schedule=counts, order=order)
+    assert tuple(counts.tolist()) == \
+        mibf_random_insert.schedule_counts(sched)
+    if kind == "one_kmer":      # frame 0 alone, then the tail
+        assert sched[0] == 0 and (sched[1:] == mibf_random_insert.TAIL).all()
+    if kind == "repeats":       # chains as deep as the repeats
+        assert rounds > 2
+    if valid is not None:
+        assert (sched[~v] == mibf_random_insert.INVALID).all()
+        assert not ok[~v].any()
+    if kind == "past_last_bit":
+        assert (keys == m.d_size - 1).any()
+        if width != 2:
+            return
+        jb, sb = jax_construct.insert_random_order_device(
+            jm, jax_u64.from_numpy(hashes), 9, maxc)
+        expect, expect_ok = np.asarray(jb.data), np.asarray(sb)
+    else:
+        keep = np.ones(n, bool) if valid is None else valid
+        ja, sa = jax_construct.insert_random_order(
+            jm, hashes[keep], 9, maxc,
+            strand=None if strand is None else strand[keep])
+        expect = np.asarray(ja.data)
+        expect_ok = np.zeros(n, bool)
+        expect_ok[keep] = np.asarray(sa)
+    np.testing.assert_array_equal(mibf.to_numpy(m)[2], expect)
+    np.testing.assert_array_equal(ok.numpy(), expect_ok)

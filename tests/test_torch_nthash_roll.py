@@ -59,7 +59,7 @@ def test_roll_tables_match_srol_pow(k):
     assert nthash_scan.roll_tables(k) is nthash_scan.roll_tables(k)
 
 
-# the kernel's one-step rotations (srol1 / sror1 in csrc/nthash_scan.cu)
+# the kernel's one-step rotations (srol1 / sror1 in csrc/nthash_roll.cuh)
 def srol1(v):
     return (((v << M(1)) & ~M(1 << 33)) | ((v >> M(32)) & M(1))
             | ((v >> M(30)) & M(1 << 33)))

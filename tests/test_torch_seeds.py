@@ -1,7 +1,7 @@
 """The port's spaced-seed hashing (``ops/seeds.py``, plain PyTorch) against
 the reference's goldens and the JAX package, and the spaced-hash kernel's
-arithmetic (its per-offset tables and seed list, ``kernels/spaced_scan``)
-modelled in torch against the plain version.
+arithmetic (the ntHash roll, the masked offsets' table rows and the seed
+list, ``kernels/spaced_scan``) modelled against the plain version.
 
 stHash: ``spaced_hash_frames`` against ``sthash_golden.jsonl`` and against
 the JAX ``spaced_hash_frames`` on random reads with Ns (and other non-ACGT
@@ -15,6 +15,7 @@ bool: the tolerance is zero.
 import functools
 import json
 import os
+import re
 
 import jax
 import numpy as np
@@ -22,8 +23,9 @@ import pytest
 import torch
 
 from btl_bloomfilter_tpu.ops import seeds as jax_seeds
-from btl_bloomfilter_tpu_torch.kernels import spaced_scan
+from btl_bloomfilter_tpu_torch.kernels import _build, nthash_scan, spaced_scan
 from btl_bloomfilter_tpu_torch.ops import nthash, nthash_tables, seeds, u64
+from test_torch_nthash_roll import roll_model
 
 torch.set_num_threads(1)
 
@@ -168,45 +170,65 @@ def test_padded_short_reads_hash_invalid():
 
 
 def kernel_model(codes, seed_strings, m2):
-    """csrc/spaced_scan.cu's arithmetic in torch: the unmasked hashes from
-    the per-offset tables, each seed's masked offsets XORed out again from
-    its entries of the seed list."""
+    """csrc/spaced_scan.cu's arithmetic: the unmasked hashes rolled in runs
+    from the all-N window with the ntHash kernel's tables (the model of
+    tests/test_torch_nthash_roll.py), then each seed's masked offsets XORed
+    out again from their rows of ``masked_tables``, the bases at the
+    offsets ``seed_info`` lists."""
     k = len(seed_strings[0])
-    tab = spaced_scan.offset_tables(k)
-    tf, tr = tab[:5 * k].view(k, 5), tab[5 * k:].view(k, 5)
+    fh, rh, valid = roll_model(codes.numpy(), k, nthash_scan.run_length(k))
+    fh, rh = u64.from_numpy(fh), u64.from_numpy(rh)
+    rows = spaced_scan.masked_tables(tuple(seed_strings)).view(-1, 10)
     info = spaced_scan.seed_info(tuple(seed_strings)).tolist()
     m = len(seed_strings)
     win = codes.to(torch.int64).clamp(max=4).unfold(1, k, 1)   # [B, W, k]
-    fh = torch.zeros(win.shape[:2], dtype=torch.int64)
-    rh = torch.zeros_like(fh)
-    for i in range(k):
-        fh ^= tf[i][win[..., i]]
-        rh ^= tr[i][win[..., i]]
-    valid = (win != 4).all(-1)
     hashes, strands = [], []
     for s in range(m):
         fs, rs = fh.clone(), rh.clone()
-        for i in info[m + 1 + info[s]: m + 1 + info[s + 1]]:
-            fs ^= tf[i][win[..., i]]
-            rs ^= tr[i][win[..., i]]
+        for z in range(info[s], info[s + 1]):
+            c = win[..., info[m + 1 + z]]
+            fs ^= rows[z][c]
+            rs ^= rows[z][5 + c]
         st = u64.lt(rs, fs)
         d = nthash.derive_hashes(torch.where(st, rs, fs), k, m2)
         hashes.append(d)
         strands.append(st[..., None].expand(d.shape))
-    return torch.cat(hashes, -1), torch.cat(strands, -1), valid
+    return torch.cat(hashes, -1), torch.cat(strands, -1), \
+        torch.from_numpy(valid)
 
 
 @pytest.mark.parametrize("k,m,m2", [(1, 1, 2), (9, 2, 1), (31, 2, 2),
                                     (129, 3, 3), (700, 2, 1)])
 def test_kernel_tables_model_matches_plain(k, m, m2):
-    """The tables and the seed list the kernel reads give the plain
-    frames: at k = 700 the tables pass 48 KB of shared memory."""
+    """The roll tables, the masked rows and the seed list the kernel reads
+    give the plain frames: at k = 700 the rows of 2 x 140 masked offsets
+    take 22 KB of shared memory."""
     seed_strings = random_seeds(k, m, np.random.default_rng(k))
     codes = torch.from_numpy(random_codes(2, k + 40, k))
     got = kernel_model(codes, seed_strings, m2)
     f = seeds.spaced_hash_frames(codes, seed_strings, m2)
     for a, b in zip(got, (f.hashes, f.strand, f.valid)):
         assert torch.equal(a, b)
+
+
+def test_masked_tables_layout():
+    """Each masked offset's row: its 5 forward then 5 reverse terms."""
+    seed_strings = ("1101", "1111", "0110")
+    k = 4
+    tab = spaced_scan.offset_tables(k)
+    rows = spaced_scan.masked_tables(seed_strings).view(-1, 10)
+    assert rows.shape == (3, 10)
+    for z, i in enumerate([2, 0, 3]):
+        assert torch.equal(rows[z, :5], tab[5 * i: 5 * i + 5])
+        assert torch.equal(rows[z, 5:], tab[5 * k + 5 * i: 5 * k + 5 * i + 5])
+    assert spaced_scan.masked_tables(("111",)).numel() == 0
+
+
+def test_tile_matches_the_source():
+    """The wrapper's tile size is the kernel's (``#define TILE``)."""
+    with open(os.path.join(_build.CSRC, "spaced_scan.cu")) as f:
+        tile = re.search(r"^#define TILE (\d+)", f.read(), re.M).group(1)
+    assert int(tile) == spaced_scan.TILE
 
 
 def test_seed_info_layout():
