@@ -2,8 +2,8 @@
 //   rank = cum_ranks[p >> 5] + popc(bv[p >> 5] & ((1 << (p & 31)) - 1))
 //   hit  = (bv[p >> 5] >> (p & 31)) & 1
 // and, in rank + ID mode, raw = hit ? data[min(rank, d_size - 1)] : 0 from
-// the ID plane (uint8, uint16 or uint32 elements, saturation and strand
-// bits kept).
+// the ID plane (uint8, uint16, uint32 or uint64 elements, saturation and
+// strand bits kept; raw is uint32, or uint64 for the uint64 plane).
 //
 // Replaces: btl_bloomfilter_tpu/kernels/gather_words.py:_kernel2 (behind
 // gather_words_pair_sorted, the bv word and its cumulative rank in one
@@ -27,7 +27,9 @@
 // are two arrays, so a lookup through them reads two random 32-byte
 // sectors; through the directory it reads one, and at bench.py's 2**28
 // bits the directory (38 MB) fits the 50 MB L2 where the two arrays (64
-// MB) did not. On a hit the ID is one more random load. Design: one thread
+// MB) did not. On a hit the ID is one more random load (8 bytes at width 8,
+// still inside one sector; the JAX package gathers the two uint32 planes of
+// a width-8 filter with XLA, mibf.py:288-296). Design: one thread
 // a position in a grid-stride loop, the block read as two 16-byte loads of
 // one sector; coalesced position loads and output stores; the ID load is
 // skipped on a miss, where raw is 0 anyway. Position words past the vector
@@ -35,13 +37,15 @@
 
 #include "common.cuh"
 
-template <typename T>
+// T: the ID plane's element, R: raw's (uint32_t, or unsigned long long
+// for the uint64 plane)
+template <typename T, typename R>
 __global__ void __launch_bounds__(BTL_BLOCK)
 mibf_rank_kernel(const uint32_t* __restrict__ pos, long long n,
                  const uint4* __restrict__ dir, uint32_t nwords,
                  const T* __restrict__ data, long long d_size,
                  int32_t* __restrict__ rank, bool* __restrict__ hit,
-                 uint32_t* __restrict__ raw) {
+                 R* __restrict__ raw) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < n; i += stride) {
@@ -63,32 +67,32 @@ mibf_rank_kernel(const uint32_t* __restrict__ pos, long long n,
         rank[i] = (int32_t)r;
         hit[i] = h;
         if (raw != nullptr) {
-            uint32_t x = 0;
+            R x = 0;
             if (h) {
                 const long long rc = (long long)r < d_size ? (long long)r
                                                            : d_size - 1;
-                x = (uint32_t)__ldg(&data[rc]);
+                x = (R)__ldg(&data[rc]);
             }
             raw[i] = x;
         }
     }
 }
 
-template <typename T>
+template <typename T, typename R = uint32_t>
 static cudaError_t launch(const void* pos, long long n, const void* dir,
                           long long nwords, const void* data,
                           long long d_size, void* rank, void* hit, void* raw,
                           cudaStream_t stream) {
-    mibf_rank_kernel<T><<<btl_blocks(n), BTL_BLOCK, 0, stream>>>(
+    mibf_rank_kernel<T, R><<<btl_blocks(n), BTL_BLOCK, 0, stream>>>(
         (const uint32_t*)pos, n, (const uint4*)dir, (uint32_t)nwords,
-        (const T*)data, d_size, (int32_t*)rank, (bool*)hit, (uint32_t*)raw);
+        (const T*)data, d_size, (int32_t*)rank, (bool*)hit, (R*)raw);
     return cudaGetLastError();
 }
 
 // pos uint32 [n]; dir the rank directory of a bit vector of nwords words
 // (1 <= nwords <= 2**27), 16-byte aligned; data [d_size] of `width` bytes
-// (1, 2 or 4), or null with width 0 for rank-only mode (raw then null
-// too); rank int32 [n], hit bool [n], raw uint32 [n].
+// (1, 2, 4 or 8), or null with width 0 for rank-only mode (raw then null
+// too); rank int32 [n], hit bool [n], raw uint32 [n] (uint64 at width 8).
 extern "C" int btl_mibf_rank(const void* pos, long long n, const void* dir,
                              long long nwords, const void* data, int width,
                              long long d_size, void* rank, void* hit,
@@ -112,6 +116,9 @@ extern "C" int btl_mibf_rank(const void* pos, long long n, const void* dir,
         case 4:
             return (int)launch<uint32_t>(pos, n, dir, nwords, data, d_size,
                                          rank, hit, raw, s);
+        case 8:
+            return (int)launch<unsigned long long, unsigned long long>(
+                pos, n, dir, nwords, data, d_size, rank, hit, raw, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

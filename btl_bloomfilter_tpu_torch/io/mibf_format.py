@@ -6,7 +6,8 @@ MIBloomFilter.hpp:149-305, 722-742):
               uint64 size (data length); uint32 nhash; uint32 kmer;
               uint32 version=1}   (#pragma pack(1), MIBloomFilter.hpp:107)
               then each spaced-seed string (kmer bytes each),
-              then the raw little-endian data array (size * sizeof(T));
+              then the raw little-endian data array (size * sizeof(T);
+              at width 8 the uint64 stream);
   <path>.sdsl: the interleaved bit vector (``io/sdsl.py``).
 """
 
@@ -23,7 +24,7 @@ MAGIC = b"MIBLOOMF"
 VERSION = 1
 _HEADER_FMT = "<8sIQIII"  # magic, hlen, size, nhash, kmer, version
 _HEADER_SIZE = struct.calcsize(_HEADER_FMT)
-_NP_LE = {1: "<u1", 2: "<u2", 4: "<u4"}
+_NP_LE = {1: "<u1", 2: "<u2", 4: "<u4", 8: "<u8"}
 
 
 def store_mibf(m: mibf_mod.MIBloomFilter, path: str) -> None:
@@ -31,16 +32,16 @@ def store_mibf(m: mibf_mod.MIBloomFilter, path: str) -> None:
     hlen = _HEADER_SIZE + m.kmer_size * len(m.sseeds)
     header = struct.pack(_HEADER_FMT, MAGIC, hlen, m.d_size, m.hash_num,
                          m.kmer_size, VERSION)
-    bv_words, _cum, data = mibf_mod.to_numpy(m)
     with open(path, "wb") as f:
         f.write(header)
         for s in m.sseeds:
             if len(s) != m.kmer_size:
                 raise ValueError("spaced seed length != kmer size")
             f.write(s.encode("ascii"))
-        f.write(data.astype(_NP_LE[m.data_width]).tobytes())
+        f.write(mibf_mod.ids_numpy(m).astype(_NP_LE[m.data_width]).tobytes())
     with open(path + ".sdsl", "wb") as f:
-        f.write(sdsl_io.serialize_bit_vector_il(bv_words, m.size))
+        f.write(sdsl_io.serialize_bit_vector_il(
+            m.bv_words.cpu().numpy().view(np.uint32), m.size))
 
 
 def load_mibf(path: str, data_width: int = 2,
@@ -72,6 +73,8 @@ def load_mibf(path: str, data_width: int = 2,
             f"{path} does not match size given by its header: {len(body)}"
             f" vs {d_size * data_width} bytes")
     data = np.frombuffer(body, dtype=_NP_LE[data_width], count=d_size)
+    if data_width == 8:
+        data = mibf_mod.u64_planes(data)
     with open(path + ".sdsl", "rb") as f:
         bits_u32, size_bits = sdsl_io.deserialize_bit_vector_il(f.read())
     return mibf_mod.from_numpy(bits_u32, data, size=size_bits,

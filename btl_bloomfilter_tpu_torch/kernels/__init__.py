@@ -16,7 +16,8 @@
   * ``conservative_step`` - counting-filter conservative step (gather, min,
     target and a carry-free atomicAdd per lane in one pass): the insert's
     closed form and replay rounds
-  * ``mibf_rank``    - MIBF rank, hit and ID of bit positions
+  * ``mibf_rank``    - MIBF rank, hit and ID of bit positions (the ID
+    plane's uint64 instantiation, width 8, counted as ``mibf_rank_u64``)
   * ``mibf_frame_scan`` - MIBF classification's per-read pass C, as prefix
     scans
   * ``spaced_scan``  - spaced-seed ntHash frames (stHash: m seeds x m2
@@ -70,6 +71,8 @@ KERNELS = {
     # the spaced-seed MIBF path
     "spaced_scan": spaced_scan.KERNEL,
     "mibf_random_insert": mibf_random_insert.KERNEL,
+    # the width-8 (uint64 ID) MIBF's rank + ID lookup
+    "mibf_rank_u64": mibf_rank.U64_KERNEL,
 }
 
 

@@ -3,15 +3,17 @@
 
 ``rank_lookup(bv_words, cum_ranks, rank_dir, pos, data=None)`` takes
 positions int32 [...] (uint32 bits, each < the vector's size) and returns
-(rank int32, hit bool, raw int32 or None), all shaped like pos:
+(rank int32, hit bool, raw int32 / int64 or None), all shaped like pos:
 
   * rank = cum_ranks[p >> 5] + popcount(bv_words[p >> 5] & ((1 << (p & 31))
     - 1)): the number of set bits before p (sdsl rank);
   * hit  = bit p is set;
-  * raw  = data[min(rank, d_size - 1)] where hit, else 0, as uint32 bits:
-    the ID with its saturation and strand bits. Only when ``data`` (the ID
-    plane, uint8 / int16 / int32 bit patterns for widths 1 / 2 / 4) is
-    given: construction needs ranks only.
+  * raw  = data[min(rank, d_size - 1)] where hit, else 0: the ID with its
+    saturation and strand bits, as int32 holding uint32 bits, or at width 8
+    as int64 holding the uint64 bits. Only when ``data`` (the ID plane,
+    uint8 / int16 / int32 / int64 bit patterns for widths 1 / 2 / 4 / 8) is
+    given: construction needs ranks only. The width-8 form is the kernel's
+    uint64 instantiation and counts its launches as ``U64_KERNEL``.
 
 A word index past the vector is clamped to its last word.
 
@@ -35,15 +37,17 @@ import torch
 from ..ops import u64
 from . import _build
 
-KERNEL = _build.CudaKernel("btl_mibf_rank", [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p])
+ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+KERNEL = _build.CudaKernel("btl_mibf_rank", ARGS)
+U64_KERNEL = _build.CudaKernel("btl_mibf_rank", ARGS)    # width 8
 
 # words of the bit vector a directory block holds, and its int32 entries
 BLOCK_WORDS, BLOCK = 7, 8
 
-_ID_DTYPES = (torch.uint8, torch.int16, torch.int32)   # widths 1, 2, 4
+# widths 1, 2, 4, 8
+_ID_DTYPES = (torch.uint8, torch.int16, torch.int32, torch.int64)
 
 
 def rank_directory(bv_words: torch.Tensor,
@@ -69,7 +73,8 @@ def _check_dir(rank_dir: torch.Tensor, nwords: int) -> None:
 def _check_ids(data) -> None:
     if data is not None:
         if data.dtype not in _ID_DTYPES or data.dim() != 1:
-            raise TypeError("data must be a 1-D uint8, int16 or int32 tensor")
+            raise TypeError("data must be a 1-D uint8, int16, int32 or "
+                            "int64 tensor")
         if data.numel() >= (1 << 31):
             raise ValueError("ID planes of 2**31 entries or more are not "
                              "supported (ranks are int32)")
@@ -93,14 +98,17 @@ def _check(bv_words: torch.Tensor, cum_ranks: torch.Tensor,
 
 
 def _ids(data, rank: torch.Tensor, hit: torch.Tensor, pos: torch.Tensor):
-    """raw of the plain versions: data[min(rank, d_size - 1)] as uint32
-    bits where hit, else 0."""
+    """raw of the plain versions: data[min(rank, d_size - 1)] where hit,
+    else 0, as uint32 bits (int64 at width 8)."""
     if data is None:
         return None
+    wide = data.dtype == torch.int64
     if not data.numel():
-        return torch.zeros_like(pos)
-    vals = u64.unsigned(data[rank.clamp(max=data.numel() - 1)])
-    return u64.to_u32_bits(torch.where(hit, vals, 0))
+        return torch.zeros(pos.shape, dtype=data.dtype if wide else pos.dtype,
+                           device=pos.device)
+    vals = torch.where(hit, u64.unsigned(
+        data[rank.clamp(max=data.numel() - 1)]), 0)
+    return vals if wide else u64.to_u32_bits(vals)
 
 
 def rank_lookup_plain(bv_words: torch.Tensor, cum_ranks: torch.Tensor,
@@ -149,7 +157,9 @@ def rank_lookup(bv_words: torch.Tensor, cum_ranks: torch.Tensor,
     pos = pos.contiguous()
     rank = torch.empty(pos.shape, dtype=torch.int32, device=dev)
     hit = torch.empty(pos.shape, dtype=torch.bool, device=dev)
-    raw = None if data is None else torch.empty_like(pos)
+    raw = None if data is None else torch.empty(
+        pos.shape, dtype=torch.int64 if data.dtype == torch.int64
+        else torch.int32, device=dev)
     n = pos.numel()
     if n:
         rank_dir = rank_dir.contiguous()
@@ -158,7 +168,9 @@ def rank_lookup(bv_words: torch.Tensor, cum_ranks: torch.Tensor,
         if data is not None:
             data = data.contiguous()
         null = ctypes.c_void_p(None)
-        KERNEL.launch(
+        kernel = U64_KERNEL if data is not None and \
+            data.dtype == torch.int64 else KERNEL
+        kernel.launch(
             dev, _build.ptr(pos), n, _build.ptr(rank_dir), bv_words.numel(),
             null if data is None else _build.ptr(data),
             0 if data is None else data.element_size(),

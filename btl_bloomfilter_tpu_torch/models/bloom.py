@@ -250,3 +250,24 @@ def calc_fpr_num_inserted(bf: BloomFilter, num: int) -> float:
     return math.pow(1.0 - math.pow(1.0 - 1.0 / float(bf.size),
                                    float(num) * bf.hash_num),
                     float(bf.hash_num))
+
+
+def _require_entries(bf: BloomFilter) -> None:
+    if bf.n_entry <= 0:
+        raise ValueError("the filter's n_entry must be set (> 0)")
+
+
+def get_fpr_num_ele(bf: BloomFilter) -> float:
+    """The FPR expected after ``n_entry`` insertions (getFPR_numEle)."""
+    _require_entries(bf)
+    return calc_fpr_num_inserted(bf, bf.n_entry)
+
+
+def get_redundancy_fpr(bf: BloomFilter) -> float:
+    """The mean FPR over the 1st to the ``n_entry``-th insertion
+    (getRedudancyFPR, BloomFilter.hpp:333-341)."""
+    _require_entries(bf)
+    total = math.log(calc_fpr_num_inserted(bf, 1))
+    for i in range(2, bf.n_entry):
+        total = math.log(math.exp(total) + calc_fpr_num_inserted(bf, i))
+    return math.exp(total) / bf.n_entry

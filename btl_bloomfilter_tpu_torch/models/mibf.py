@@ -8,14 +8,17 @@ the next the strand flag ``s_strand``, the rest the ID.
 
 Storage: ``bv_words`` and ``cum_ranks`` are int32 tensors holding uint32
 bits; ``data`` holds the IDs at their native width as bit patterns
-(widths 1 / 2 / 4 bytes as uint8 / int16 / int32), so its bytes are the
-reference's ID array; every comparison on it is unsigned
-(``ops/u64.unsigned``). ``rank_dir`` is derived from the two: the rank
+(widths 1 / 2 / 4 / 8 bytes as uint8 / int16 / int32 / int64), so its bytes
+are the reference's ID array; every comparison on it is unsigned
+(``ops/u64.unsigned``, ``u64.gt_const``). Width 8 (MIBloomFilter<uint64_t>,
+its s_mask and s_strand at bits 63 and 62) is one int64 plane, where the
+reference keeps two uint32 planes; ``from_numpy`` / ``to_numpy`` take and
+give those planes, and value results come back as int64 holding the
+uint64 bits. ``rank_dir`` is derived from the two: the rank
 directory of ``kernels/mibf_rank`` (the cumulative count and 7 words a 32
 bytes, so a lookup on the card reads one sector), built once by
 ``freeze``, through which every filter is made; the bit vector never
-changes after it. Width 8 (two uint32 planes in the reference) is not
-ported yet and raises ``NotImplementedError``.
+changes after it.
 
 Rank and ID lookups go through the CUDA kernel ``kernels/mibf_rank`` when
 the filter lies on a GPU, through its plain version on the CPU; that one
@@ -38,28 +41,36 @@ import torch
 from ..kernels import mibf_rank
 from ..ops import u64
 
-STORAGE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
-_NP = {1: np.uint8, 2: np.uint16, 4: np.uint32}
-_NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32}    # numpy of STORAGE
+STORAGE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+_NP = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+# numpy of STORAGE
+_NP_SIGNED = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
 
 def check_width(data_width: int) -> None:
-    if data_width == 8:
-        raise NotImplementedError("width-8 MIBF (uint64 IDs in two planes) "
-                                  "is not ported yet")
     if data_width not in STORAGE:
         raise ValueError(f"unsupported data width {data_width}")
 
 
 def to_storage(values: torch.Tensor, data_width: int) -> torch.Tensor:
-    """Unsigned int64 values < 2**(8 * data_width) -> the storage dtype with
-    the same bits."""
+    """Unsigned int64 values < 2**(8 * data_width) (at width 8, int64
+    holding the uint64 bits) -> the storage dtype with the same bits."""
     if data_width == 1:
         return values.to(torch.uint8)
     if data_width == 2:
         return torch.where(values >= (1 << 15), values - (1 << 16),
                            values).to(torch.int16)
+    if data_width == 8:
+        return values
     return u64.to_u32_bits(values)
+
+
+def u64_planes(values: np.ndarray) -> np.ndarray:
+    """uint64 IDs [n] -> the JAX package's width-8 state, uint32 [2, n]
+    (row 0 the low limbs)."""
+    values = np.asarray(values, dtype=np.uint64)
+    return np.stack([(values & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                     (values >> np.uint64(32)).astype(np.uint32)])
 
 
 @dataclasses.dataclass
@@ -72,7 +83,7 @@ class MIBloomFilter:
     hash_num: int
     kmer_size: int
     d_size: int               # population count == len(data)
-    data_width: int           # bytes per ID: 1, 2 or 4
+    data_width: int           # bytes per ID: 1, 2, 4 or 8
     sseeds: Tuple[str, ...] = ()
 
     # --- bit-layout constants (MIBloomFilter.hpp:36-44) -------------------
@@ -152,7 +163,8 @@ def from_numpy(bv_words_u32: np.ndarray, data: np.ndarray, *, size: int,
                hash_num: int, kmer_size: int, data_width: int,
                sseeds: Sequence[str] = (), device="cuda") -> MIBloomFilter:
     """A filter over the JAX package's state (``np.asarray(m.bv_words)``,
-    ``np.asarray(m.data)``) on ``device``; the arrays are copied."""
+    ``np.asarray(m.data)``: at width 8 the uint32 [2, d_size] planes) on
+    ``device``; the arrays are copied."""
     check_width(data_width)
     words = np.array(bv_words_u32, dtype=np.uint32)
     if words.shape != ((size + 31) // 32,):
@@ -160,7 +172,15 @@ def from_numpy(bv_words_u32: np.ndarray, data: np.ndarray, *, size: int,
                          f"{size}, got shape {words.shape}")
     m = freeze(torch.from_numpy(words.view(np.int32)).to(device), size,
                hash_num, kmer_size, data_width, sseeds)
-    ids = np.array(data, dtype=_NP[data_width])
+    if data_width == 8:
+        planes = np.asarray(data, dtype=np.uint32)
+        if planes.shape != (2, m.d_size):
+            raise ValueError(f"expected [2, {m.d_size}] uint32 planes, got "
+                             f"shape {planes.shape}")
+        ids = planes[0].astype(np.uint64) | (planes[1].astype(np.uint64)
+                                             << np.uint64(32))
+    else:
+        ids = np.array(data, dtype=_NP[data_width])
     if ids.shape != (m.d_size,):
         raise ValueError(f"expected {m.d_size} IDs (the bit vector's "
                          f"popcount), got shape {ids.shape}")
@@ -168,13 +188,20 @@ def from_numpy(bv_words_u32: np.ndarray, data: np.ndarray, *, size: int,
     return m
 
 
+def ids_numpy(m: MIBloomFilter) -> np.ndarray:
+    """The ID array on the host, numpy uint8 / 16 / 32 / 64: the reference's
+    ``m_data``."""
+    return m.data.cpu().numpy().view(_NP[m.data_width])
+
+
 def to_numpy(m: MIBloomFilter):
-    """(bv_words uint32, cum_ranks uint32, data uint8/16/32) on the host: the
-    JAX package's arrays."""
-    data = m.data.cpu().numpy()
+    """(bv_words uint32, cum_ranks uint32, data) on the host: the JAX
+    package's arrays, data uint8 / 16 / 32, or at width 8 its uint32 [2,
+    d_size] planes."""
+    ids = ids_numpy(m)
     return (m.bv_words.cpu().numpy().view(np.uint32),
             m.cum_ranks.cpu().numpy().view(np.uint32),
-            data.view(_NP[m.data_width]))
+            u64_planes(ids) if m.data_width == 8 else ids)
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +232,12 @@ def at_rank(m: MIBloomFilter, hashes: torch.Tensor):
 
 def at_rank_data(m: MIBloomFilter, hashes: torch.Tensor):
     """at_rank + getData in one lookup: (rank int32, hit bool, raw int64)
-    shaped like hashes, raw = data[rank] as an unsigned value with its
-    saturation and strand bits, 0 where the bit vector missed."""
+    shaped like hashes, raw = data[rank] as an unsigned value (at width 8
+    the uint64 bits) with its saturation and strand bits, 0 where the bit
+    vector missed."""
     rank, hit, raw = mibf_rank.rank_lookup(
         m.bv_words, m.cum_ranks, m.rank_dir, positions(m, hashes), m.data)
-    return rank, hit, u64.from_u32_bits(raw)
+    return rank, hit, u64.unsigned(raw)
 
 
 def at(m: MIBloomFilter, hashes: torch.Tensor, max_miss: int = 0):
@@ -218,7 +246,7 @@ def at(m: MIBloomFilter, hashes: torch.Tensor, max_miss: int = 0):
     positions; values at missing slots are 0, saturation bits stripped."""
     _, hit, raw = at_rank_data(m, hashes)
     ok = (~hit).sum(dim=-1) <= max_miss
-    sat = raw > m.s_mask
+    sat = u64.gt_const(raw, m.s_mask)
     vals = torch.where(sat, raw & m.s_anti_mask, raw)
     # any miss or any non-saturated present value clears the frame's
     # saturated flag (MIBloomFilter.hpp:452-469)
@@ -241,7 +269,8 @@ def saturate(m: MIBloomFilter, hashes: torch.Tensor) -> MIBloomFilter:
     (MIBloomFilter.hpp:440-446). Updates ``m.data`` in place."""
     rank, _ = at_rank(m, hashes)
     r = torch.unique(_in_range(m, rank))
-    m.data[r] = to_storage(u64.unsigned(m.data[r]) | m.s_mask, m.data_width)
+    m.data[r] = to_storage(u64.unsigned(m.data[r]) | u64.as_signed(m.s_mask),
+                           m.data_width)
     return m
 
 
@@ -249,6 +278,7 @@ def set_data(m: MIBloomFilter, rank: torch.Tensor,
              ids: torch.Tensor) -> MIBloomFilter:
     """Overwrite IDs at ranks, keeping each entry's saturation bit
     (setData, MIBloomFilter.hpp:625-634); of duplicate ranks the last wins.
+    ``ids`` are unsigned values (at width 8 int64 holding the uint64 bits).
     Updates ``m.data`` in place."""
     r = rank.reshape(-1).to(torch.int64).to(m.device)
     v = torch.as_tensor(ids).reshape(-1).to(m.device).to(torch.int64)
@@ -259,9 +289,10 @@ def set_data(m: MIBloomFilter, rank: torch.Tensor,
     last = torch.ones(key.numel(), dtype=torch.bool, device=m.device)
     last[:-1] = (key[1:] >> 32) != (key[:-1] >> 32)
     idx = key[last] & 0xFFFFFFFF
-    r, v = r[idx], v[idx] & m.width_mask
-    m.data[r] = to_storage(v | (u64.unsigned(m.data[r]) & m.s_mask),
-                           m.data_width)
+    r, v = r[idx], v[idx] & u64.as_signed(m.width_mask)
+    m.data[r] = to_storage(
+        v | (u64.unsigned(m.data[r]) & u64.as_signed(m.s_mask)),
+        m.data_width)
     return m
 
 
@@ -278,17 +309,24 @@ def get_pop_non_zero(m: MIBloomFilter) -> int:
 
 
 def get_pop_saturated(m: MIBloomFilter) -> int:
-    return int((u64.unsigned(m.data) > m.s_mask).sum())
+    return int(u64.gt_const(u64.unsigned(m.data), m.s_mask).sum())
+
+
+def _id_bins(ids: torch.Tensor, num_ids: int) -> torch.Tensor:
+    """Histogram of stripped IDs over [0, num_ids); IDs past the table
+    (at width 8, also those above 2**63) are dropped, as the reference's
+    scatter drops them."""
+    return torch.bincount(ids[(ids >= 0) & (ids < num_ids)],
+                          minlength=num_ids)
 
 
 def get_id_counts(m: MIBloomFilter, num_ids: int):
     """Histogram of stored IDs (getIDCounts, MIBloomFilter.hpp:539-551):
     (counts int64 [num_ids], saturated count)."""
     d = u64.unsigned(m.data)
-    sat = d > m.s_mask
+    sat = u64.gt_const(d, m.s_mask)
     ids = torch.where(sat, d & m.s_anti_mask, d)
-    counts = torch.bincount(ids[ids < num_ids], minlength=num_ids)
-    return counts, int(sat.sum())
+    return _id_bins(ids, num_ids), int(sat.sum())
 
 
 def calc_frame_probs(m: MIBloomFilter, num_ids: int, allowed_miss: int):
@@ -313,10 +351,10 @@ def get_id_counts_strand(m: MIBloomFilter, num_ids: int):
     its ID bits (``s_id_mask``), any other loses only the strand bit.
     Returns (counts int64 [num_ids], saturated count)."""
     d = u64.unsigned(m.data)
-    sat = d > m.s_mask
-    ids = torch.where(sat, d & m.s_id_mask, d & (m.width_mask & ~m.s_strand))
-    counts = torch.bincount(ids[ids < num_ids], minlength=num_ids)
-    return counts, int(sat.sum())
+    sat = u64.gt_const(d, m.s_mask)
+    ids = torch.where(sat, d & m.s_id_mask,
+                      d & u64.as_signed(m.width_mask & ~m.s_strand))
+    return _id_bins(ids, num_ids), int(sat.sum())
 
 
 def calc_frame_probs_strand(m: MIBloomFilter, num_ids: int,

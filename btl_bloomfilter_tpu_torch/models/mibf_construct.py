@@ -17,6 +17,16 @@ counts as duplicated).
 Phase 1 goes through the scatter-OR kernel (``kernels/scatter_or``), the
 rank lookups of phases 3 and 4 through the MIBF rank kernel
 (``kernels/mibf_rank``) when the state lies on a GPU; the rest is torch.
+``insert_bv_colli`` is phase 1 counting the frames whose bits were all set
+already (insertBVColli), ``insert_bv_colli_sequential`` its per-frame
+mirror.
+
+Every width takes every phase. At width 8 (uint64 IDs) the reservoir takes
+the full 64-bit ``(v ^ id) % count`` where narrower widths take the low
+limb, the occurrence counters stay uint32 (``count_width``), and phase 4 is
+the same batched decomposition, where the reference runs its per-frame
+mirror; the random-order insert runs only in the host mirror, as in the
+reference.
 
 Beside the four phases, MIBloomFilter::insert, the single-pass,
 random-order, strand-carrying insert: ``insert_random_order``, the host
@@ -50,6 +60,7 @@ from ..kernels._build import SENTINEL
 from ..ops import u64
 from ..ops.replay import replay_depth
 from ..utils import stdcpp
+from . import bloom as bloom_mod
 from . import mibf as mibf_mod
 from .mibf import MIBloomFilter
 
@@ -96,15 +107,19 @@ def _valid_mask(valid, shape, device) -> torch.Tensor:
     return torch.as_tensor(valid).to(device).broadcast_to(shape)
 
 
+def _require_u32(state: BitVectorState) -> None:
+    if state.filter_size >= (1 << 32):
+        raise NotImplementedError("bit vectors of 2**32 bits or more are "
+                                  "not supported (positions are uint32)")
+
+
 def insert_bv(state: BitVectorState, hashes: torch.Tensor,
               valid=None) -> BitVectorState:
     """Phase 1: set the bit of every frame position (insertBV,
     MIBFConstructSupport.hpp:75-87). hashes int64 [..., h]; ``valid`` masks
     frames. Updates ``state.bv_words`` in place."""
     dev = state.bv_words.device
-    if state.filter_size >= (1 << 32):
-        raise NotImplementedError("bit vectors of 2**32 bits or more are "
-                                  "not supported (positions are uint32)")
+    _require_u32(state)
     pos = u64.mod_const(hashes.to(dev), state.filter_size)
     v = _valid_mask(valid, hashes.shape[:-1], dev)[..., None]
     scatter_or.scatter_or(state.bv_words,
@@ -112,14 +127,58 @@ def insert_bv(state: BitVectorState, hashes: torch.Tensor,
     return state
 
 
+def insert_bv_colli(state: BitVectorState, hashes: torch.Tensor,
+                    valid=None):
+    """Phase 1 that also counts the valid frames whose h bits were all set
+    at their turn (insertBVColli, MIBFConstructSupport.hpp:55-73): set
+    before the batch or by a valid frame before it, a frame's own writes
+    not counting. That is the order-exact insertAndCheck, so the closed
+    form is ``bloom.insert_and_check_sequential``'s (the first frame to
+    write each position, over a sort of the positions). Updates
+    ``state.bv_words`` in place; returns (state, count)."""
+    _require_u32(state)
+    bf = bloom_mod.BloomFilter(words=state.bv_words, size=state.filter_size,
+                               hash_num=state.hash_num,
+                               kmer_size=state.kmer_size)
+    _, found = bloom_mod.insert_and_check_sequential(bf, hashes, valid)
+    return state, int(found.sum())
+
+
+def insert_bv_colli_sequential(state: BitVectorState, hashes: torch.Tensor,
+                               valid=None):
+    """insertBVColli one frame at a time on the host: the transparent
+    mirror :func:`insert_bv_colli` is held against. Updates
+    ``state.bv_words`` in place; returns (state, count)."""
+    _require_u32(state)
+    h = hashes.shape[-1]
+    pos = u64.to_numpy(u64.mod_const(hashes, state.filter_size)).reshape(
+        -1, h)
+    v = _valid_mask(valid, hashes.shape[:-1], "cpu").reshape(-1).numpy()
+    words = state.bv_words.cpu().numpy().view(np.uint32).copy()
+    count = 0
+    for p in pos[v]:
+        w, b = p >> np.uint64(5), (p & np.uint64(31)).astype(np.uint32)
+        count += bool(((words[w] >> b) & 1).all())
+        np.bitwise_or.at(words, w, np.uint32(1) << b)
+    state.bv_words.copy_(torch.from_numpy(words.view(np.int32)))
+    return state, count
+
+
+def count_width(data_width: int) -> int:
+    """Bytes of an occurrence counter: the data's width, but 4 at width 8,
+    where the reference's counters are uint32 and wrap at 2**32."""
+    return min(data_width, 4)
+
+
 def get_empty_mibf(state: BitVectorState, data_width: int = 2):
     """Phase 2: freeze the bit vector into an MIBF + zeroed occurrence
-    counters of the data's width (getEmptyMIBF,
+    counters in the storage dtype of ``count_width`` (getEmptyMIBF,
     MIBFConstructSupport.hpp:92-99)."""
     m = mibf_mod.freeze(state.bv_words, state.filter_size, state.hash_num,
                         state.kmer_size, data_width=data_width,
                         sseeds=state.sseeds)
-    return m, torch.zeros_like(m.data)
+    return m, torch.zeros(m.d_size, device=m.device,
+                          dtype=mibf_mod.STORAGE[count_width(data_width)])
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +205,12 @@ def reservoir_core(data: torch.Tensor, counts: torch.Tensor,
     marks the values that take part:
 
         count = ++counts[rank]; accept iff (v ^ id) % count == count - 1
-        (std::hash<T> is the identity after truncation to T)
+        (std::hash<T> is the identity after truncation to T: widths 1 / 2 /
+        4 take the low limb, width 8 the full 64 bits)
 
     and the last acceptance of each rank writes its ID, keeping the entry's
-    saturation bit. ``data`` and ``counts`` (the ID plane's storage dtype)
-    are updated in place; counts wrap at the data's width."""
+    saturation bit. ``data`` and ``counts`` (in the storage dtype of
+    ``count_width``) are updated in place; counts wrap at their width."""
     n = rank.numel()
     if n == 0 or d_size == 0:
         return data, counts
@@ -159,8 +219,10 @@ def reservoir_core(data: torch.Tensor, counts: torch.Tensor,
                          "key holds at most 2**32 - 1")
     dev = rank.device
     bits = 8 * data_width
-    wmask = (1 << bits) - 1
-    smask = 1 << (bits - 1)
+    wmask = u64.as_signed((1 << bits) - 1)
+    smask = u64.as_signed(1 << (bits - 1))
+    cwidth = count_width(data_width)
+    cmask = (1 << (8 * cwidth)) - 1
     idx = torch.arange(n, device=dev)
     rank = torch.where(keep, rank.to(torch.int64), d_size)
     # stable order by rank: (rank, index) as one int64 key
@@ -171,10 +233,13 @@ def reservoir_core(data: torch.Tensor, counts: torch.Tensor,
     within = idx - starts[gid]
     c0 = torch.where(keep_o, u64.unsigned(
         counts[rank_o.clamp(0, max(d_size - 1, 0))]), 0)
-    count_val = (c0 + within + 1) & wmask
-    hval = (values[perm] ^ (ids[perm] & _MASK32)) & _MASK32 & wmask
-    accepted = keep_o & (count_val != 0) & (
-        hval % count_val.clamp(min=1) == count_val - 1)
+    count_val = (c0 + within + 1) & cmask
+    if data_width == 8:
+        hmod = u64.mod_u32(values[perm] ^ ids[perm], count_val.clamp(min=1))
+    else:
+        hval = (values[perm] ^ (ids[perm] & _MASK32)) & _MASK32 & wmask
+        hmod = hval % count_val.clamp(min=1)
+    accepted = keep_o & (count_val != 0) & (hmod == count_val - 1)
     # the last accepted element of each rank group wins; a value whose
     # position misses past the last set bit (rank d_size) writes nothing
     last = torch.full((starts.numel(),), -1, dtype=torch.int64, device=dev)
@@ -184,13 +249,13 @@ def reservoir_core(data: torch.Tensor, counts: torch.Tensor,
     wid = ids[perm][winner] & wmask
     data[wr] = mibf_mod.to_storage(wid | (u64.unsigned(data[wr]) & smask),
                                    data_width)
-    # counts[rank] += group size (wrapping in the data's width)
+    # counts[rank] += group size (wrapping at the counters' width)
     run_len = torch.diff(starts, append=starts.new_tensor([n]))
     g_rank = rank_o[starts]
     live = g_rank < d_size
     r = g_rank[live]
     counts[r] = mibf_mod.to_storage(
-        (u64.unsigned(counts[r]) + run_len[live]) & wmask, data_width)
+        (u64.unsigned(counts[r]) + run_len[live]) & cmask, cwidth)
     return data, counts
 
 
@@ -262,8 +327,10 @@ def _phase4_apply(data: torch.Tensor, counts: torch.Tensor,
         return
     h = rk.shape[1]
     bits = 8 * data_width
-    wmask = (1 << bits) - 1
+    wmask = u64.as_signed((1 << bits) - 1)
     smask = 1 << (bits - 1)
+    cwidth = count_width(data_width)
+    cmask = (1 << (8 * cwidth)) - 1
     safe = rk.clamp(0, max(d_size - 1, 0))
     results = u64.unsigned(data[safe])                    # [g, h]
     cur = results & (smask - 1)
@@ -286,12 +353,13 @@ def _phase4_apply(data: torch.Tensor, counts: torch.Tensor,
     mutate = ~found & (best > 0)
     sat = ~found & (best == 0)
     mr = repl[mutate]
-    new_id = torch.where(old > smask, idv | smask, idv)[mutate]
+    sbit = u64.as_signed(smask)
+    new_id = torch.where(u64.gt_const(old, smask), idv | sbit, idv)[mutate]
     data[mr] = mibf_mod.to_storage(new_id, data_width)
-    counts[mr] = mibf_mod.to_storage((u64.unsigned(counts[mr]) + 1) & wmask,
-                                     data_width)
+    counts[mr] = mibf_mod.to_storage(
+        (u64.unsigned(counts[mr]) + 1) & cmask, cwidth)
     data[safe[sat].reshape(-1)] = mibf_mod.to_storage(
-        (results[sat] | smask).reshape(-1), data_width)
+        (results[sat] | sbit).reshape(-1), data_width)
 
 
 def _replay(data, counts, rk: torch.Tensor, ids: torch.Tensor, d_size: int,
@@ -462,12 +530,11 @@ def insert_random_order(m: MIBloomFilter, hashes, id_value: int,
     Walks the filter's arrays on the host and writes the IDs back into
     ``m.data`` in place; returns (m, success bool [n] numpy). A frame that
     places nothing and is not saturated asserts ``max_count == 1``, as the
-    reference does."""
-    mibf_mod.check_width(m.data_width)
+    reference does. Every width, 8 included."""
     if isinstance(hashes, torch.Tensor):
         hashes = u64.to_numpy(hashes)
-    bv_words, cum, data = mibf_mod.to_numpy(m)
-    data = data.copy()
+    bv_words, cum, _ = mibf_mod.to_numpy(m)
+    data = mibf_mod.ids_numpy(m).copy()
     s_mask, s_anti = m.s_mask, m.s_anti_mask
     if strand is not None:
         strand = np.asarray(torch.as_tensor(strand).cpu())
@@ -547,8 +614,12 @@ def insert_random_order_device(m: MIBloomFilter, hashes: torch.Tensor,
     rounds of frames that share no ID entry, then walks the rest in
     order; on the CPU its plain version walks them all in order. Where the host mirror asserts,
     this saturates. Updates ``m.data`` in place; returns (m, success bool
-    [...])."""
-    mibf_mod.check_width(m.data_width)
+    [...]). Widths 1, 2 and 4: as in the reference, width 8 runs only in
+    the host mirror."""
+    if m.data_width == 8:
+        raise NotImplementedError(
+            "width-8 random-order insert runs only in the host mirror "
+            "insert_random_order")
     dev = m.device
     h = hashes.shape[-1]
     lead = hashes.shape[:-1]

@@ -25,6 +25,13 @@ runs on the host on the small tables.
 Paired-end reads run the same engine over the two reads' frames
 interleaved on the device (``interleave_paired_frames``);
 ``get_match_signature`` gives a read's per-frame match signature.
+``query_scan`` / ``query_scan_batch`` are the reference's per-frame oracle
+of the engine: a frame loop over a dense count table, no kernel.
+
+A width-8 filter is not classified: the reference's engine takes IDs as
+uint32 (against a uint32 saturation mask) and has no width-8 path, so the
+engine, the oracle and ``get_match_signature`` raise
+``NotImplementedError`` there.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels import mibf_frame_scan
+from ..kernels.mibf_frame_scan import compare_std_err
 from . import mibf as mibf_mod
 from .mibf import MIBloomFilter
 
@@ -63,6 +71,113 @@ def _compare_std_err_host(a: float, b: float) -> bool:
     if a > b:
         return (a - sa) <= (b + sb)
     return (b - sb) <= (a + sa)
+
+
+def _require_narrow(m: MIBloomFilter) -> None:
+    if m.data_width == 8:
+        raise NotImplementedError(
+            "classification of a width-8 MIBF: the reference's query engine "
+            "reads IDs as uint32 and has no width-8 path")
+
+
+def query_scan_batch(m: MIBloomFilter, frame_raw, frame_hit, frame_valid,
+                     frame_misses, min_count, num_ids: int,
+                     extra_frame_limit: int, frame_eval=None,
+                     st_mode: bool = False):
+    """The reference's sequential engine (MIBFQuerySupport.hpp:430-518)
+    frame by frame over R reads at once, with each read's dense [num_ids,
+    6] count table as the carry: the oracle :func:`query_frames_batch` is
+    held against. Takes and returns what :func:`query_frames_batch` does;
+    runs on the filter's device, as plain torch."""
+    _require_narrow(m)
+    dev = m.device
+    raw = torch.as_tensor(frame_raw).to(dev).to(torch.int64)
+    hit = torch.as_tensor(frame_hit).to(dev)
+    valid = torch.as_tensor(frame_valid).to(dev)
+    misses = torch.as_tensor(frame_misses).to(dev)
+    min_count = torch.as_tensor(min_count).to(dev).to(torch.int32)
+    if frame_eval is None:
+        frame_eval = torch.zeros_like(valid) if st_mode else valid
+    frame_eval = torch.as_tensor(frame_eval).to(dev)
+    R, W, h = raw.shape
+    smask, anti = m.s_mask, m.s_anti_mask
+    counts = torch.zeros((R, num_ids, 6), dtype=torch.int32, device=dev)
+    cand = torch.zeros((R, num_ids), dtype=torch.bool, device=dev)
+    best = torch.zeros((R, 6), dtype=torch.int32, device=dev)
+    zero = torch.zeros(R, dtype=torch.int32, device=dev)
+    second, extra, satc, evalc = zero, zero, zero, zero
+    stopped = torch.zeros(R, dtype=torch.bool, device=dev)
+    rows = torch.arange(R, device=dev)
+    earlier = torch.ones((h, h), dtype=torch.bool, device=dev).tril(-1)
+    other = ~torch.eye(h, dtype=torch.bool, device=dev)
+    for t in range(W):
+        r, ht = raw[:, t], hit[:, t]                               # [R, h]
+        active = valid[:, t] & ~stopped                            # [R]
+        sat = r > smask
+        stripped = torch.where(sat, r & anti, r)
+        # seen set: the first slot of each raw value among the hit slots
+        first_raw = ht & ~((r[:, None, :] == r[:, :, None]) & earlier
+                           & ht[:, None, :]).any(dim=-1)
+        raw_eq_stripped = r[:, None, :] == stripped[:, :, None]    # [i, j]
+        earlier_pushed = (first_raw[:, None, :] & raw_eq_stripped
+                          & earlier).any(dim=-1)
+        inc_count_nonsat = first_raw & ~sat
+        no_sat = ~(ht & sat).any(dim=-1, keepdim=True)
+        delta = torch.stack([
+            (first_raw & sat & ~earlier_pushed) | inc_count_nonsat,
+            inc_count_nonsat, ht, ht & ~sat, first_raw & no_sat,
+            first_raw & no_sat & (misses[:, t, None] == 0)], dim=-1)
+        delta &= (active[:, None] & (stripped < num_ids))[..., None]
+        cid = stripped.clamp(max=num_ids - 1)
+        counts.view(-1, 6).index_add_(
+            0, (rows[:, None] * num_ids + cid).reshape(-1),
+            delta.reshape(-1, 6).to(torch.int32))
+        # candidate promotion, slot by slot (MIBFQuerySupport.hpp:485-508);
+        # a saturated raw whose stripped value is also in the seen set is
+        # skipped; out-of-range IDs read and promote the clipped ID
+        also_seen = (first_raw[:, None, :] & raw_eq_stripped & other
+                     & sat[:, :, None] & ~sat[:, None, :]).any(dim=-1)
+        consider = first_raw & active[:, None] & ~(sat & also_seen)
+        for i in range(h):
+            c = counts[rows, cid[:, i]]                            # [R, 6]
+            ok = consider[:, i] & (
+                (c[:, _COUNT] >= min_count[cid[:, i]])
+                | (cand.any(dim=1) & (c[:, _COUNT] >= best[:, _COUNT])))
+            cand[rows, cid[:, i]] |= ok
+            # updateMaxCounts (MIBFQuerySupport.hpp:520-542)
+            nsf, best_nsf = c[:, _NONSATFRAME], best[:, _NONSATFRAME]
+            second = torch.where(ok & ~(nsf > best_nsf) & (nsf > second),
+                                 nsf, second)
+            up = ok[:, None] & (c > best)
+            best = torch.where(up, c, best)
+        satc = satc + (active & ~no_sat[:, 0]).to(torch.int32)
+        evalc = evalc + (frame_eval[:, t] & ~stopped).to(torch.int32) + \
+            torch.where(active, ht.sum(dim=-1, dtype=torch.int32), 0)
+        # the early exit (MIBFQuerySupport.hpp:509-517): totalNonSatCount
+        # against the second-best nonSatFrameCount, as the reference has it
+        reset = compare_std_err(best[:, _TOTALNONSAT], second)
+        extra = torch.where(active & reset, 0, extra)
+        leading = best[:, _NONSATFRAME] > second
+        stopped = stopped | (active & leading & (extra_frame_limit < extra))
+        extra = extra + (active & leading).to(torch.int32)
+    return {"counts": counts, "candidates": cand, "best": best,
+            "sat_count": satc, "eval_count": evalc}
+
+
+def query_scan(m: MIBloomFilter, frame_raw, frame_hit, frame_valid,
+               frame_misses, min_count, num_ids: int,
+               extra_frame_limit: int, frame_eval=None,
+               st_mode: bool = False):
+    """:func:`query_scan_batch` of one read's frames [W, h]: the tables
+    without the read axis."""
+    out = query_scan_batch(
+        m, torch.as_tensor(frame_raw)[None], torch.as_tensor(frame_hit)[None],
+        torch.as_tensor(frame_valid)[None],
+        torch.as_tensor(frame_misses)[None], min_count, num_ids,
+        extra_frame_limit,
+        None if frame_eval is None else torch.as_tensor(frame_eval)[None],
+        st_mode)
+    return {k: v[0] for k, v in out.items()}
 
 
 def prep_frames(m: MIBloomFilter, hashes: torch.Tensor, valid,
@@ -184,6 +299,7 @@ def query_frames_batch(m: MIBloomFilter, frame_raw, frame_hit, frame_valid,
     Returns {"counts": int32 [R, num_ids, 6], "candidates": bool [R,
     num_ids], "best": int32 [R, 6], "sat_count": int32 [R], "eval_count":
     int32 [R]}, equal to the reference's sequential engine."""
+    _require_narrow(m)
     dev = m.device
     raw = torch.as_tensor(frame_raw).to(dev).to(torch.int64)
     hit = torch.as_tensor(frame_hit).to(dev)
@@ -416,6 +532,7 @@ class MIBFQuerySupport:
         within ``max_miss`` on a spaced-seed filter and when every slot
         hits otherwise; a slot gives (value & s_anti_mask, saturated) where
         it hits and (0, False) where it misses."""
+        _require_narrow(self.m)
         _, hit, raw = mibf_mod.at_rank_data(self.m, hashes)
         v = torch.as_tensor(valid).to(self.m.device)
         misses = (~hit).sum(dim=-1)

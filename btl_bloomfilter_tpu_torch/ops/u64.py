@@ -73,6 +73,11 @@ def mul_const(a: torch.Tensor, c: int) -> torch.Tensor:
     return a * as_signed(c)
 
 
+def gt_const(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Unsigned x > c for a uint64 python int c."""
+    return (x ^ _SIGN) > (as_signed(c) ^ _SIGN)
+
+
 def mod_const(x: torch.Tensor, m: int) -> torch.Tensor:
     """Unsigned x % m for a python int 1 <= m < 2**47; result int64 in
     [0, m).
@@ -83,6 +88,17 @@ def mod_const(x: torch.Tensor, m: int) -> torch.Tensor:
     non-negative int64 values (Bloom filters go up to 2**36 bits)."""
     if not 1 <= m < (1 << 47):
         raise ValueError(f"modulus {m} outside [1, 2**47)")
+    return _fold_mod(x, m)
+
+
+def mod_u32(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Unsigned x % c elementwise for int64 divisors 1 <= c < 2**32 (the
+    width-8 MIBF reservoir's ``std::hash<uint64_t>(v ^ id) % count``); the
+    same folds as :func:`mod_const`."""
+    return _fold_mod(x, c)
+
+
+def _fold_mod(x: torch.Tensor, m) -> torch.Tensor:
     r = shr(x, 32) % m
     r = ((r << 16) | ((x >> 16) & 0xFFFF)) % m
     return ((r << 16) | (x & 0xFFFF)) % m
@@ -111,7 +127,9 @@ def positions64(pos: torch.Tensor) -> torch.Tensor:
 
 def unsigned(x: torch.Tensor) -> torch.Tensor:
     """uint8 values or int16 / int32 bit patterns -> their unsigned value as
-    int64."""
+    int64; int64 (uint64 bits) as it is."""
+    if x.dtype == torch.int64:
+        return x
     return x.to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
 
 

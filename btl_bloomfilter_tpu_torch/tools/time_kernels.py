@@ -35,8 +35,8 @@ queued``), and for a call that needs no setup the host's time to issue it
     slots);
   * ``mibf_rank``: the rank lookup, rank only at the build's positions and
     rank + ID at the classification's, at bench.py's MIBF config and at
-    chip_smoke.py 7c's size, and ``mibf.freeze`` at bench.py's config
-    (``rank_calls``);
+    chip_smoke.py 7c's size (there also the width-8 form, uint64 IDs), and
+    ``mibf.freeze`` at bench.py's config (``rank_calls``);
   * ``spaced_scan``: the spaced-seed hash with chip_smoke.py phase 10's
     two mirrored seeds of length 31, m2 = 2, at ``nthash_scan``'s 2%-N
     batch and at bench.py's ACGT batch;
@@ -247,9 +247,10 @@ def rank_calls(dev) -> dict:
     ID (width 2) at the classification's 2,066,432, at bench.py's config
     (``tools/profile_mibf.py``: 2**28 bits, 4,121,208 build positions) and
     at chip_smoke.py 7c's size (96,817,664 bits at occupancy 0.5, random
-    words; 67,101,184 build positions, uniform as the hash gives them);
-    and ``mibf.freeze`` of bench.py's bit vector, which builds the rank
-    structure the lookups read."""
+    words; 67,101,184 build positions, uniform as the hash gives them;
+    there also rank + ID over a random uint64 ID plane, the width-8 form,
+    in trees that have it); and ``mibf.freeze`` of bench.py's bit vector,
+    which builds the rank structure the lookups read."""
     from btl_bloomfilter_tpu_torch.kernels import mibf_rank
     from btl_bloomfilter_tpu_torch.models import mibf
     from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
@@ -282,6 +283,13 @@ def rank_calls(dev) -> dict:
         out[f"mibf_rank {label} rank + ID {query.numel()}"] = (
             lambda a=args, p=query, d=m.data: mibf_rank.rank_lookup(*a, p,
                                                                     d))
+    if hasattr(mibf_rank, "U64_KERNEL"):
+        q8 = uniform_positions(dev, 2066432, size, seed=2)
+        data8 = torch.randint(-(1 << 63), (1 << 63) - 1, (big.d_size,),
+                              dtype=torch.int64, device=dev)
+        out[f"mibf_rank 7c rank + ID width 8 {q8.numel()}"] = (
+            lambda p=q8, d=data8: mibf_rank.rank_lookup(
+                big.bv_words, big.cum_ranks, big.rank_dir, p, d))
     return out
 
 

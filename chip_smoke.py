@@ -148,7 +148,30 @@ counters, batches of 3072 reads x 2048 bases):
         with no cross-frame position collision, the inputs the reference
         defines) from empty IDs; at width 2 also against its plain version;
      d. the seeded build's k-mers/s and the classification's reads/s (a
-        warm run of b), the two kernels' times.
+        warm run of b), the two kernels' times;
+ 11. the reference's C++ API facade (btl_bloomfilter_tpu_torch.compat) on
+     the card, precomputed hash arrays on the host as its callers hand them:
+     b. MIBFConstructSupport at 7c's size (64 x 262,144 bases, k=31, h=4,
+        occupancy 0.5) with getEmptyMIBF(8), reference 0's ID above 2**32:
+        insertBV of 63 references, insertBVColli of all 64 (held against its
+        plain version on a CPU copy of the words), insertMIBF,
+        insertSaturation, then at / atRank of each reference's first frame
+        (the main path of the width-8 rank + ID form, its launches counted);
+        IDs, counts, words and lookups against the same calls on the plain
+        path; the .mibf / .sdsl bytes equal after a round trip; the host
+        time of each phase;
+     a. the width-8 rank + ID form of mibf_rank against its plain version,
+        bitwise, over that filter at 7c's classification count of positions
+        (hits, misses, the vector's tail and positions past it), its times,
+        bound and sector floor, and the facade's one-frame calls as issued;
+     c. the same references at width 2 through the facade, 256 mutated reads
+        (query) and 128 pairs (queryPaired) one call each: correct fraction
+        >= 0.95, result lists and sat / eval counts equal the plain path's
+        batched queries;
+     d. BloomFilter / KmerBloomFilter at 2**30 bits and CountingBloomFilter
+        of 2**30 bytes at widths 1 and 8 over one 512 x 2048 batch: inserts,
+        contains, insertAndCheck, minCount, incrementAll, k-mer strings, the
+        .bf bytes and the FPR statistics equal the model calls.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -224,6 +247,9 @@ S_PAIRS, S_MATE_L, S_GAP = 128, 1024, 300   # read pairs, mate length, gap
 S_MAX_MISS = 1
 RI_FRAMES = 1 << 16          # frames of MIBloomFilter::insert
 RI_ID = 7
+# the reference's API facade (phase 11)
+F_ID0 = (37 << 40) | 12345   # phase 11b's ID of reference 0: the high plane
+F_SAMPLE = 256               # one-frame facade calls held to the model's
 
 
 def log(msg: str) -> None:
@@ -2273,6 +2299,376 @@ def seeded_phases(dev: torch.device, card_line: str):
     return err, ms, launches, bounds
 
 
+def np_frames(hp, codes):
+    """(hashes numpy uint64 [W, h], valid numpy bool [W]) of one sequence,
+    hashed on the card: the precomputed hash arrays the facade takes."""
+    from btl_bloomfilter_tpu_torch.ops import u64
+
+    fr = hp.frames(codes)
+    return u64.to_numpy(fr.hashes), fr.valid.cpu().numpy()
+
+
+def facade_phases(dev: torch.device, card_line: str):
+    """Phase 11: the reference's C++ API (``compat``) over the port on the
+    card. Returns (err, ms, launches, bounds) for mibf_rank_u64."""
+    from btl_bloomfilter_tpu_torch import api, compat, kernels
+    from btl_bloomfilter_tpu_torch.io import bf_format
+    from btl_bloomfilter_tpu_torch.kernels import _build, mibf_rank
+    from btl_bloomfilter_tpu_torch.models import (bloom, counting,
+                                                  kmer_bloom, mibf,
+                                                  mibf_query)
+    from btl_bloomfilter_tpu_torch.ops import nthash_tables, u64
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+
+    def results(res):
+        return [dataclasses.astuple(r) for r in res]
+
+    rng = np.random.default_rng(SEED + 11)
+    refs = rng.integers(0, 4, size=(U_REFS, U_REF_L), dtype=np.uint8)
+    hp = api.HashPipeline(K, H, device=dev)
+    t0 = time.perf_counter()
+    ref_frames = [np_frames(hp, c) for c in refs]
+    log(f"[11] {U_REFS} references x {U_REF_L} bases hashed on the card to "
+        f"host arrays in {time.perf_counter() - t0:.3f} s")
+    n_first = sum(int(v.sum()) for _, v in ref_frames[:-1])
+
+    def build(width, ids, device=dev):
+        """The 4-phase build through MIBFConstructSupport: insertBV of every
+        reference but the last, then insertBVColli of them all (every frame
+        of the first 63 collides), getEmptyMIBF(width), insertMIBF and
+        insertSaturation of each reference. Returns (construct support,
+        filter, the words after insertBV, the colli count, host seconds a
+        phase)."""
+        t = [time.perf_counter()]
+        cs = compat.MIBFConstructSupport(U_REFS * U_REF_L, K, H, 0.5,
+                                         device=device)
+        for hs, v in ref_frames[:-1]:
+            cs.insertBV(hs, v)
+        words = cs._state.bv_words.clone()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        colli = sum(cs.insertBVColli(hs, v) for hs, v in ref_frames)
+        t.append(time.perf_counter())
+        m = cs.getEmptyMIBF(width)
+        t.append(time.perf_counter())
+        for (hs, v), i in zip(ref_frames, ids):
+            cs.insertMIBF(m, hs, i, v)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for (hs, v), i in zip(ref_frames, ids):
+            cs.insertSaturation(m, hs, i, v)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return cs, m, words, colli, np.diff(t)
+
+    firsts = [hs[0] for hs, _ in ref_frames]
+
+    def lookups(m):
+        """at() and atRank() of each reference's first frame, through the
+        facade: (values, ok, saturated, all hit, ranks) each."""
+        return [m.at(row) + m.atRank(row) for row in firsts]
+
+    # ---- 11b. MIBFConstructSupport at 7c's size, width 8 ----------------
+    ids8 = [F_ID0] + list(range(1, U_REFS))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    cs8, m8, words1, colli, times8 = build(8, ids8)
+    t0 = time.perf_counter()
+    with capturing(mibf_rank, "rank_lookup") as rank_calls:
+        look8 = lookups(m8)
+    t_look = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"[11b] launches on the facade's width-8 path: {launches}")
+    for name in ("scatter_or", "gather_words", "mibf_rank",
+                 "mibf_rank_u64"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the facade's "
+                                 f"width-8 path: {launches}")
+    m = m8._m
+    # each rank + ID call of the main path again, against the plain version
+    err = {"mibf_rank_u64": 0}
+    wide_calls = [a for a in rank_calls if len(a) > 4]
+    for i, args in enumerate(wide_calls):
+        for what, a, b in zip(("rank", "hit", "raw"),
+                              mibf_rank.rank_lookup(*args),
+                              mibf_rank.rank_lookup_plain(*args)):
+            err["mibf_rank_u64"] = max(err["mibf_rank_u64"], require_equal(
+                f"[11b] mibf_rank width 8 call {i} {what}", a, b))
+    # insertBVColli against its plain version on a CPU copy of the words
+    cs_c = compat.MIBFConstructSupport(U_REFS * U_REF_L, K, H, 0.5,
+                                       device="cpu")
+    cs_c._state.bv_words = words1.cpu()
+    t0 = time.perf_counter()
+    colli_c = sum(cs_c.insertBVColli(hs, v) for hs, v in ref_frames)
+    t_colli_c = time.perf_counter() - t0
+    if colli != colli_c or colli < n_first:
+        raise AssertionError(f"[11b] insertBVColli: card {colli}, CPU plain "
+                             f"{colli_c}, at least {n_first} expected")
+    require_equal("[11b] words after insertBVColli", m.bv_words.cpu(),
+                  cs_c._state.bv_words)
+    # the same build and lookups on the port's plain path
+    with plain_kernels():
+        cs8_p, m8_p, _, colli_p, _ = build(8, ids8)
+        look8_p = lookups(m8_p)
+    for what, a, b in (("bit vector", m.bv_words, m8_p._m.bv_words),
+                       ("cum_ranks", m.cum_ranks, m8_p._m.cum_ranks),
+                       ("ID plane", m.data, m8_p._m.data),
+                       ("counts", cs8._counts, cs8_p._counts)):
+        require_equal(f"[11b] width-8 {what}", a, b)
+    for a, b in zip(look8, look8_p):
+        if not (np.array_equal(a[0], b[0]) and a[1:4] == b[1:4]
+                and np.array_equal(a[4], b[4])):
+            raise AssertionError("[11b] at / atRank: kernel path != plain")
+    if colli_p != colli:
+        raise AssertionError("[11b] insertBVColli: kernel != plain path")
+    big = sum(int((v[0] == np.uint64(F_ID0)).any()) for v in look8)
+    high = int((u64.unsigned(m.data) >> 32 & 0x3FFFFFFF).ne(0).sum())
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        p1, p2 = os.path.join(tmp, "w8.mibf"), os.path.join(tmp, "w8b.mibf")
+        t0 = time.perf_counter()
+        m8.store(p1)
+        back = compat.MIBloomFilter(p1, data_width=8, device=dev)
+        back.store(p2)
+        t_io = time.perf_counter() - t0
+        for ext in ("", ".sdsl"):
+            with open(p1 + ext, "rb") as f1, open(p2 + ext, "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"[11b] {ext or '.mibf'} bytes "
+                                         "differ after a round trip")
+        nbytes = os.path.getsize(p1) + os.path.getsize(p1 + ".sdsl")
+    require_equal("[11b] .mibf round trip IDs", back._m.data, m.data)
+    log(f"[11b] width 8, {U_REFS} x {U_REF_L} bases (reference 0's ID "
+        f"{F_ID0}): bit vector {m.size} bits, d_size {m.d_size}, "
+        f"{m8.getPopSaturated()} saturated, {high} entries with high-plane "
+        f"ID bits, {len(wide_calls)} width-8 rank + ID calls of the main "
+        f"path (positions {wide_calls[0][3].numel()} each) kernel == plain, "
+        f"insertBVColli {colli} of {n_first} + "
+        f"{int(ref_frames[-1][1].sum())} frames == plain on a CPU copy "
+        f"({t_colli_c:.3f} s there); data, counts, words, at / atRank of "
+        f"{U_REFS} first frames ({big} show ID {F_ID0}) kernel path == "
+        "plain path; .mibf / .sdsl bytes equal after a round trip "
+        f"({nbytes} bytes, {t_io:.3f} s)")
+    log("[11b] host seconds (first calls): insertBV "
+        f"{times8[0]:.3f}, insertBVColli {times8[1]:.3f}, getEmptyMIBF "
+        f"{times8[2]:.3f}, insertMIBF {times8[3]:.3f}, insertSaturation "
+        f"{times8[4]:.3f}, {U_REFS} at + atRank {t_look:.3f} ({card_line})")
+    del cs8_p, m8_p, cs_c, back
+    torch.cuda.empty_cache()
+
+    # ---- 11a. the width-8 rank + ID form against its plain version ------
+    n_q = mb.R * (mb.L - K + 1) * H       # 7c's classification positions
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    tail = torch.arange(m.size - 256, m.size + 256, device=dev)
+    qpos = u64.to_u32_bits(torch.cat([
+        torch.randint(0, m.size, (n_q,), device=dev, generator=g), tail,
+        torch.randint(m.size, 1 << 32, (1000,), device=dev, generator=g)]))
+    bv, cum, rdir, data8 = m.bv_words, m.cum_ranks, m.rank_dir, m.data
+    got = mibf_rank.rank_lookup(bv, cum, rdir, qpos, data8)
+    ref = mibf_rank.rank_lookup_plain(bv, cum, rdir, qpos, data8)
+    for what, a, b in zip(("rank", "hit", "raw"), got, ref):
+        err["mibf_rank_u64"] = max(err["mibf_rank_u64"], require_equal(
+            f"[11a] mibf_rank width 8 {what}", a, b))
+    hits = got[1]
+    at_end = int((got[0] == m.d_size).sum())
+    ms = {"mibf_rank_u64": (
+        kernel_times(lambda: mibf_rank.rank_lookup(bv, cum, rdir, qpos,
+                                                   data8)),
+        median_ms(lambda: mibf_rank.rank_lookup_plain(bv, cum, rdir, qpos,
+                                                      data8)))}
+    n = qpos.numel()
+    hit_ranks = torch.unique(got[0][hits].to(torch.int64))
+    # positions in; rank, hit and the 8-byte raw out; the distinct bv and
+    # cum words and the IDs of the hits
+    bounds = {"mibf_rank_u64": bound_ms(
+        17 * n + 8 * distinct_words(qpos, 5) + 8 * hit_ranks.numel())}
+    w = (unsigned(qpos) >> 5).clamp(max=bv.numel() - 1)
+    blocks = int(torch.unique(w // mibf_rank.BLOCK_WORDS).numel())
+    id_sectors = 32 * int(torch.unique(hit_ranks >> 2).numel())
+    sector_floors({"mibf_rank_u64 rank + ID, directory":
+                   17 * n + 32 * blocks + id_sectors}, "11a", card_line)
+    t_at = median_ms(lambda: m8.at(firsts[0]))
+    t_rank = median_ms(lambda: m8.atRank(firsts[0]))
+    tk, tp = ms["mibf_rank_u64"]
+    log(f"[11a] mibf_rank width 8 (rank + ID, uint64 IDs) at {n} positions "
+        f"({int(hits.sum())} hits, {at_end} at rank d_size, 1000 past the "
+        f"vector) kernel == plain (bitwise): kernel {tk:.4f} ms, plain "
+        f"{tp:.4f} ms, bound {bounds['mibf_rank_u64']:.4f} ms; the facade's "
+        f"one-frame at() {t_at:.4f} ms, atRank() {t_rank:.4f} ms as issued "
+        f"({card_line})")
+    f_launches = {"mibf_rank_u64": launches["mibf_rank_u64"]}
+    del cs8, m8, m, got, ref, qpos, hits, data8
+    torch.cuda.empty_cache()
+
+    # ---- 11c. width 2 through the facade: build and classification ------
+    cs2, m2, _, _, times2 = build(2, range(1, U_REFS + 1))
+    M_R, M_L = mb.R, mb.L
+    reads, srcs = mb.reads_from(refs, M_R, M_L, rng)
+    reads = mutate(reads, rng)
+    p_srcs = rng.integers(0, U_REFS, size=S_PAIRS)
+    p_starts = rng.integers(0, U_REF_L - 2 * S_MATE_L - S_GAP, size=S_PAIRS)
+    mates1 = mutate(np.stack([refs[s_, o: o + S_MATE_L]
+                              for s_, o in zip(p_srcs, p_starts)]), rng)
+    o2 = p_starts + S_MATE_L + S_GAP
+    mates2 = mutate(np.stack([(3 - refs[s_, o: o + S_MATE_L])[::-1]
+                              for s_, o in zip(p_srcs, o2)]), rng)
+    read_frames = [np_frames(hp, r) for r in reads]
+    pair_frames = [np_frames(hp, a) + np_frames(hp, b)
+                   for a, b in zip(mates1, mates2)]
+    pfp = [0.0] + [0.1] * U_REFS
+    mc = np.full(U_REFS + 1, 2, np.int32)
+    qs = compat.MIBFQuerySupport(m2, pfp, 2, 10**6, 0, 1, False)
+    t0 = time.perf_counter()
+    res, sat_eval = [], np.zeros(2, np.int64)
+    for hs, v in read_frames:
+        res.append(results(qs.query(hs, mc, v)))
+        sat_eval += (qs.getSatCount(), qs.getEvaluatedValues())
+    t1 = time.perf_counter()
+    res_p, sat_eval_p = [], np.zeros(2, np.int64)
+    for h1, v1, h2, v2 in pair_frames:
+        res_p.append(results(qs.queryPaired(h1, h2, mc, v1, v2)))
+        sat_eval_p += (qs.getSatCount(), qs.getEvaluatedValues())
+    t2 = time.perf_counter()
+    correct = sum(1 for r, s_ in zip(res, srcs) if r and r[0][0] == s_ + 1)
+    correct_p = sum(1 for r, s_ in zip(res_p, p_srcs)
+                    if r and r[0][0] == s_ + 1)
+    if correct / M_R < 0.95 or correct_p / S_PAIRS < 0.95:
+        raise AssertionError(f"[11c] correct fraction {correct / M_R} reads, "
+                             f"{correct_p / S_PAIRS} pairs: under 0.95")
+    # the plain path: the model's batched queries with every kernel swapped
+    # for its plain version (one facade query == one read of query_many)
+    def stacked(frames, i):
+        """(hashes int64 [R, W, h], valid [R, W]) on the card of the
+        numpy frames' items i and i + 1."""
+        return (torch.from_numpy(np.stack([f[i] for f in frames])
+                                 .view(np.int64)).to(dev),
+                torch.from_numpy(np.stack([f[i + 1] for f in frames]))
+                .to(dev))
+
+    with plain_kernels():
+        qm = mibf_query.MIBFQuerySupport(
+            m=m2._m, per_frame_prob=pfp, extra_count=2.0,
+            extra_frame_limit=10**6, max_miss=0, min_count=1,
+            best_hit_agree=False)
+        plain = [results(r) for r in qm.query_many(
+            *stacked(read_frames, 0), mc)]
+        plain_se = (qm.sat_count, qm.eval_count)
+        plain_p = [results(r) for r in qm.query_paired_many(
+            *stacked(pair_frames, 0), *stacked(pair_frames, 2), mc)]
+        plain_se_p = (qm.sat_count, qm.eval_count)
+    if (res, res_p, tuple(sat_eval), tuple(sat_eval_p)) != (
+            plain, plain_p, plain_se, plain_se_p):
+        raise AssertionError("[11c] facade classification: kernel path != "
+                             "plain path")
+    t_ins = median_ms(lambda: m2.insert(firsts[1], 2, 1))
+    t_sat = median_ms(lambda: m2.saturate(firsts[2]))
+    log(f"[11c] width 2 through the facade ({m2.getPop()} entries, "
+        f"{m2.getPopSaturated()} saturated; build host seconds "
+        + ", ".join(f"{x:.3f}" for x in times2) + f"): {M_R} reads x {M_L} "
+        f"and {S_PAIRS} pairs x 2 x {S_MATE_L} ({S_MUT} point mutations a "
+        f"base) one query at a time: correct fraction {correct / M_R} reads, "
+        f"{correct_p / S_PAIRS} pairs; result lists and sat / eval counts "
+        "kernel path == plain path; host time a query "
+        f"{(t1 - t0) / M_R * 1e3:.3f} ms, a pair {(t2 - t1) / S_PAIRS * 1e3:.3f}"
+        f" ms; one-frame insert() {t_ins:.4f} ms, saturate() {t_sat:.4f} ms "
+        f"as issued ({card_line})")
+    del cs2, m2, qs, qm
+    torch.cuda.empty_cache()
+
+    # ---- 11d. the Bloom and counting facades at the main path's sizes ---
+    grng = np.random.default_rng(SEED + 12)
+    fr = hp.frames_batch(list(grng.integers(0, 4, size=(B, L),
+                                            dtype=np.uint8)))
+    hs = u64.to_numpy(fr.hashes[fr.valid])                    # [n, h]
+    fresh = hp.frames_batch(list(grng.integers(0, 4, size=(2, L),
+                                               dtype=np.uint8)))
+    fresh = u64.to_numpy(fresh.hashes[fresh.valid])[:F_SAMPLE]
+    sample = np.concatenate([hs[:: len(hs) // F_SAMPLE][:F_SAMPLE], fresh])
+    ts = u64.from_numpy(sample).to(dev)
+    t0 = time.perf_counter()
+    pb = compat.BloomFilter(MAIN_SIZE, H, K, device=dev)
+    bfm = bloom.create(MAIN_SIZE, H, K, device=dev)
+    pb.insert(hs)
+    bloom.insert(bfm, u64.from_numpy(hs).to(dev))
+    require_equal("[11d] BloomFilter.insert words", pb._bf.words, bfm.words)
+    if [pb.contains(r) for r in sample] != bloom.contains(bfm, ts).tolist():
+        raise AssertionError("[11d] BloomFilter.contains != bloom.contains")
+    if not all(pb.contains(r) for r in sample[:F_SAMPLE]):
+        raise AssertionError("[11d] an inserted frame reads absent")
+    got = [pb.insertAndCheck(r) for r in np.concatenate([fresh, fresh])]
+    want = [bool(bloom.insert_and_check(bfm, u64.from_numpy(r).to(dev))[1])
+            for r in np.concatenate([fresh, fresh])]
+    if got != want or not all(got[F_SAMPLE:]):
+        raise AssertionError("[11d] insertAndCheck != the model's")
+    kb = compat.KmerBloomFilter(MAIN_SIZE, H, K, device=dev)
+    kbm = bloom.create(MAIN_SIZE, H, K, device=dev)
+    seq = "".join("ACGT"[c] for c in grng.integers(0, 4, size=L))
+    kb.insert(seq[:K])
+    kb.insert(seq)
+    compat.insertSeq(kb, seq[::-1])
+    kmer_bloom.insert_kmers(kbm, nthash_tables.encode_seq(seq[:K]))
+    kmer_bloom.insert_string(kbm, seq)
+    kmer_bloom.insert_string(kbm, seq[::-1])
+    require_equal("[11d] KmerBloomFilter words", kb._bf.words, kbm.words)
+    kmers = [seq[i: i + K] for i in range(0, L - K, 97)] + ["A" * K]
+    if [kb.contains(s_) for s_ in kmers] != [
+            bool(kmer_bloom.contains_string(kbm, s_)) for s_ in kmers]:
+        raise AssertionError("[11d] KmerBloomFilter.contains != model")
+    pb.setnEntry(len(hs))
+    bfm.n_entry = len(hs)
+    for what, a, b in (
+            ("getFPR_numEle", pb.getFPR_numEle(),
+             bloom.get_fpr_num_ele(bfm)),
+            ("getRedudancyFPR", pb.getRedudancyFPR(),
+             bloom.get_redundancy_fpr(bfm)),
+            ("getFPR", pb.getFPR(), bloom.get_fpr(bfm)),
+            ("getPop", pb.getPop(), bloom.get_pop(bfm))):
+        if a != b:
+            raise AssertionError(f"[11d] {what}: {a} != {b}")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        p1, p2 = os.path.join(tmp, "f.bf"), os.path.join(tmp, "m.bf")
+        pb.storeFilter(p1)
+        bf_format.store_bloom(bfm, p2)
+        with open(p1, "rb") as f1, open(p2, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError("[11d] storeFilter bytes != model's")
+        pb.loadFilter(p1)
+    require_equal("[11d] loadFilter words", pb._bf.words, bfm.words)
+    t_bloom = time.perf_counter() - t0
+    fpr = (pb.getFPR(), pb.getFPR_numEle(), pb.getRedudancyFPR())
+    del pb, bfm, kb, kbm
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for width in (1, 8):
+        pc = compat.CountingBloomFilter(C_BYTES, H, K, 1,
+                                        counter_width=width, device=dev)
+        cm = counting.create(C_BYTES, H, K, 1, width, device=dev)
+        pc.insert(hs)
+        counting.insert(cm, u64.from_numpy(hs).to(dev))
+        pc.incrementAll(hs[: len(hs) // 2])
+        counting.insert_all(cm, u64.from_numpy(hs[: len(hs) // 2]).to(dev))
+        require_equal(f"[11d] CountingBloomFilter width {width} counters",
+                      pc._cbf.counters, cm.counters)
+        want = u64.to_numpy(counting.min_count(cm, ts)).tolist()
+        if [pc.minCount(r) for r in sample] != want or min(
+                want[:F_SAMPLE]) < 1:
+            raise AssertionError(f"[11d] minCount width {width} != model")
+        del pc, cm
+        torch.cuda.empty_cache()
+    t_count = time.perf_counter() - t0
+    log(f"[11d] facades at the main path's sizes, {len(hs)} frames of "
+        f"{B} x {L} reads: BloomFilter / KmerBloomFilter at {MAIN_SIZE} "
+        f"bits (insert, {2 * F_SAMPLE} contains, {2 * F_SAMPLE} "
+        f"insertAndCheck, k-mer strings, .bf bytes and loadFilter, getFPR "
+        f"{fpr[0]:.6e}, getFPR_numEle {fpr[1]:.6e}, getRedudancyFPR "
+        f"{fpr[2]:.6e}) {t_bloom:.3f} s; CountingBloomFilter of {C_BYTES} "
+        f"bytes at widths 1 and 8 (insert, incrementAll of half, "
+        f"{2 * F_SAMPLE} minCount) {t_count:.3f} s: == the model calls "
+        f"({card_line})")
+    return err, ms, f_launches, bounds
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2711,6 +3107,13 @@ def main() -> None:
                  "mibf_rank", "mibf_frame_scan"):
         launches[name] += s_launches[name]
 
+    # ---- 11. the reference's API facade (compat) -----------------------------
+    f_err, f_ms, f_launches, f_bounds = facade_phases(dev, card_line)
+    err.update(f_err)
+    ms.update(f_ms)
+    bounds.update(f_bounds)
+    launches.update(f_launches)
+
     src = "btl_bloomfilter_tpu_torch/csrc/"
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
@@ -2800,6 +3203,13 @@ def main() -> None:
          "source": src + "mibf_random_insert.cu",
          "replaces": "btl_bloomfilter_tpu/models/mibf_construct.py:1213 "
                      "(lax.scan of insert_random_order_device)"},
+        # the width-8 (uint64 ID) MIBF's rank + ID form
+        {"name": "mibf_rank_u64", "route": "cuda",
+         "source": src + "mibf_rank.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297 "
+                     "(the MIBF ID-plane gather; at width 8 the JAX package "
+                     "gathers its two planes with XLA, "
+                     "btl_bloomfilter_tpu/models/mibf.py:288-296)"},
     ]}
     idle = [r["name"] for r in record["kernels"] if launches[r["name"]] < 1]
     if idle:

@@ -749,6 +749,79 @@ def test_mibf_rank_clamps_rank_d_size(dev):
     assert got[2].tolist() == [5, 6, 0, 7, 0, 0]
 
 
+@pytest.mark.parametrize("nwords", [1, 6, 7, 8, 13, 37, 1 << 16])
+def test_mibf_rank_u64_kernel_matches_plain(dev, nwords):
+    """The width-8 form (the uint64 ID plane, raw int64) at the same sizes
+    and positions, IDs of every bit pattern; it counts as U64_KERNEL and
+    leaves the narrow form's count alone."""
+    from btl_bloomfilter_tpu_torch.kernels import mibf_rank
+    bv, cum, rdir, d_size = mibf_vector(nwords, nwords + 8)
+    rng = np.random.default_rng(nwords)
+    pos = rng.integers(0, nwords * 32, size=40_000, dtype=np.uint64)
+    pos[:32] = nwords * 32 - 1 - np.arange(32)
+    pos[32:1032] = rng.integers(nwords * 32, 1 << 32, size=1000)
+    pos = torch.from_numpy(pos.astype(np.uint32).view(np.int32))
+    data = torch.from_numpy(rng.integers(0, 1 << 64, size=d_size,
+                                         dtype=np.uint64).view(np.int64))
+    args = (bv.to(dev), cum.to(dev), rdir.to(dev), pos.to(dev))
+    narrow, wide = mibf_rank.KERNEL.launches, mibf_rank.U64_KERNEL.launches
+    got = mibf_rank.rank_lookup(*args, data.to(dev))
+    ref = mibf_rank.rank_lookup_plain(bv, cum, rdir, pos, data)
+    assert ref[2].dtype == torch.int64
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    assert (mibf_rank.KERNEL.launches, mibf_rank.U64_KERNEL.launches) == (
+        narrow, wide + 1)
+
+
+def test_mibf_rank_u64_clamps_rank_d_size(dev):
+    from btl_bloomfilter_tpu_torch.kernels import mibf_rank
+    words = torch.tensor([0b1011, 0], dtype=torch.int32)   # bits 0, 1, 3
+    cum = torch.tensor([0, 3], dtype=torch.int32)
+    rdir = mibf_rank.rank_directory(words, cum)
+    ids = [(37 << 40) | 5, -(1 << 63) | 6, -1]
+    data = torch.tensor(ids, dtype=torch.int64)
+    pos = torch.tensor([0, 1, 2, 3, 4, 63], dtype=torch.int32)
+    got = mibf_rank.rank_lookup(words.to(dev), cum.to(dev), rdir.to(dev),
+                                pos.to(dev), data.to(dev))
+    assert got[0].tolist() == [0, 1, 2, 2, 3, 3]
+    assert got[2].tolist() == [ids[0], ids[1], 0, ids[2], 0, 0]
+
+
+def test_mibf_width8_on_cuda_matches_cpu(dev):
+    """The width-8 MIBF build (phases 1-4), lookups, saturate, set_data and
+    statistics on the card equal the same calls on the CPU."""
+    from btl_bloomfilter_tpu_torch.models import mibf, mibf_construct
+    big = (37 << 40) | 12345
+    rng = np.random.default_rng(3)
+    hashes = torch.from_numpy(rng.integers(0, 1 << 64, size=(4, 300, 4),
+                                           dtype=np.uint64).view(np.int64))
+    hashes[1, :50] = hashes[0, :50]
+    valid = torch.from_numpy(rng.random((4, 300)) < 0.9)
+    ids = [big, 3, big + 1, 9]
+    out = []
+    for d in ("cpu", dev):
+        st = mibf_construct.create(1200, 21, 4, 0.5, device=d)
+        for g in range(4):
+            mibf_construct.insert_bv(st, hashes[g], valid[g])
+        m, counts = mibf_construct.get_empty_mibf(st, 8)
+        mibf_construct.insert_mibf_many(m, counts, hashes, ids, valid)
+        mibf_construct.insert_saturation_many(m, counts, hashes, ids, valid)
+        mibf.saturate(m, hashes[2, :10])
+        rank, _ = mibf.at_rank(m, hashes[3, :5])
+        mibf.set_data(m, rank, torch.full(rank.shape, big + 2).reshape(-1))
+        at = mibf.at(m, hashes[:, :100], 1)
+        out.append([st.bv_words, m.data, counts, *at,
+                    *mibf.at_rank_data(m, hashes),
+                    mibf.get_id_counts(m, 16)[0],
+                    mibf.get_pop_saturated(m), mibf.get_pop_non_zero(m)])
+    for a, b in zip(*out):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b.cpu())
+        else:
+            assert a == b
+
+
 def frame_scan_inputs(R, W, h, seed, valid_frac=0.9):
     rng = np.random.default_rng(seed)
     c6 = torch.from_numpy(rng.integers(0, 30, size=(R, W, h, 6))

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from btl_bloomfilter_tpu_torch import api
+from btl_bloomfilter_tpu_torch import api, compat
 from btl_bloomfilter_tpu_torch.io import bf_format, mibf_format
 from btl_bloomfilter_tpu_torch.models import (bloom, counting, mibf,
                                               mibf_construct)
@@ -23,7 +23,9 @@ ENTRY_POINTS = [
     mibf.from_numpy, mibf_construct.create, mibf_format.load_mibf,
     ring_probe.make_codes, vmem_sort_probe.make_keys,
     partition_probe.make_keys, partition_probe.dma_sweep,
-    kernel_lab.make_inputs,
+    kernel_lab.make_inputs, compat.BloomFilter, compat.KmerBloomFilter,
+    compat.CountingBloomFilter, compat.MIBloomFilter,
+    compat.MIBFConstructSupport,
 ]
 
 
@@ -40,6 +42,10 @@ def test_entry_point_defaults_to_cuda(fn):
     lambda: mibf_construct.create(100, 5, 4, spaced_seeds=("11011", "11011")),
     lambda: mibf.from_numpy(np.zeros(2, np.uint32), np.zeros(0, np.uint16),
                             size=64, hash_num=2, kmer_size=5, data_width=2),
+    lambda: compat.BloomFilter(64, 2, 5)._bf,
+    lambda: compat.CountingBloomFilter(64, 2, 5, 1)._cbf,
+    lambda: compat.MIBFConstructSupport(100, 5, 2)._state,
+    lambda: compat.MIBloomFilter(2, 5, np.zeros(2, np.uint32))._m,
 ])
 def test_default_device_is_the_card(make):
     """With a card the state lands on it; without one the call raises."""

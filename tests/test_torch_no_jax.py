@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.ops.seeds, "
             "btl_bloomfilter_tpu_torch.utils.stdcpp, "
             "btl_bloomfilter_tpu_torch.kernels.spaced_scan, "
-            "btl_bloomfilter_tpu_torch.kernels.mibf_random_insert; "
+            "btl_bloomfilter_tpu_torch.kernels.mibf_random_insert, "
+            "btl_bloomfilter_tpu_torch.compat, "
+            "btl_bloomfilter_tpu_torch.utils.binomial; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
             "m.startswith('btl_bloomfilter_tpu.')]; "
