@@ -171,7 +171,21 @@ counters, batches of 3072 reads x 2048 bases):
      d. BloomFilter / KmerBloomFilter at 2**30 bits and CountingBloomFilter
         of 2**30 bytes at widths 1 and 8 over one 512 x 2048 batch: inserts,
         contains, insertAndCheck, minCount, incrementAll, k-mer strings, the
-        .bf bytes and the FPR statistics equal the model calls.
+        .bf bytes and the FPR statistics equal the model calls;
+ 12. the distribution layer (btl_bloomfilter_tpu_torch.parallel) on the
+     card, each step timed on the host clock beside the single-device step:
+     a. NCCL at world size 1 in this process, every parallel entry point at
+        the main paths' sizes, bitwise against the single-device port: the
+        data-parallel and sharded Bloom filter at bench.py's config; the
+        data-parallel and sharded counting filter at 2**30 u8 counters and
+        3072 x 2048 reads (incrementAll, the exact conservative insert,
+        min count, contains); the sharded MIBF build, query_many and
+        query_paired_many at bench.py's MIBF config and at 7c's size (256
+        reads and 128 pairs, correct fractions >= 0.95), and saturate; the
+        launch counts of this path;
+     b. two ranks on this card through tools/dist_run.py (gloo, the
+        collectives staging through the host) at bench.py's Bloom and MIBF
+        configs, bitwise against 12a.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -2669,6 +2683,519 @@ def facade_phases(dev: torch.device, card_line: str):
     return err, ms, f_launches, bounds
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the distribution layer on the card
+# ---------------------------------------------------------------------------
+
+D_RANKS = 2                  # 12b: two gloo ranks on the one card
+D_SEED = SEED + 12
+D_REPS = 2                   # each case twice: the second is kept and timed
+
+
+def _timed(fn):
+    """(fn's result, its host-clock ms between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _warm_timed(fn):
+    """_timed of a second call of fn (a query, or an idempotent insert)."""
+    fn()
+    return _timed(fn)
+
+
+def _npy(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().copy()
+
+
+def _unsigned(t: torch.Tensor) -> np.ndarray:
+    a = _npy(t)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32,
+                   8: np.uint64}[a.itemsize])
+
+
+def _encode(res, first: int):
+    """Result lists -> (int64 [n, 8]: the read's index then QueryResult's
+    integer fields, float64 [n]: frame_prob)."""
+    rows = [(first + r, dataclasses.astuple(q)) for r, rs in enumerate(res)
+            for q in rs]
+    ints = np.asarray([[r] + list(t[:-1]) for r, t in rows],
+                      dtype=np.int64).reshape(-1, 8)
+    return ints, np.asarray([t[-1] for _, t in rows], dtype=np.float64)
+
+
+def _launches(before: dict) -> np.ndarray:
+    """The launches since ``before`` (a ``kernels.launch_counts()``): a
+    case's own, whatever ran before it in the process."""
+    from btl_bloomfilter_tpu_torch import kernels
+    return np.asarray(json.dumps({k: n - before.get(k, 0) for k, n in
+                                  kernels.launch_counts().items()}))
+
+
+def dist_case_bloom(mesh):
+    """Phase 12's Bloom cell on one rank: bench.py's config (2**30 bits,
+    512 x 2048 reads with 2% N, k=31, h=4), this rank's block of the
+    reads: the data-parallel build and query, and the sharded build and
+    query of the frames. D_REPS runs (fresh filters each; the last is kept
+    and timed)."""
+    from btl_bloomfilter_tpu_torch import kernels
+    from btl_bloomfilter_tpu_torch.kernels import nthash_scan
+    from btl_bloomfilter_tpu_torch.models import bloom
+    from btl_bloomfilter_tpu_torch.parallel import collectives, dist_bloom
+    from btl_bloomfilter_tpu_torch.parallel import mesh as mesh_lib
+
+    before = kernels.launch_counts()
+    codes = mesh_lib.sharded(mesh, make_codes(np.random.default_rng(D_SEED)))
+    for _ in range(D_REPS):
+        ms = {}
+        bf = bloom.create(MAIN_SIZE, H, K, device=mesh.device)
+        _, ms["dp insert"] = _timed(
+            lambda: dist_bloom.dp_insert_seq(mesh, bf, codes))
+        (hit, valid), ms["dp query"] = _timed(
+            lambda: dist_bloom.dp_contains_seq(mesh, bf, codes))
+        (planes, _, fvalid), ms["hash"] = _timed(
+            lambda: nthash_scan.hash_frames_planes(codes, K, H))
+        hashes = planes.movedim(0, -1)
+        sbf = dist_bloom.create_sharded(mesh, MAIN_SIZE, H, K)
+        (_, rerouted), ms["sharded insert"] = _timed(
+            lambda: dist_bloom.sharded_insert_frames(mesh, sbf, hashes,
+                                                     fvalid))
+        qhit, ms["sharded query"] = _timed(
+            lambda: dist_bloom.sharded_contains_frames(mesh, sbf, hashes))
+        # the replicated filter ORed with itself across ranks is itself
+        same, ms["butterfly"] = _timed(
+            lambda: collectives.or_allreduce_butterfly(bf.words, mesh))
+    if not torch.equal(same, bf.words):
+        raise AssertionError("the butterfly OR of a replicated filter "
+                             "changed it")
+    return {"words": _npy(bf.words).view(np.uint32), "hit": _npy(hit),
+            "valid": _npy(valid), "shard": _npy(sbf.words).view(np.uint32),
+            "qhit": _npy(qhit), "rerouted": rerouted,
+            "ms": np.asarray(json.dumps(ms)), "launches": _launches(before)}
+
+
+def dist_case_mibf(mesh):
+    """Phase 12's MIBF cell on one rank: bench.py's config (2**28-bit
+    vector, 63 references x 16,384 bases, width 2; 256 reads x 2048
+    classified), tools/profile_mibf.py's inputs. Phase 1 takes this rank's
+    block of every reference's frames, phase 3 each reference whole, phase
+    4 this rank's block of each reference's frames (blocks in stream
+    order), classification this rank's block of the reads. D_REPS runs,
+    the last kept and timed."""
+    from btl_bloomfilter_tpu_torch import kernels
+    from btl_bloomfilter_tpu_torch.parallel import dist_mibf
+    from btl_bloomfilter_tpu_torch.parallel import mesh as mesh_lib
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+
+    before = kernels.launch_counts()
+    p, dev = mesh.size, mesh.device
+    refs, reads, _ = mb.bench_inputs()
+    hashes, valid = mb.bench_hashes(torch.from_numpy(refs).to(dev))
+    n_refs = refs.shape[0]
+
+    def blocks(x, width):
+        """This rank's block of x's frames, the stream split in P rows."""
+        return mesh_lib.sharded(mesh, x.reshape((p, -1) + width))
+
+    for _ in range(D_REPS):
+        ms = {}
+        bvw = torch.zeros(mb.BV // p // 32, dtype=torch.int32, device=dev)
+
+        def build():
+            dist_mibf.insert_bv(mesh, bvw, mb.BV, blocks(hashes, (H,)),
+                                blocks(valid, ()))
+            m = dist_mibf.freeze(mesh, bvw, mb.BV, H, K, mb.DATA_WIDTH)
+            for i in range(n_refs):
+                dist_mibf.insert_mibf(mesh, m, hashes[i], i + 1, valid[i])
+            for i in range(n_refs):
+                dist_mibf.insert_saturation(mesh, m, blocks(hashes[i], (H,)),
+                                            i + 1, blocks(valid[i], ()))
+            return m
+
+        sm, ms["build"] = _timed(build)
+        qs = dist_mibf.ShardedMIBFQuerySupport(
+            mesh=mesh, m=sm, per_frame_prob=mb.PER_FRAME_PROB,
+            extra_count=2.0, extra_frame_limit=10**6, max_miss=0,
+            min_count=1, best_hit_agree=False)
+        qh, qv = mb.bench_hashes(mesh_lib.sharded(mesh, reads))
+        res, ms["classify"] = _timed(
+            lambda: qs.query_many(qh, qv, mb.MIN_COUNT))
+    ints, probs = _encode(res, mesh_lib.block(mesh, reads.shape[0]).start)
+    return {"bv": _npy(sm.bv_words).view(np.uint32),
+            "cum": _npy(sm.cum_ranks).view(np.uint32),
+            "rank_base": _npy(sm.rank_base),
+            "d_sizes": np.asarray(sm.d_sizes),
+            "data": _unsigned(sm.data), "counts": _unsigned(sm.counts),
+            "results": ints, "probs": probs,
+            "sat_eval": np.asarray([qs.sat_count, qs.eval_count]),
+            "ms": np.asarray(json.dumps(ms)), "launches": _launches(before)}
+
+
+def _joined_shards(outs, key, sizes=None):
+    """Per-rank shards joined in rank order; with ``sizes`` each shard cut
+    to its population first."""
+    if sizes is None:
+        return np.concatenate([o[key] for o in outs])
+    return np.concatenate([o[key][:n] for o, n in zip(outs, sizes)])
+
+
+def _global_cum(outs) -> np.ndarray:
+    """Local cumulative ranks plus each shard's base: the joined vector's
+    cum_ranks."""
+    return np.concatenate([
+        (o["cum"].astype(np.int64) + int(o["rank_base"][r])).astype(
+            np.uint32) for r, o in enumerate(outs)])
+
+
+def _check_dist_bloom(what, outs, ref):
+    """Rank outputs of dist_case_bloom against ``ref`` (world size 1)."""
+    for o in outs:
+        np.testing.assert_array_equal(o["words"], ref["words"],
+                                      err_msg=f"{what} dp filter")
+        if int(o["rerouted"]) != int(outs[0]["rerouted"]):
+            raise AssertionError(f"{what}: ranks disagree on rerouted")
+    for key in ("hit", "valid", "shard", "qhit"):
+        np.testing.assert_array_equal(_joined_shards(outs, key), ref[key],
+                                      err_msg=f"{what} {key}")
+
+
+def _check_dist_mibf(what, outs, ref):
+    """Rank outputs of dist_case_mibf against ``ref`` (world size 1)."""
+    sizes = tuple(int(x) for x in outs[0]["d_sizes"])
+    d = int(ref["d_sizes"][0])
+    if sum(sizes) != d:
+        raise AssertionError(f"{what}: d_size {sum(sizes)} != {d}")
+    for key, got in (("bv", _joined_shards(outs, "bv")),
+                     ("cum", _global_cum(outs)),
+                     ("data", _joined_shards(outs, "data", sizes)),
+                     ("counts", _joined_shards(outs, "counts", sizes)),
+                     ("results", _joined_shards(outs, "results")),
+                     ("probs", _joined_shards(outs, "probs"))):
+        want = ref[key][:d] if key in ("data", "counts") else ref[key]
+        np.testing.assert_array_equal(got, want, err_msg=f"{what} {key}")
+    for o in outs:
+        np.testing.assert_array_equal(o["sat_eval"], ref["sat_eval"],
+                                      err_msg=f"{what} sat/eval counts")
+
+
+def dist_phases(dev: torch.device, card_line: str) -> dict:
+    """Phase 12: the distribution layer on the card. 12a: NCCL at world
+    size 1 in this process, every parallel entry point at the main paths'
+    sizes, bitwise against the single-device port (launch counts of this
+    path); 12b: two gloo ranks on this card through tools/dist_run.py at
+    bench.py's Bloom and MIBF configs, bitwise against 12a. Returns the
+    launch counts of both."""
+    from btl_bloomfilter_tpu_torch import api, kernels
+    from btl_bloomfilter_tpu_torch.kernels import _build, nthash_scan
+    from btl_bloomfilter_tpu_torch.models import (bloom, counting,
+                                                  kmer_bloom, mibf,
+                                                  mibf_construct,
+                                                  mibf_query)
+    from btl_bloomfilter_tpu_torch.parallel import (dist_counting,
+                                                    dist_mibf, multihost)
+    from btl_bloomfilter_tpu_torch.parallel import mesh as mesh_lib
+    from btl_bloomfilter_tpu_torch.tools import dist_run
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single_ms = {}
+
+    # ---- single-device references, before the counted run --------------
+    codes = torch.from_numpy(make_codes(np.random.default_rng(D_SEED))).to(
+        dev)
+    bf1 = bloom.create(MAIN_SIZE, H, K, device=dev)
+    _, single_ms["bloom insert"] = _warm_timed(     # OR is idempotent
+        lambda: kmer_bloom.insert_seq(bf1, codes))
+    (hit1, valid1), single_ms["bloom query"] = _warm_timed(
+        lambda: kmer_bloom.contains_seq(bf1, codes))
+    planes, _, _ = nthash_scan.hash_frames_planes(codes, K, H)
+    qhit1 = bloom.contains(bf1, planes.movedim(0, -1))
+    bloom_ref = {"words": _npy(bf1.words).view(np.uint32),
+                 "hit": _npy(hit1), "valid": _npy(valid1),
+                 "shard": _npy(bf1.words).view(np.uint32),
+                 "qhit": _npy(qhit1)}
+    del bf1, planes
+
+    refs_b, reads_b, srcs_b = mb.bench_inputs()
+    refs_bt = torch.from_numpy(refs_b).to(dev)
+    ids_b = torch.arange(1, mb.IDS, device=dev)
+    mb.bench_build(refs_bt, ids_b)      # warm-up
+    (m_b, counts_b), single_ms["bench MIBF build"] = _timed(
+        lambda: mb.bench_build(refs_bt, ids_b))
+    qh_b, qv_b = mb.bench_hashes(torch.from_numpy(reads_b).to(dev))
+    qs_b = mb.bench_engine(m_b)
+    res_b, single_ms["bench MIBF classify"] = _warm_timed(
+        lambda: qs_b.query_many(qh_b, qv_b, mb.MIN_COUNT))
+    ints, probs = _encode(res_b, 0)
+    mibf_ref = {"bv": _npy(m_b.bv_words).view(np.uint32),
+                "cum": _npy(m_b.cum_ranks).view(np.uint32),
+                "d_sizes": np.asarray([m_b.d_size]),
+                "data": _unsigned(m_b.data), "counts": _unsigned(counts_b),
+                "results": ints, "probs": probs,
+                "sat_eval": np.asarray([qs_b.sat_count, qs_b.eval_count])}
+    correct_b = sum(1 for r, s_ in zip(res_b, srcs_b)
+                    if r and r[0].id == s_ + 1) / len(res_b)
+    del m_b, counts_b, qs_b
+
+    # counting: 2**30 u8 counters, 3072 x 2048 reads
+    ccodes = torch.from_numpy(make_codes(np.random.default_rng(D_SEED + 1),
+                                         rows=CB)).to(dev)
+    planes, _, cvalid = nthash_scan.hash_frames_planes(ccodes, K, H)
+    chashes = planes.movedim(0, -1)
+    del planes
+
+    def counting_single():
+        ref, ms_ = {}, {}
+        c1 = counting.create(C_BYTES, H, K, 1, device=dev)
+        _, ms_["counting incrementAll"] = _timed(
+            lambda: counting.insert_all(c1, chashes, cvalid))
+        ref["all"] = c1.counters
+        ref["all hit"], _ = counting.contains_seq(c1, ccodes)
+        c3 = counting.create(C_BYTES, H, K, 1, device=dev)
+        _, ms_["counting conservative"] = _timed(
+            lambda: counting.insert(c3, chashes, cvalid))
+        ref["conservative"] = c3.counters.clone()
+        counting.insert_all(c3, chashes, cvalid)
+        ref["both"] = c3.counters
+        ref["min count"], ms_["counting min count"] = _warm_timed(
+            lambda: counting.min_count(c3, chashes))
+        ref["contains"] = counting.contains(c3, chashes)
+        return ref, ms_
+
+    counting_single()                   # warm-up: the second run is kept
+    c_ref, ms_ = counting_single()
+    single_ms.update(ms_)
+
+    # the MIBF at the size users build (7c's): 64 x 262,144 bases,
+    # occupancy 0.5, width 2; 256 reads x 2048, 128 pairs of 1024-base
+    # mates 300 bases apart (mate 2 the reverse complement)
+    rng = np.random.default_rng(D_SEED + 2)
+    urefs = rng.integers(0, 4, size=(U_REFS, U_REF_L), dtype=np.uint8)
+    ureads, usrcs = mb.reads_from(urefs, mb.R, mb.L, rng)
+    p_srcs = rng.integers(0, U_REFS, size=S_PAIRS)
+    p_starts = rng.integers(0, U_REF_L - 2 * S_MATE_L - S_GAP, size=S_PAIRS)
+    mates1 = np.stack([urefs[s_, o: o + S_MATE_L]
+                       for s_, o in zip(p_srcs, p_starts)])
+    mates2 = np.stack([(3 - urefs[s_, o: o + S_MATE_L])[::-1]
+                       for s_, o in zip(p_srcs, p_starts + S_MATE_L + S_GAP)])
+    upfp = [0.0] + [0.1] * U_REFS
+    umc = np.full(U_REFS + 1, 2, np.int32)
+    qkw = dict(per_frame_prob=upfp, extra_count=2.0, extra_frame_limit=10**6,
+               max_miss=0, min_count=1, best_hit_agree=False)
+
+    def single_build():
+        pipe = api.MIBFConstructPipeline(mibf_construct.create(
+            U_REFS * U_REF_L, K, H, occupancy=0.5, device=dev))
+        for c in urefs:
+            pipe.insert_bv_seq(c)
+        pipe.freeze(2)
+        pipe.insert_mibf_batch(list(urefs), range(1, U_REFS + 1))
+        pipe.insert_saturation_batch(list(urefs), range(1, U_REFS + 1))
+        return pipe
+
+    single_build()                      # warm-up
+    pipe, single_ms["MIBF build"] = _timed(single_build)
+    fr = pipe.hash.frames_batch(list(ureads))
+    f1 = pipe.hash.frames_batch(list(mates1))
+    f2 = pipe.hash.frames_batch(list(mates2))
+    qs1 = mibf_query.MIBFQuerySupport(m=pipe.m, **qkw)
+    u_ref = {}
+    u_ref["reads"], single_ms["MIBF classify"] = _warm_timed(
+        lambda: qs1.query_many(fr.hashes, fr.valid, umc))
+    u_ref["read counts"] = (qs1.sat_count, qs1.eval_count)
+    u_ref["pairs"], single_ms["MIBF classify pairs"] = _warm_timed(
+        lambda: qs1.query_paired_many(f1.hashes, f1.valid, f2.hashes,
+                                      f2.valid, umc))
+    u_ref["pair counts"] = (qs1.sat_count, qs1.eval_count)
+    uplanes, _, uvalid = nthash_scan.hash_frames_planes(
+        torch.from_numpy(urefs).to(dev), K, H)
+    uhashes = uplanes.movedim(0, -1)
+    del uplanes
+    m_sat = mibf.freeze(pipe.m.bv_words, pipe.m.size, H, K, 2)
+    m_sat.data.copy_(pipe.m.data)
+    mibf.saturate(m_sat, uhashes[0])
+
+    # ---- 12a: NCCL at world size 1, the counted run ------------------------
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    dist_ms = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        multihost.init(f"file://{os.path.join(tmp, 'store')}", 1, 0,
+                       device=dev)
+        try:
+            mesh = mesh_lib.make_mesh(device=dev)
+            log(f"[12a] process group: {mesh.backend}, world size "
+                f"{mesh.size}, {mesh.device}")
+            kernels.reset_launch_counts()
+            bloom_1 = dist_case_bloom(mesh)
+            mibf_1 = dist_case_mibf(mesh)
+
+            def counting_dist(check: bool):
+                """The data-parallel and sharded counting steps; with
+                ``check`` each is held against the single device."""
+                def same(what, a, b):
+                    if check:
+                        require_equal(f"12a {what}", a, b)
+
+                c2 = counting.create(C_BYTES, H, K, 1, device=dev)
+                _, dist_ms["counting dp incrementAll"] = _timed(
+                    lambda: dist_counting.dp_insert_all_seq(mesh, c2,
+                                                            ccodes))
+                same("dp incrementAll", c2.counters, c_ref["all"])
+                (hit2, _), dist_ms["counting dp query"] = _timed(
+                    lambda: dist_counting.dp_contains_seq(mesh, c2, ccodes))
+                same("dp counting query", hit2, c_ref["all hit"])
+                del c2, hit2
+                scbf = dist_counting.create_sharded(mesh, C_BYTES, H, K, 1)
+                _, dist_ms["counting conservative"] = _timed(
+                    lambda: dist_counting.sharded_insert(mesh, scbf, chashes,
+                                                         cvalid))
+                same("sharded conservative", scbf.counters,
+                     c_ref["conservative"])
+                _, dist_ms["counting incrementAll"] = _timed(
+                    lambda: dist_counting.sharded_insert_all(
+                        mesh, scbf, chashes, cvalid))
+                same("sharded incrementAll", scbf.counters, c_ref["both"])
+                mc2, dist_ms["counting min count"] = _warm_timed(
+                    lambda: dist_counting.sharded_min_count(mesh, scbf,
+                                                            chashes))
+                same("sharded min count", mc2, c_ref["min count"])
+                same("sharded contains", dist_counting.sharded_contains(
+                    mesh, scbf, chashes), c_ref["contains"])
+
+            counting_dist(False)        # warm-up: the second run is kept
+            counting_dist(True)
+
+            def dist_build():
+                bvw, size = dist_mibf.create_bv(mesh, U_REFS * U_REF_L, K, H,
+                                                0.5)
+                if size != pipe.m.size:
+                    raise AssertionError(f"sharded size {size} != "
+                                         f"{pipe.m.size}")
+                dist_mibf.insert_bv(mesh, bvw, size, uhashes, uvalid)
+                m = dist_mibf.freeze(mesh, bvw, size, H, K, 2)
+                for i in range(U_REFS):
+                    dist_mibf.insert_mibf(mesh, m, uhashes[i], i + 1,
+                                          uvalid[i])
+                for i in range(U_REFS):
+                    dist_mibf.insert_saturation(mesh, m, uhashes[i:i + 1],
+                                                i + 1, uvalid[i:i + 1])
+                return m
+
+            dist_build()                # warm-up
+            sm, dist_ms["MIBF build"] = _timed(dist_build)
+            g, gc = dist_mibf.to_single(mesh, sm)
+            for what, a, b in (("bit vector", g.bv_words, pipe.m.bv_words),
+                               ("cum_ranks", g.cum_ranks, pipe.m.cum_ranks),
+                               ("ID plane", g.data, pipe.m.data),
+                               ("counts", gc, pipe.counts)):
+                require_equal(f"12a sharded MIBF {what}", a, b)
+            del g, gc
+            qs2 = dist_mibf.ShardedMIBFQuerySupport(mesh=mesh, m=sm, **qkw)
+            u_reads, dist_ms["MIBF classify"] = _warm_timed(
+                lambda: qs2.query_many(fr.hashes, fr.valid, umc))
+            u_counts = (qs2.sat_count, qs2.eval_count)
+            u_pairs, dist_ms["MIBF classify pairs"] = _warm_timed(
+                lambda: qs2.query_paired_many(f1.hashes, f1.valid, f2.hashes,
+                                              f2.valid, umc))
+            u_pair_counts = (qs2.sat_count, qs2.eval_count)
+            dist_mibf.saturate(mesh, sm, uhashes[0])
+            require_equal("12a sharded saturate",
+                          dist_mibf.to_single(mesh, sm)[0].data, m_sat.data)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            multihost.shutdown()
+        log(f"[12a] launches on the distribution path: {launches}")
+        for name in ("nthash_scan", "scatter_or", "gather_words",
+                     "gather_counters", "scatter_add", "conservative_step",
+                     "mibf_rank", "mibf_frame_scan"):
+            if launches[name] < 1:
+                raise AssertionError(f"{name} never launched on the "
+                                     f"distribution path: {launches}")
+
+        def results(res):
+            return [[dataclasses.astuple(r) for r in rs] for rs in res]
+
+        if results(u_reads) != results(u_ref["reads"]) or \
+                u_counts != u_ref["read counts"]:
+            raise AssertionError("12a sharded classification != single")
+        if results(u_pairs) != results(u_ref["pairs"]) or \
+                u_pair_counts != u_ref["pair counts"]:
+            raise AssertionError("12a sharded paired classification != "
+                                 "single")
+        correct = sum(1 for r, s_ in zip(u_reads, usrcs)
+                      if r and r[0].id == s_ + 1) / len(u_reads)
+        p_correct = sum(1 for r, s_ in zip(u_pairs, p_srcs)
+                        if r and r[0].id == s_ + 1) / len(u_pairs)
+        if min(correct, p_correct) < 0.95:
+            raise AssertionError(f"correct fractions {correct}, {p_correct} "
+                                 "below 0.95")
+        _check_dist_bloom("12a Bloom", [bloom_1], bloom_ref)
+        if int(bloom_1["rerouted"]) != 0:
+            raise AssertionError("12a: rerouted positions at world size 1")
+        _check_dist_mibf("12a bench MIBF", [mibf_1], mibf_ref)
+        dist_ms.update(json.loads(str(bloom_1["ms"])))
+        dist_ms.update({f"bench MIBF {k}": v for k, v in
+                        json.loads(str(mibf_1["ms"])).items()})
+        log(f"[12a] world size 1 == single device, bitwise: Bloom "
+            f"at bench.py's config (dp and sharded filters, hits, queries), "
+            f"counting at 2**30 u8 counters x {CB} reads (dp incrementAll "
+            f"and query, sharded conservative insert, incrementAll, min "
+            f"count, contains), the MIBF at bench.py's config (correct "
+            f"fraction {correct_b}) and at {U_REFS} x {U_REF_L} bases (bit "
+            f"vector, cum_ranks, IDs, counts, {mb.R} reads and {S_PAIRS} "
+            f"pairs classified, correct fractions {correct} and "
+            f"{p_correct}, saturate)")
+        for k, v in single_ms.items():
+            log(f"[12a] single device {k}: {v:.3f} ms (host clock, a "
+                f"second call; {card_line})")
+        for k, v in dist_ms.items():
+            log(f"[12a] world size 1 {k}: {v:.3f} ms (host clock, a second "
+                f"call; {card_line})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[12a] peak memory {peak:.2f} GiB")
+        del sm, qs2, pipe, qs1, uhashes, chashes
+        torch.cuda.empty_cache()
+
+        # ---- 12b: two gloo ranks on the one card --------------------------
+        out = os.path.join(tmp, "12b")
+        t0 = time.perf_counter()
+        summary = dist_run.launch(
+            os.path.abspath(__file__), ["dist_case_bloom", "dist_case_mibf"],
+            D_RANKS, out, device=str(dev), backend="gloo", timeout=120,
+            limit=300)
+        t_launch = time.perf_counter() - t0
+        if not summary["stages_through_host"]:
+            raise AssertionError("12b: gloo over CUDA tensors must stage "
+                                 "through the host")
+        b_outs = dist_run.load(out, "dist_case_bloom", D_RANKS)
+        m_outs = dist_run.load(out, "dist_case_mibf", D_RANKS)
+        _check_dist_bloom("12b Bloom", b_outs, bloom_1)
+        _check_dist_mibf("12b bench MIBF", m_outs, mibf_1)
+        for o in b_outs + m_outs:
+            for name, n in json.loads(str(o["launches"])).items():
+                launches[name] += n
+        log(f"[12b] {D_RANKS} ranks on {dev} ({summary['backend']}, "
+            f"collectives staged through the host: "
+            f"{summary['stages_through_host']}) == world size 1, bitwise: "
+            f"Bloom at bench.py's config (dp filter on every rank, sharded "
+            f"filter joined, hits; rerouted {int(b_outs[0]['rerouted'])} at "
+            f"the JAX package's default cap) and the MIBF at bench.py's "
+            f"config (bit vector, global cum_ranks, IDs, counts, result "
+            f"lists, sat / eval counts); launch and run {t_launch:.1f} s")
+        for what, o in (("", b_outs[0]), ("bench MIBF ", m_outs[0])):
+            for k, v in json.loads(str(o["ms"])).items():
+                log(f"[12b] rank 0 {what}{k}: {v:.3f} ms (host clock, a "
+                    f"second call; {card_line})")
+    log(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3113,6 +3640,12 @@ def main() -> None:
     ms.update(f_ms)
     bounds.update(f_bounds)
     launches.update(f_launches)
+
+    # ---- 12. the distribution layer ----------------------------------------
+    # its path runs the Bloom, counting and MIBF kernels once more
+    for name, n in dist_phases(dev, card_line).items():
+        if name in launches:
+            launches[name] += n
 
     src = "btl_bloomfilter_tpu_torch/csrc/"
     record = {"kernels": [

@@ -3,16 +3,22 @@ unless the caller asks for the CPU: their ``device`` defaults to "cuda",
 and without a card they raise instead of moving to the CPU by themselves.
 """
 
+import datetime
 import inspect
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from btl_bloomfilter_tpu_torch import api, compat
 from btl_bloomfilter_tpu_torch.io import bf_format, mibf_format
 from btl_bloomfilter_tpu_torch.models import (bloom, counting, mibf,
                                               mibf_construct)
+from btl_bloomfilter_tpu_torch.parallel import (dist_bloom, dist_counting,
+                                                dist_mibf, multihost)
+from btl_bloomfilter_tpu_torch.parallel import mesh as mesh_lib
+from btl_bloomfilter_tpu_torch.tools import dist_run
 from btl_bloomfilter_tpu_torch.probes import (kernel_lab, partition_probe,
                                               ring_probe, vmem_sort_probe)
 
@@ -25,7 +31,7 @@ ENTRY_POINTS = [
     partition_probe.make_keys, partition_probe.dma_sweep,
     kernel_lab.make_inputs, compat.BloomFilter, compat.KmerBloomFilter,
     compat.CountingBloomFilter, compat.MIBloomFilter,
-    compat.MIBFConstructSupport,
+    compat.MIBFConstructSupport, multihost.init,
 ]
 
 
@@ -87,3 +93,38 @@ def test_seeded_hash_pipeline_defaults_to_the_card():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             hp.frames(codes)
+
+
+def test_parallel_defaults_to_the_card(tmp_path):
+    """The distribution layer's mesh is the card's unless the caller names
+    another device; the sharded filters live on the mesh's device (so
+    without a card creating one raises), and the rank launcher's ranks
+    take the mesh's default."""
+    assert inspect.signature(mesh_lib.make_mesh).parameters[
+        "device"].default is None
+    assert inspect.signature(dist_run.launch).parameters[
+        "device"].default is None
+    multihost.init(f"file://{tmp_path / 'store'}", 1, 0, device="cpu",
+                   timeout=datetime.timedelta(seconds=30))
+    try:
+        assert dist.get_backend() == "gloo"
+        mesh = mesh_lib.make_mesh()
+        assert mesh.device.type == "cuda" and mesh.size == 1
+        makers = [lambda: dist_bloom.create_sharded(mesh, 1024, 2, 5),
+                  lambda: dist_counting.create_sharded(mesh, 64, 2, 5, 1),
+                  lambda: dist_mibf.create_bv(mesh, 100, 5, 2)]
+        for make in makers:
+            if torch.cuda.is_available():
+                state = make()
+                state = state[0] if isinstance(state, tuple) else state
+                for name in ("words", "counters"):
+                    if hasattr(state, name):
+                        assert getattr(state, name).device.type == "cuda"
+            else:
+                with pytest.raises((RuntimeError, AssertionError)):
+                    make()
+        cpu = mesh_lib.make_mesh(device="cpu")
+        assert dist_bloom.create_sharded(cpu, 1024, 2, 5).words.device == \
+            torch.device("cpu")
+    finally:
+        multihost.shutdown()

@@ -1,5 +1,6 @@
-"""The port must run where JAX is not installed: importing it, its API and
-its CLIs pulls in neither jax nor the JAX package."""
+"""The port must run where JAX is not installed: importing it, its API,
+its CLIs, its distribution layer and the rank launcher pulls in neither
+jax nor the JAX package."""
 
 import os
 import subprocess
@@ -44,7 +45,14 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.kernels.spaced_scan, "
             "btl_bloomfilter_tpu_torch.kernels.mibf_random_insert, "
             "btl_bloomfilter_tpu_torch.compat, "
-            "btl_bloomfilter_tpu_torch.utils.binomial; "
+            "btl_bloomfilter_tpu_torch.utils.binomial, "
+            "btl_bloomfilter_tpu_torch.parallel.mesh, "
+            "btl_bloomfilter_tpu_torch.parallel.multihost, "
+            "btl_bloomfilter_tpu_torch.parallel.collectives, "
+            "btl_bloomfilter_tpu_torch.parallel.dist_bloom, "
+            "btl_bloomfilter_tpu_torch.parallel.dist_counting, "
+            "btl_bloomfilter_tpu_torch.parallel.dist_mibf, "
+            "btl_bloomfilter_tpu_torch.tools.dist_run; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
             "m.startswith('btl_bloomfilter_tpu.')]; "
