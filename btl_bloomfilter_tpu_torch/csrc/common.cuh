@@ -38,6 +38,20 @@ __device__ __forceinline__ uint64_t btl_derive_hash(uint64_t canon, int i,
     return v ^ (v >> BTL_MULTI_SHIFT);
 }
 
+// v % size: a mask when magic == 0 (size a power of two), else Barrett:
+// q = mulhi(v, magic) >> shift is floor(v/size) or one less, for any size
+// below 2**63 (magic = floor(2**(63+p) / size) < 2**64, p its bit length;
+// kernels/nthash_scan.py barrett).
+__device__ __forceinline__ uint64_t btl_mod_size64(uint64_t v, uint64_t size,
+                                                   uint64_t magic,
+                                                   int shift) {
+    if (magic == 0) return v & (size - 1);
+    uint64_t q = __umul64hi(v, magic) >> shift;
+    uint64_t r = v - q * size;
+    if (r >= size) r -= size;
+    return r;
+}
+
 // Make sure the launch lands on the card the tensors live on. The wrapper
 // makes that device current before the call (kernels/_build.py), so this
 // only reads the current device; it sets it where a caller did not.

@@ -44,7 +44,9 @@
 //
 // Semantics: a sentinel slot reads 0 and writes nothing; a word index past
 // the array is read from the last word (clamped, as the gather is) and
-// written nowhere.
+// written nowhere. Positions are uint32 with the sentinel 0xFFFFFFFF below
+// 2**32 counters; a filter of exactly 2**32 counters takes wide positions,
+// int64 with -1 the sentinel, through instantiations of their own.
 
 #include "common.cuh"
 
@@ -63,12 +65,14 @@ struct Lanes {
                                      : (1u << (32u >> shift_)) - 1u),
           sub_mask((1u << shift_) - 1u), shift(shift_), nwords(nwords_) {}
 
-    __device__ long long word(uint32_t p) const {
-        const long long w = p >> shift;
+    template <typename P>
+    __device__ long long word(P p) const {
+        const long long w = (long long)(p >> shift);
         return w < nwords ? w : nwords - 1;
     }
-    __device__ unsigned lane_shift(uint32_t p) const {
-        return (p & sub_mask) * bits;
+    template <typename P>
+    __device__ unsigned lane_shift(P p) const {
+        return ((uint32_t)p & sub_mask) * bits;
     }
 };
 
@@ -81,10 +85,11 @@ __device__ __forceinline__ long long step_target(uint32_t mn, long long c,
     return (long long)mn + (c < head ? c : head);
 }
 
+template <typename P>
 __device__ __forceinline__ void lane_add(unsigned int* words,
-                                         const Lanes& L, uint32_t p,
+                                         const Lanes& L, P p,
                                          uint32_t cur, long long target) {
-    if (p == BTL_SENTINEL || (long long)(p >> L.shift) >= L.nwords) return;
+    if (btl_is_sentinel(p) || (long long)(p >> L.shift) >= L.nwords) return;
     if ((long long)cur >= target) return;
     // carry-free: cur < target <= counter_max, and no other thread adds to
     // this lane in this step (see the note above)
@@ -92,27 +97,30 @@ __device__ __forceinline__ void lane_add(unsigned int* words,
               (unsigned int)(target - (long long)cur) << L.lane_shift(p));
 }
 
+// P: uint32_t, or long long for wide positions.
+template <typename P>
 __global__ void __launch_bounds__(BTL_BLOCK)
-conservative_step_regs(const uint32_t* __restrict__ pos,
+conservative_step_regs(const P* __restrict__ pos,
                        const long long* __restrict__ c, long long m, int h,
                        unsigned int* words, long long nwords, int shift,
                        uint32_t counter_max) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m || pos[i] == BTL_SENTINEL) return;
+    if (i >= m || btl_is_sentinel(pos[i])) return;
     const Lanes L(shift, nwords);
-    uint32_t p[H_MAX], v[H_MAX];
+    P p[H_MAX];
+    uint32_t v[H_MAX];
 #pragma unroll
     for (int j = 0; j < H_MAX; ++j)
         if (j < h) p[j] = pos[(long long)j * m + i];
     // every load issued before any is used
 #pragma unroll
     for (int j = 0; j < H_MAX; ++j)
-        if (j < h) v[j] = p[j] == BTL_SENTINEL ? 0u : words[L.word(p[j])];
+        if (j < h) v[j] = btl_is_sentinel(p[j]) ? 0u : words[L.word(p[j])];
     uint32_t mn = 0xFFFFFFFFu;
 #pragma unroll
     for (int j = 0; j < H_MAX; ++j) {
         if (j < h) {
-            if (p[j] != BTL_SENTINEL)
+            if (!btl_is_sentinel(p[j]))
                 v[j] = (v[j] >> L.lane_shift(p[j])) & L.mask;
             mn = v[j] < mn ? v[j] : mn;
         }
@@ -130,28 +138,30 @@ conservative_step_regs(const uint32_t* __restrict__ pos,
 
 // h > H_MAX: the same step, the lanes kept in scratch [h, m] (coalesced);
 // the word loads of each group of H_MAX slots are issued together.
+template <typename P>
 __global__ void __launch_bounds__(BTL_BLOCK)
-conservative_step_loop(const uint32_t* __restrict__ pos,
+conservative_step_loop(const P* __restrict__ pos,
                        const long long* __restrict__ c, long long m, int h,
                        unsigned int* words, long long nwords, int shift,
                        uint32_t counter_max, uint32_t* __restrict__ scratch) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m || pos[i] == BTL_SENTINEL) return;
+    if (i >= m || btl_is_sentinel(pos[i])) return;
     const Lanes L(shift, nwords);
     uint32_t mn = 0xFFFFFFFFu;
     for (int j0 = 0; j0 < h; j0 += H_MAX) {
-        uint32_t p[H_MAX], v[H_MAX];
+        P p[H_MAX];
+        uint32_t v[H_MAX];
 #pragma unroll
         for (int j = 0; j < H_MAX; ++j)
             if (j0 + j < h) p[j] = pos[(long long)(j0 + j) * m + i];
 #pragma unroll
         for (int j = 0; j < H_MAX; ++j)
             if (j0 + j < h)
-                v[j] = p[j] == BTL_SENTINEL ? 0u : words[L.word(p[j])];
+                v[j] = btl_is_sentinel(p[j]) ? 0u : words[L.word(p[j])];
 #pragma unroll
         for (int j = 0; j < H_MAX; ++j) {
             if (j0 + j < h) {
-                if (p[j] != BTL_SENTINEL)
+                if (!btl_is_sentinel(p[j]))
                     v[j] = (v[j] >> L.lane_shift(p[j])) & L.mask;
                 mn = v[j] < mn ? v[j] : mn;
                 scratch[(long long)(j0 + j) * m + i] = v[j];
@@ -160,13 +170,36 @@ conservative_step_loop(const uint32_t* __restrict__ pos,
     }
     const long long target = step_target(mn, c[i], counter_max);
     for (int j = 0; j < h; ++j) {
-        const uint32_t pj = pos[(long long)j * m + i];
+        const P pj = pos[(long long)j * m + i];
         bool dup = false;
         for (int k = 0; k < j && !dup; ++k)
             dup = pos[(long long)k * m + i] == pj;
         if (!dup) lane_add(words, L, pj, scratch[(long long)j * m + i],
                            target);
     }
+}
+
+template <typename P>
+static int launch(const void* pos, const void* c, long long m, int h,
+                  void* words, long long nwords, int shift,
+                  unsigned int counter_max, void* scratch, int device,
+                  void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    if (h < 1 || (h > H_MAX && scratch == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((m + BTL_BLOCK - 1) / BTL_BLOCK);
+    if (h <= H_MAX)
+        conservative_step_regs<P><<<blocks, BTL_BLOCK, 0,
+                                    (cudaStream_t)stream>>>(
+            (const P*)pos, (const long long*)c, m, h, (unsigned int*)words,
+            nwords, shift, counter_max);
+    else
+        conservative_step_loop<P><<<blocks, BTL_BLOCK, 0,
+                                    (cudaStream_t)stream>>>(
+            (const P*)pos, (const long long*)c, m, h, (unsigned int*)words,
+            nwords, shift, counter_max, (uint32_t*)scratch);
+    return (int)cudaGetLastError();
 }
 
 // pos uint32 [h, m] plane-major (frames position-disjoint); c int64 [m];
@@ -177,21 +210,17 @@ extern "C" int btl_conservative_step(const void* pos, const void* c,
                                      long long nwords, int shift,
                                      unsigned int counter_max, void* scratch,
                                      int device, void* stream) {
-    cudaError_t err = btl_set_device(device);
-    if (err != cudaSuccess) return (int)err;
-    if (h < 1 || (h > H_MAX && scratch == nullptr))
-        return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((m + BTL_BLOCK - 1) / BTL_BLOCK);
-    if (h <= H_MAX)
-        conservative_step_regs<<<blocks, BTL_BLOCK, 0,
-                                 (cudaStream_t)stream>>>(
-            (const uint32_t*)pos, (const long long*)c, m, h,
-            (unsigned int*)words, nwords, shift, counter_max);
-    else
-        conservative_step_loop<<<blocks, BTL_BLOCK, 0,
-                                 (cudaStream_t)stream>>>(
-            (const uint32_t*)pos, (const long long*)c, m, h,
-            (unsigned int*)words, nwords, shift, counter_max,
-            (uint32_t*)scratch);
-    return (int)cudaGetLastError();
+    return launch<uint32_t>(pos, c, m, h, words, nwords, shift, counter_max,
+                            scratch, device, stream);
+}
+
+// The same for wide positions: pos int64 [h, m], -1 the sentinel.
+extern "C" int btl_conservative_step_wide(const void* pos, const void* c,
+                                          long long m, int h, void* words,
+                                          long long nwords, int shift,
+                                          unsigned int counter_max,
+                                          void* scratch, int device,
+                                          void* stream) {
+    return launch<long long>(pos, c, m, h, words, nwords, shift,
+                             counter_max, scratch, device, stream);
 }

@@ -27,14 +27,19 @@
 //
 // Semantics: a sentinel slot reads 0; a window whose slot 0 is the sentinel
 // is invalid (min 0, hit false); a word index past the array is clamped to
-// the last word, as an XLA gather clamps.
+// the last word, as an XLA gather clamps. Positions are uint32 with the
+// sentinel 0xFFFFFFFF below 2**32 counters; a filter of exactly 2**32
+// counters (0xFFFFFFFF a real counter) takes wide positions, int64 with -1
+// the sentinel, through an instantiation of its own.
 
 #include "common.cuh"
 
 #define G_MAX 8
 
+// P: uint32_t, or long long for wide positions.
+template <typename P>
 __global__ void __launch_bounds__(BTL_BLOCK)
-gather_counters_kernel(const uint32_t* __restrict__ pos, long long n, int h,
+gather_counters_kernel(const P* __restrict__ pos, long long n, int h,
                        const unsigned int* __restrict__ words,
                        long long nwords, int shift,
                        unsigned long long threshold,
@@ -47,13 +52,14 @@ gather_counters_kernel(const uint32_t* __restrict__ pos, long long n, int h,
     const bool hit_only = vals == nullptr && mins == nullptr;
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const bool valid = pos[i] != BTL_SENTINEL;
+    const bool valid = !btl_is_sentinel(pos[i]);
     uint32_t mn = 0xFFFFFFFFu;
     if (valid || vals) {
         for (int j0 = 0; j0 < h;) {
             int g = hit_only && j0 == 0 ? 1 : G_MAX;
             if (g > h - j0) g = h - j0;
-            uint32_t p[G_MAX], v[G_MAX];
+            P p[G_MAX];
+            uint32_t v[G_MAX];
 #pragma unroll
             for (int j = 0; j < G_MAX; ++j)
                 if (j < g) p[j] = pos[(long long)(j0 + j) * n + i];
@@ -61,16 +67,16 @@ gather_counters_kernel(const uint32_t* __restrict__ pos, long long n, int h,
 #pragma unroll
             for (int j = 0; j < G_MAX; ++j) {
                 if (j < g) {
-                    long long w = p[j] >> shift;
+                    long long w = (long long)(p[j] >> shift);
                     if (w >= nwords) w = nwords - 1;
-                    v[j] = p[j] == BTL_SENTINEL ? 0u : __ldg(&words[w]);
+                    v[j] = btl_is_sentinel(p[j]) ? 0u : __ldg(&words[w]);
                 }
             }
 #pragma unroll
             for (int j = 0; j < G_MAX; ++j) {
                 if (j < g) {
-                    if (p[j] != BTL_SENTINEL)
-                        v[j] = (v[j] >> ((p[j] & sub_mask) * bits))
+                    if (!btl_is_sentinel(p[j]))
+                        v[j] = (v[j] >> (((uint32_t)p[j] & sub_mask) * bits))
                                & lane_mask;
                     if (vals) vals[(long long)(j0 + j) * n + i] = v[j];
                     mn = v[j] < mn ? v[j] : mn;
@@ -84,6 +90,21 @@ gather_counters_kernel(const uint32_t* __restrict__ pos, long long n, int h,
     if (hit) hit[i] = valid && mn >= threshold;
 }
 
+template <typename P>
+static int launch(const void* pos, long long n, int h, const void* words,
+                  long long nwords, int shift, unsigned long long threshold,
+                  void* vals, void* mins, void* hit, int device,
+                  void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)((n + BTL_BLOCK - 1) / BTL_BLOCK);
+    gather_counters_kernel<P><<<blocks, BTL_BLOCK, 0,
+                                (cudaStream_t)stream>>>(
+        (const P*)pos, n, h, (const unsigned int*)words, nwords, shift,
+        threshold, (uint32_t*)vals, (uint32_t*)mins, (bool*)hit);
+    return (int)cudaGetLastError();
+}
+
 // pos uint32 [h, n] plane-major; words uint32 [nwords]; outputs (each may
 // be null): vals uint32 [h, n], mins uint32 [n], hit bool [n].
 extern "C" int btl_gather_counters(const void* pos, long long n, int h,
@@ -91,11 +112,17 @@ extern "C" int btl_gather_counters(const void* pos, long long n, int h,
                                    int shift, unsigned long long threshold,
                                    void* vals, void* mins, void* hit,
                                    int device, void* stream) {
-    cudaError_t err = btl_set_device(device);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((n + BTL_BLOCK - 1) / BTL_BLOCK);
-    gather_counters_kernel<<<blocks, BTL_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)pos, n, h, (const unsigned int*)words, nwords,
-        shift, threshold, (uint32_t*)vals, (uint32_t*)mins, (bool*)hit);
-    return (int)cudaGetLastError();
+    return launch<uint32_t>(pos, n, h, words, nwords, shift, threshold, vals,
+                            mins, hit, device, stream);
+}
+
+// The same for wide positions: pos int64 [h, n], -1 the sentinel.
+extern "C" int btl_gather_counters_wide(const void* pos, long long n, int h,
+                                        const void* words, long long nwords,
+                                        int shift,
+                                        unsigned long long threshold,
+                                        void* vals, void* mins, void* hit,
+                                        int device, void* stream) {
+    return launch<long long>(pos, n, h, words, nwords, shift, threshold,
+                             vals, mins, hit, device, stream);
 }

@@ -431,7 +431,7 @@ static cudaError_t run_rounds(Frames a, Schedule s, int device,
 }
 
 // hashes uint64 [n, h] (1 <= h <= RI_MAX_H, n < 2**31, n h <= 2**30);
-// size the bit vector's length in bits (< 2**32); dir its rank directory
+// size the bit vector's length in bits (<= 2**32); dir its rank directory
 // (nwords words, 16-byte aligned); data the ID array [d_size >= 1] of
 // `width` bytes (1, 2 or 4), updated in place; strand bool [n, h] and
 // valid bool [n], each null for none; scratch of

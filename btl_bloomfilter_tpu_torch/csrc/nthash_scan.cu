@@ -45,22 +45,10 @@
 #include "common.cuh"
 #include "nthash_roll.cuh"
 
-// v % size: a mask when magic == 0 (size a power of two), else Barrett:
-// q = mulhi(v, magic) >> shift is floor(v/size) or one less, for any size
-// below 2**63 (magic = floor(2**(63+p) / size) < 2**64, p its bit length).
-__device__ __forceinline__ uint64_t mod_size64(uint64_t v, uint64_t size,
-                                               uint64_t magic, int shift) {
-    if (magic == 0) return v & (size - 1);
-    uint64_t q = __umul64hi(v, magic) >> shift;
-    uint64_t r = v - q * size;
-    if (r >= size) r -= size;
-    return r;
-}
-
 // The narrow form: size < 2**32.
 __device__ __forceinline__ uint32_t mod_size(uint64_t v, uint64_t size,
                                              uint64_t magic, int shift) {
-    return (uint32_t)mod_size64(v, size, magic, shift);
+    return (uint32_t)btl_mod_size64(v, size, magic, shift);
 }
 
 // Base codes in order from a byte address, read four to an aligned 32-bit
@@ -167,7 +155,8 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
             const uint64_t v = btl_derive_hash(canon, i, km);
             if (kWide) {
                 ((long long*)out)[i * plane + idx] =
-                    ok ? (long long)mod_size64(v, size, magic, shift) : -1LL;
+                    ok ? (long long)btl_mod_size64(v, size, magic, shift)
+                       : -1LL;
             } else if (positions_mode) {
                 ((uint32_t*)out)[i * plane + idx] =
                     ok ? mod_size(v, size, magic, shift) : BTL_SENTINEL;

@@ -3,7 +3,11 @@
 // p & (per-1) of 32-bit word p >> shift, per = 1 << shift). Positions come
 // in any order, with duplicates; the sentinel 0xFFFFFFFF, a zero increment
 // and a word index past the array are no-ops. With no increment array
-// every pair adds 1 (incrementAll).
+// every pair adds 1 (incrementAll). A filter of exactly 2**32 counters
+// (0xFFFFFFFF a real counter) takes wide positions, int64 with -1 the
+// sentinel, on the direct route (an instantiation of its own); the tiled
+// route cannot take such a filter: its 2**30 words or more make 65,536
+// tiles, past the partition's 32,768.
 //
 // Replaces: btl_bloomfilter_tpu/kernels/scatter_add.py:_kernel (built by
 // _make_weighted_kernel, behind scatter_add_weighted_sorted and its unit
@@ -57,8 +61,10 @@ __device__ __forceinline__ void sat_add(unsigned int* addr, unsigned sh,
     }
 }
 
+// P: uint32_t, or long long for wide positions.
+template <typename P>
 __global__ void __launch_bounds__(BTL_BLOCK)
-scatter_add_kernel(const uint32_t* __restrict__ pos,
+scatter_add_kernel(const P* __restrict__ pos,
                    const uint32_t* __restrict__ inc, long long n,
                    unsigned int* __restrict__ words, long long nwords,
                    int shift, uint32_t counter_max) {
@@ -68,13 +74,14 @@ scatter_add_kernel(const uint32_t* __restrict__ pos,
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < n; i += stride) {
-        const uint32_t p = pos[i];
-        if (p == BTL_SENTINEL) continue;
+        const P p = pos[i];
+        if (btl_is_sentinel(p)) continue;
         const uint32_t c = inc ? inc[i] : 1u;
         if (c == 0) continue;
-        const long long w = p >> shift;
+        const long long w = (long long)(p >> shift);
         if (w >= nwords) continue;
-        sat_add(&words[w], (p & sub_mask) * bits, lane_mask, c, counter_max);
+        sat_add(&words[w], ((uint32_t)p & sub_mask) * bits, lane_mask, c,
+                counter_max);
     }
 }
 
@@ -128,6 +135,21 @@ extern "C" int btl_scatter_add(const void* pos, const void* inc, long long n,
                          (cudaStream_t)stream>>>(
         (const uint32_t*)pos, (const uint32_t*)inc, n, (unsigned int*)words,
         nwords, shift, counter_max);
+    return (int)cudaGetLastError();
+}
+
+// The same for wide positions: pos int64 [n], -1 the sentinel.
+extern "C" int btl_scatter_add_wide(const void* pos, const void* inc,
+                                    long long n, void* words,
+                                    long long nwords, int shift,
+                                    unsigned int counter_max, int device,
+                                    void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    scatter_add_kernel<<<btl_blocks(n), BTL_BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+        (const long long*)pos, (const uint32_t*)inc, n,
+        (unsigned int*)words, nwords, shift, counter_max);
     return (int)cudaGetLastError();
 }
 

@@ -40,8 +40,8 @@ def store_mibf(m: mibf_mod.MIBloomFilter, path: str) -> None:
             f.write(s.encode("ascii"))
         f.write(mibf_mod.ids_numpy(m).astype(_NP_LE[m.data_width]).tobytes())
     with open(path + ".sdsl", "wb") as f:
-        f.write(sdsl_io.serialize_bit_vector_il(
-            m.bv_words.cpu().numpy().view(np.uint32), m.size))
+        sdsl_io.write_bit_vector_il(
+            f, m.bv_words.cpu().numpy().view(np.uint32), m.size)
 
 
 def load_mibf(path: str, data_width: int = 2,

@@ -35,6 +35,7 @@ total-rank word — both documented in docs/PARITY.md.
 
 from __future__ import annotations
 
+import io
 import struct
 
 import numpy as np
@@ -52,24 +53,22 @@ def _rank_samples(block_ranks: np.ndarray) -> np.ndarray:
         return np.zeros(0, dtype="<u8")
     depth = max(1, (nblocks - 1).bit_length())
     cap = (1 << depth) - 1
-    out = []
-    queue = [(0, nblocks)]
-    while queue and len(out) < cap:
-        lb, rb = queue.pop(0)
-        if lb < rb:
-            mid = lb + (rb - lb) // 2
-            out.append(block_ranks[mid])
-            queue.append((lb, mid))
-            queue.append((mid + 1, rb))
-    return np.asarray(out, dtype="<u8")
-
-
-def _words64_from_bits(bits_u32: np.ndarray, size_bits: int) -> np.ndarray:
-    """uint32 word array -> uint64 little-endian word array."""
-    n64 = (size_bits + 63) // 64
-    u32 = np.zeros(2 * n64, dtype="<u4")
-    u32[: bits_u32.shape[0]] = bits_u32
-    return u32.view("<u8")
+    # the BFS a level at a time (a FIFO queue visits the levels in order,
+    # each level's intervals in their parents' order), vectorised: one
+    # interval a block would take a Python loop of 2**23 steps at 2**32 bits
+    lb, rb = np.zeros(1, np.int64), np.full(1, nblocks, np.int64)
+    out, total = [], 0
+    while lb.size and total < cap:
+        keep = lb < rb
+        lb, rb = lb[keep], rb[keep]
+        mid = lb + (rb - lb) // 2
+        out.append(block_ranks[mid])
+        total += mid.size
+        lb = np.stack([lb, mid + 1], axis=1).reshape(-1)
+        rb = np.stack([mid, rb], axis=1).reshape(-1)
+    if not out:
+        return np.zeros(0, dtype="<u8")
+    return np.concatenate(out)[:cap].astype("<u8")
 
 
 def _bits_u32_from_words64(words64: np.ndarray, size_bits: int) -> np.ndarray:
@@ -80,39 +79,48 @@ def _bits_u32_from_words64(words64: np.ndarray, size_bits: int) -> np.ndarray:
     return out
 
 
+# superblocks a popcount pass takes at a time (16 MiB of words)
+_POP_BLOCKS = 1 << 18
+
+
+def _interleave(bits_u32: np.ndarray, size_bits: int):
+    """(interleaved uint64 [nblocks, 9], rank samples): per superblock its
+    cumulative rank word, then its eight data words (zero past the
+    vector)."""
+    bits_u32 = np.asarray(bits_u32, np.uint32)
+    n64 = (size_bits + 63) // 64
+    nblocks = (n64 + _WORDS_PER_BLOCK - 1) // _WORDS_PER_BLOCK
+    flat = np.zeros(2 * _WORDS_PER_BLOCK * nblocks, dtype="<u4")
+    flat[: bits_u32.shape[0]] = bits_u32[: 2 * n64]
+    interleaved = np.empty((nblocks, _WORDS_PER_BLOCK + 1), dtype="<u8")
+    interleaved[:, 1:] = flat.view("<u8").reshape(nblocks, _WORDS_PER_BLOCK)
+    del flat
+    sums = np.empty(nblocks, dtype=np.uint64)
+    for b in range(0, nblocks, _POP_BLOCKS):
+        sums[b:b + _POP_BLOCKS] = _popcount64(
+            interleaved[b:b + _POP_BLOCKS, 1:]).sum(axis=1)
+    interleaved[:1, 0] = 0
+    np.cumsum(sums[:-1], out=interleaved[1:, 0])
+    return interleaved, _rank_samples(interleaved[:, 0])
+
+
+def write_bit_vector_il(f, bits_u32: np.ndarray, size_bits: int) -> None:
+    """Write a plain bit vector (uint32 words) as bit_vector_il<512> to the
+    binary file ``f``, piece by piece (no copy of the whole file's
+    bytes)."""
+    interleaved, samples = _interleave(bits_u32, size_bits)
+    f.write(struct.pack("<Q", size_bits))                    # m_size
+    f.write(struct.pack("<Q", 64 * interleaved.size))        # m_data bit-size
+    f.write(interleaved)
+    f.write(struct.pack("<Q", 64 * samples.shape[0]))        # samples bitsize
+    f.write(samples)
+
+
 def serialize_bit_vector_il(bits_u32: np.ndarray, size_bits: int) -> bytes:
     """Serialize a plain bit vector (uint32 words) as bit_vector_il<512>."""
-    data64 = _words64_from_bits(np.asarray(bits_u32, np.uint32), size_bits)
-    n64 = data64.shape[0]
-    nblocks = (n64 + _WORDS_PER_BLOCK - 1) // _WORDS_PER_BLOCK
-
-    popc = np.zeros(n64, dtype=np.uint64)
-    v = data64.copy()
-    # per-word popcount
-    for shift, mask in ((1, 0x5555555555555555), (2, 0x3333333333333333),
-                        (4, 0x0F0F0F0F0F0F0F0F)):
-        v = (v & np.uint64(mask)) + ((v >> np.uint64(shift)) & np.uint64(mask))
-    popc = (v * np.uint64(0x0101010101010101)) >> np.uint64(56)
-
-    interleaved = np.zeros(nblocks * (_WORDS_PER_BLOCK + 1), dtype="<u8")
-    cum = np.uint64(0)
-    for b in range(nblocks):
-        base = b * (_WORDS_PER_BLOCK + 1)
-        interleaved[base] = cum
-        chunk = data64[b * _WORDS_PER_BLOCK:(b + 1) * _WORDS_PER_BLOCK]
-        interleaved[base + 1: base + 1 + chunk.shape[0]] = chunk
-        cum = cum + popc[b * _WORDS_PER_BLOCK:(b + 1) * _WORDS_PER_BLOCK].sum()
-
-    samples = _rank_samples(
-        interleaved.reshape(nblocks, _WORDS_PER_BLOCK + 1)[:, 0])
-
-    out = bytearray()
-    out += struct.pack("<Q", size_bits)                      # m_size
-    out += struct.pack("<Q", 64 * interleaved.shape[0])      # m_data bit-size
-    out += interleaved.tobytes()
-    out += struct.pack("<Q", 64 * samples.shape[0])          # samples bitsize
-    out += samples.tobytes()
-    return bytes(out)
+    buf = io.BytesIO()
+    write_bit_vector_il(buf, bits_u32, size_bits)
+    return buf.getvalue()
 
 
 def _popcount64(v: np.ndarray) -> np.ndarray:

@@ -25,6 +25,8 @@
   * ``mibf_random_insert`` - MIBF random-order, strand-carrying insert
     (MIBloomFilter::insert): parallel rounds of frames that share no ID
     entry, then an in-order tail on one thread
+  * ``blocked_bloom`` - blocked Bloom filter insert and query (all h
+    bits of a k-mer in one 64-byte row)
   * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
   * ``window_scatter`` - static-window Bloom scatter in shared memory
   * ``dma_sweep``    - chunked copy sweep
@@ -33,16 +35,19 @@
 build/query paths.
 The Bloom kernels (``nthash_scan``'s positions mode, ``scatter_or``'s two
 routes, ``tile_partition``, ``gather_words``) also take wide int64
-positions, for filters from 2**32 bits, each through an instantiation
-counted on its own (the ``*_wide`` names below).
+positions, for filters from 2**32 bits, and the counting kernels
+(``gather_counters``, ``scatter_add``'s direct route,
+``conservative_step``) for filters of exactly 2**32 counters, each through
+an instantiation counted on its own (the ``*_wide`` names below).
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
 ``reset_launch_counts`` read and clear them.
 """
 
-from . import (conservative_step, dma_sweep, gather_counters, gather_words,
-               mibf_frame_scan, mibf_random_insert, mibf_rank, nthash_scan,
-               scatter_add, scatter_or, scatter_ring, spaced_scan,
-               tile_partition, vmem_sort, window_scatter)
+from . import (blocked_bloom, conservative_step, dma_sweep,
+               gather_counters, gather_words, mibf_frame_scan,
+               mibf_random_insert, mibf_rank, nthash_scan, scatter_add,
+               scatter_or, scatter_ring, spaced_scan, tile_partition,
+               vmem_sort, window_scatter)
 
 KERNELS = {
     "nthash_scan": nthash_scan.KERNEL,
@@ -73,6 +78,13 @@ KERNELS = {
     "mibf_random_insert": mibf_random_insert.KERNEL,
     # the width-8 (uint64 ID) MIBF's rank + ID lookup
     "mibf_rank_u64": mibf_rank.U64_KERNEL,
+    # the wide forms of the counting kernels (filters of 2**32 counters)
+    "gather_counters_wide": gather_counters.WIDE_KERNEL,
+    "scatter_add_wide": scatter_add.WIDE_KERNEL,
+    "conservative_step_wide": conservative_step.WIDE_KERNEL,
+    # the blocked Bloom filter
+    "blocked_insert": blocked_bloom.INSERT_KERNEL,
+    "blocked_contains": blocked_bloom.CONTAINS_KERNEL,
 }
 
 

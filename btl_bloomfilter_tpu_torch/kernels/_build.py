@@ -34,7 +34,7 @@ SOURCES = ("nthash_scan.cu", "scatter_or.cu", "gather_words.cu",
            "mibf_frame_scan.cu", "scatter_or_sorted.cu", "block_sort.cu",
            "window_scatter.cu", "dma_sweep.cu", "conservative_step.cu",
            "tile_partition.cu", "spaced_scan.cu", "mibf_random_insert.cu",
-           "errors.cu")
+           "blocked_bloom.cu", "errors.cu")
 HEADERS = ("common.cuh", "nthash_roll.cuh", "tile_partition.cuh",
            "tile_stream.cuh")
 

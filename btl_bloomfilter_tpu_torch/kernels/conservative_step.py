@@ -4,7 +4,10 @@
 ``conservative_step(words, pos, c, shift, counter_max)`` applies one step
 of the conservative update to packed counters (counter p is lane
 ``p & (per - 1)`` of ``words[p >> shift]``, ``per = 1 << shift``) for the
-frames pos int32 [h, m] (uint32 bits, plane-major), frame f repeated
+frames pos [h, m] (plane-major; narrow, int32 holding uint32 bits with
+the sentinel 0xFFFFFFFF, or wide, int64 with the sentinel -1, for a filter
+of exactly 2**32 counters: the kernel's wide instantiation, counted as
+``WIDE_KERNEL``), frame f repeated
 ``c[f]`` times (int64 [m]): every counter of the frame becomes
 ``max(cur, mn + min(c, counter_max - mn))``, mn the frame's minimum. That
 is incrementMin for c = 1 and the closed form of c repeats of a frame, the
@@ -12,7 +15,7 @@ freeze at counter_max included.
 
 The frames of one step must be position-disjoint, as the decomposition's
 closed-form rows and its replay rounds are. An in-frame duplicate slot
-writes once; a sentinel slot (0xFFFFFFFF) reads 0 and writes nothing, and a
+writes once; a sentinel slot reads 0 and writes nothing, and a
 frame whose slot 0 is the sentinel writes nothing; a word index past the
 array reads the last word and writes nothing. Positions must lie inside the
 counters (or be the sentinel) for the kernel to equal the plain version: a
@@ -32,10 +35,11 @@ from . import _build
 from .gather_counters import gather_counters_plain
 from .scatter_add import scatter_add_plain
 
-KERNEL = _build.CudaKernel("btl_conservative_step", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
-    ctypes.c_void_p])
+ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+        ctypes.c_void_p]
+KERNEL = _build.CudaKernel("btl_conservative_step", ARGS)
+WIDE_KERNEL = _build.CudaKernel("btl_conservative_step_wide", ARGS)
 
 # slots a thread keeps in registers (H_MAX in csrc/conservative_step.cu);
 # past it the kernel keeps the lanes in a scratch array
@@ -44,8 +48,10 @@ H_MAX = 8
 
 def _check(words: torch.Tensor, pos: torch.Tensor, c: torch.Tensor,
            shift: int, counter_max: int) -> None:
-    if words.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("words and pos must be torch.int32 (uint32 bits)")
+    if words.dtype != torch.int32:
+        raise TypeError("words must be torch.int32 (uint32 bits)")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError("pos must be torch.int32 (uint32 bits) or int64")
     if words.dim() != 1 or words.numel() == 0 or not words.is_contiguous():
         raise ValueError("words must be a non-empty contiguous 1-D tensor")
     if pos.dim() != 2 or pos.shape[0] < 1:
@@ -96,7 +102,8 @@ def conservative_step(words: torch.Tensor, pos: torch.Tensor,
     if m:
         scratch = (torch.empty(pos.shape, dtype=torch.int32,
                                device=pos.device) if h > H_MAX else None)
-        KERNEL.launch(words.device, _build.ptr(pos), _build.ptr(c), m, h,
+        kernel = WIDE_KERNEL if pos.dtype == torch.int64 else KERNEL
+        kernel.launch(words.device, _build.ptr(pos), _build.ptr(c), m, h,
                       _build.ptr(words), words.numel(), shift, counter_max,
                       None if scratch is None else _build.ptr(scratch))
     return words

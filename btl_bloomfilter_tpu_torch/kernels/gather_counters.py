@@ -4,14 +4,17 @@
 ``gather_counters(words, pos, shift, out, threshold)`` reads packed
 counters: counter p is lane ``p & (per - 1)`` of ``words[p >> shift]``,
 ``per = 1 << shift`` counters per word (shift 0, 1 or 2: 32-, 16- or 8-bit
-lanes, little-endian within the word). Positions are int32 [h, ...] holding
-uint32 bits, plane-major as the ntHash kernel writes them. ``out`` picks
-what it returns:
+lanes, little-endian within the word). Positions are [h, ...], plane-major
+as the ntHash kernel writes them: narrow, int32 holding uint32 bits with
+the sentinel 0xFFFFFFFF, or wide, int64 with the sentinel -1 (a filter of
+exactly 2**32 counters, where 0xFFFFFFFF is a real counter; the kernel's
+wide instantiation counts as ``WIDE_KERNEL``). ``out`` picks what it
+returns:
 
   * ``"vals"``: the counter values [h, ...] as int64 (a sentinel slot
     reads 0);
   * ``"min"``: their minimum over h [...] as int64 (0 where slot 0 is the
-    sentinel 0xFFFFFFFF, which marks an invalid window);
+    sentinel, which marks an invalid window);
   * ``"hit"``: bool [...], slot 0 not the sentinel and min >= threshold.
 
 A word index past the array is clamped to the last word, as the
@@ -27,20 +30,22 @@ import torch
 
 from ..ops import u64
 from . import _build
-from ._build import SENTINEL
 
-KERNEL = _build.CudaKernel("btl_gather_counters", [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p])
+ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+KERNEL = _build.CudaKernel("btl_gather_counters", ARGS)
+WIDE_KERNEL = _build.CudaKernel("btl_gather_counters_wide", ARGS)
 
 OUTPUTS = ("vals", "min", "hit")
 
 
 def _check(words: torch.Tensor, pos: torch.Tensor, shift: int, out: str,
            threshold: int) -> None:
-    if words.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("words and pos must be torch.int32 (uint32 bits)")
+    if words.dtype != torch.int32:
+        raise TypeError("words must be torch.int32 (uint32 bits)")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError("pos must be torch.int32 (uint32 bits) or int64")
     if words.dim() != 1 or words.numel() == 0:
         raise ValueError("words must be a non-empty 1-D tensor")
     if pos.dim() < 1 or pos.shape[0] < 1:
@@ -68,8 +73,8 @@ def gather_counters_plain(words: torch.Tensor, pos: torch.Tensor, shift: int,
                           out: str = "min",
                           threshold: int = 0) -> torch.Tensor:
     _check(words, pos, shift, out, threshold)
-    p = u64.from_u32_bits(pos)
-    sent = p == SENTINEL
+    p = u64.positions64(pos)
+    sent = p < 0
     vals = torch.where(sent, 0, lane_values(words, torch.where(sent, 0, p),
                                             shift))
     if out == "vals":
@@ -94,7 +99,8 @@ def gather_counters(words: torch.Tensor, pos: torch.Tensor, shift: int,
     n = pos[0].numel()
     if n:
         ptrs = [_build.ptr(res) if name == out else None for name in OUTPUTS]
-        KERNEL.launch(pos.device, _build.ptr(pos), n, pos.shape[0],
+        kernel = WIDE_KERNEL if pos.dtype == torch.int64 else KERNEL
+        kernel.launch(pos.device, _build.ptr(pos), n, pos.shape[0],
                       _build.ptr(words), words.numel(), shift, threshold,
                       *ptrs)
     return res if out == "hit" else u64.from_u32_bits(res)

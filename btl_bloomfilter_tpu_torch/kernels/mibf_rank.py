@@ -91,7 +91,7 @@ def _check(bv_words: torch.Tensor, cum_ranks: torch.Tensor,
         raise ValueError("bv_words and cum_ranks must be non-empty 1-D "
                          "tensors of one length")
     if bv_words.numel() > 1 << 27:
-        raise ValueError("bit vectors of 2**32 bits or more are not "
+        raise ValueError("bit vectors of more than 2**32 bits are not "
                          "supported (positions are uint32)")
     _check_dir(rank_dir, bv_words.numel())
     _check_ids(data)

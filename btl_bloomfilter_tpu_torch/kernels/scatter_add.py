@@ -5,8 +5,11 @@
 (lane ``p & (per - 1)`` of ``words[p >> shift]``, ``per = 1 << shift``) to
 ``min(counter + inc, counter_max)`` for every pair of position p and
 increment inc (int32 holding uint32 bits, same shape, any order,
-duplicates allowed; ``inc=None`` adds 1 per position). The sentinel
-0xFFFFFFFF, a zero increment and a word index past the array are no-ops;
+duplicates allowed; ``inc=None`` adds 1 per position). Positions are
+narrow, int32 holding uint32 bits with the sentinel 0xFFFFFFFF, or wide,
+int64 with the sentinel -1 (a filter of exactly 2**32 counters; the direct
+kernel's wide instantiation, counted as ``WIDE_KERNEL``). The sentinel, a
+zero increment and a word index past the array are no-ops;
 no lane carries into its neighbour. It updates ``words`` (int32 [nwords])
 in place and returns it. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises, by one of two routes chosen by
@@ -14,7 +17,9 @@ tensor launches the kernel or raises, by one of two routes chosen by
 pair) or, for unit increments only, ``scatter_add_tiled`` (the tile
 partition of ``kernels/tile_partition.py``, then the positions applied tile
 by tile, all in one call of the library). No path of the repo adds weighted
-increments on the card, so only the direct route takes them.
+increments on the card, so only the direct route takes them. Wide
+positions take the direct route too: an array of 2**32 counters has 2**30
+words or more, past the tiles a partition takes.
 """
 
 from __future__ import annotations
@@ -25,11 +30,11 @@ import torch
 
 from ..ops import u64
 from . import _build, tile_partition
-from ._build import SENTINEL
 
-KERNEL = _build.CudaKernel("btl_scatter_add", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_uint])
+ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_uint]
+KERNEL = _build.CudaKernel("btl_scatter_add", ARGS)
+WIDE_KERNEL = _build.CudaKernel("btl_scatter_add_wide", ARGS)
 TILED_KERNEL = _build.CudaKernel("btl_scatter_add_tiled", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_uint, ctypes.c_void_p],
@@ -58,8 +63,10 @@ def route(nwords: int, npos: int, weighted: bool = False) -> str:
 
 def _check(words: torch.Tensor, pos: torch.Tensor, shift: int,
            counter_max: int, inc) -> None:
-    if words.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("words and pos must be torch.int32 (uint32 bits)")
+    if words.dtype != torch.int32:
+        raise TypeError("words must be torch.int32 (uint32 bits)")
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError("pos must be torch.int32 (uint32 bits) or int64")
     if words.dim() != 1 or not words.is_contiguous():
         raise ValueError("words must be a contiguous 1-D tensor")
     if shift not in (0, 1, 2):
@@ -79,10 +86,10 @@ def scatter_add_plain(words: torch.Tensor, pos: torch.Tensor, shift: int,
     saturation, and add each word's lane deltas at once: a lane never
     passes counter_max, so the deltas of one word compose without carries."""
     _check(words, pos, shift, counter_max, inc)
-    p = u64.from_u32_bits(pos.reshape(-1))
+    p = u64.positions64(pos.reshape(-1))
     c = (torch.ones_like(p) if inc is None
          else u64.from_u32_bits(inc.reshape(-1)))
-    keep = (p != SENTINEL) & (c != 0) & ((p >> shift) < words.numel())
+    keep = (p >= 0) & (c != 0) & ((p >> shift) < words.numel())
     p, c = p[keep], c[keep]
     uniq, inv = torch.unique(p, return_inverse=True)
     total = torch.zeros_like(uniq).index_add_(0, inv, c)
@@ -103,7 +110,8 @@ def scatter_add(words: torch.Tensor, pos: torch.Tensor, shift: int,
     _check(words, pos, shift, counter_max, inc)
     if _build.on_cpu(words, pos, *([] if inc is None else [inc])):
         return scatter_add_plain(words, pos, shift, counter_max, inc)
-    if route(words.numel(), pos.numel(), inc is not None) == "tiled":
+    if pos.dtype == torch.int32 and route(words.numel(), pos.numel(),
+                                          inc is not None) == "tiled":
         return scatter_add_tiled(words, pos, shift, counter_max)
     return scatter_add_direct(words, pos, shift, counter_max, inc)
 
@@ -118,7 +126,8 @@ def scatter_add_direct(words: torch.Tensor, pos: torch.Tensor, shift: int,
     if inc is not None:
         inc = inc.reshape(-1).contiguous()
     if pos.numel():
-        KERNEL.launch(words.device, _build.ptr(pos),
+        kernel = WIDE_KERNEL if pos.dtype == torch.int64 else KERNEL
+        kernel.launch(words.device, _build.ptr(pos),
                       None if inc is None else _build.ptr(inc), pos.numel(),
                       _build.ptr(words), words.numel(), shift, counter_max)
     return words
@@ -131,6 +140,10 @@ def scatter_add_tiled(words: torch.Tensor, pos: torch.Tensor, shift: int,
     _check(words, pos, shift, counter_max, None)
     if _build.on_cpu(words, pos):
         return scatter_add_plain(words, pos, shift, counter_max)
+    if pos.dtype != torch.int32:
+        raise TypeError("the tiled route takes narrow positions (int32): "
+                        "an array of 2**32 counters has more tiles than a "
+                        "partition takes")
     pos = pos.reshape(-1).contiguous()
     if pos.numel() >= 1 << 31:
         raise ValueError("the tiled route takes fewer than 2**31 positions")

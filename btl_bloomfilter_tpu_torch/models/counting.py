@@ -42,8 +42,16 @@ more frames need the replay than ``max_entangled`` allows, the whole batch
 is replayed in the same rounds from the state before the batch, where the
 reference runs a per-frame scan.
 
-Counter indices are uint32 with 0xFFFFFFFF as the sentinel, so filters of
-2**32 counters or more are not supported yet.
+Counter positions come in the Bloom filter's two forms
+(``bloom.position_dtype``): below 2**32 counters int32 holding uint32 bits
+with the sentinel 0xFFFFFFFF; at exactly 2**32 counters, where 0xFFFFFFFF
+is a real counter, int64 with the sentinel -1, through the kernels' wide
+instantiations. The functions that take position planes accept either form
+at any size (the narrow form's 0xFFFFFFFF is always the sentinel). The
+JAX package uses 0xFFFFFFFF as its sentinel at 2**32 counters too, and so
+never counts counter 2**32 - 1; this port does. Larger filters raise
+``ValueError``, as the JAX package's do. Inside the decomposition positions
+are int64 with the sentinel -1 at every size.
 """
 
 from __future__ import annotations
@@ -55,10 +63,13 @@ import torch
 
 from ..kernels import (conservative_step, gather_counters, nthash_scan,
                        scatter_add)
-from ..kernels._build import SENTINEL
 from ..kernels.conservative_step import earlier_dup_mask
 from ..ops import u64
 from ..ops.replay import STREAM_BITS, STREAM_MASK, replay_depth
+from . import bloom
+
+# the most counters a filter takes, as in the JAX package
+MAX_SIZE = 1 << 32
 
 _NP_LE = {1: "<u1", 2: "<u2", 4: "<u4", 8: "<u8"}
 _PER_WORD = {1: 4, 2: 2, 4: 1, 8: 1}
@@ -204,42 +215,44 @@ def to_numpy_counters(cbf: CountingBloomFilter) -> np.ndarray:
 # positions / lane arithmetic
 # ---------------------------------------------------------------------------
 
-def _require_u32_size(cbf: CountingBloomFilter) -> None:
-    if cbf.size >= (1 << 32):
-        raise NotImplementedError("counting filters of 2**32 counters or "
-                                  "more are not ported yet (counter "
-                                  "indices are uint32)")
+def _check_size(cbf: CountingBloomFilter) -> None:
+    if cbf.size > MAX_SIZE:
+        raise ValueError(f"counting filter of {cbf.size} counters: at most "
+                         "2**32")
 
 
 def _positions(cbf: CountingBloomFilter, hashes: torch.Tensor) -> torch.Tensor:
-    """hash % size as int32 uint32 bits, same shape."""
-    _require_u32_size(cbf)
-    return u64.to_u32_bits(u64.mod_const(hashes.to(cbf.device), cbf.size))
+    """hash % size in the form ``bloom.position_dtype(size)``, same
+    shape."""
+    _check_size(cbf)
+    return bloom.hash_positions(hashes.to(cbf.device), cbf.size)
 
 
 # ---------------------------------------------------------------------------
 # queries
 # ---------------------------------------------------------------------------
 
-def _as_u32_planes(pos: torch.Tensor) -> torch.Tensor:
-    if pos.dtype != torch.int32:
-        raise TypeError("positions must be torch.int32 (uint32 bits)")
-    return pos
+def _planes(cbf: CountingBloomFilter, pos: torch.Tensor) -> torch.Tensor:
+    _check_size(cbf)
+    if pos.dtype not in (torch.int32, torch.int64):
+        raise TypeError("positions must be torch.int32 (uint32 bits) or "
+                        "torch.int64")
+    return pos.to(cbf.device)
 
 
 def min_count_sentinel_positions(cbf: CountingBloomFilter,
                                  pos: torch.Tensor) -> torch.Tensor:
-    """Minimum of the h counters per window for position planes pos int32
-    [h, ...] (uint32 bits, counter indices < size), where an invalid window
-    carries the sentinel 0xFFFFFFFF (-1) in every slot. Returns int64 [...]
-    (uint64 bits for width 8); an invalid window reads 0."""
-    _require_u32_size(cbf)
-    pos = _as_u32_planes(pos).to(cbf.device)
+    """Minimum of the h counters per window for position planes pos [h,
+    ...] (counter indices < size, int32 holding uint32 bits or int64),
+    where an invalid window carries the sentinel (0xFFFFFFFF or -1) in
+    every slot. Returns int64 [...] (uint64 bits for width 8); an invalid
+    window reads 0."""
+    pos = _planes(cbf, pos)
     if not cbf.is_u64:
         return gather_counters.gather_counters(
             cbf.counters, pos, _SUB_SHIFT[cbf.counters_per_word], "min")
-    p = u64.from_u32_bits(pos)
-    sent = p == SENTINEL
+    p = u64.positions64(pos)
+    sent = p < 0
     vals = torch.where(sent, 0, cbf.counters[torch.where(sent, 0, p)])
     return torch.where(sent[0], 0, u64.amin(vals, dim=0))
 
@@ -247,9 +260,8 @@ def min_count_sentinel_positions(cbf: CountingBloomFilter,
 def contains_sentinel_positions(cbf: CountingBloomFilter,
                                 pos: torch.Tensor) -> torch.Tensor:
     """Membership (min count >= count_threshold) for position planes pos
-    int32 [h, ...]; invalid windows are False."""
-    _require_u32_size(cbf)
-    pos = _as_u32_planes(pos).to(cbf.device)
+    [h, ...] in either form; invalid windows are False."""
+    pos = _planes(cbf, pos)
     if not cbf.is_u64:
         return gather_counters.gather_counters(
             cbf.counters, pos, _SUB_SHIFT[cbf.counters_per_word], "hit",
@@ -277,31 +289,36 @@ def contains(cbf: CountingBloomFilter, hashes: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _frames(cbf: CountingBloomFilter, hashes: torch.Tensor, valid):
-    """Positions int64 [h, n] (counter indices, the sentinel 0xFFFFFFFF in
-    every slot of an invalid frame) of hashes [..., h]."""
+    """Positions int64 [h, n] (counter indices, the sentinel -1 in every
+    slot of an invalid frame) of hashes [..., h]."""
     h = hashes.shape[-1]
-    pos = u64.from_u32_bits(_positions(cbf, hashes).reshape(-1, h)).T
+    _check_size(cbf)
+    pos = u64.mod_const(hashes.to(cbf.device), cbf.size).reshape(-1, h).T
     pos = pos.contiguous()
     if valid is not None:
         v = torch.as_tensor(valid, device=cbf.device).broadcast_to(
             hashes.shape[:-1]).reshape(-1)
-        pos = torch.where(v, pos, SENTINEL)
+        pos = torch.where(v, pos, -1)
     return pos
 
 
 def _packed_step(words: torch.Tensor, per: int, counter_max: int,
-                 kernel=conservative_step.conservative_step):
+                 kernel=conservative_step.conservative_step,
+                 wide: bool = False):
     """The conservative step on packed words, for position-disjoint
-    frames p int64 [h, m] (counter indices or the sentinel) each repeated
+    frames p int64 [h, m] (counter indices or the sentinel -1) each repeated
     c[m] times (int64), the frames where ``live`` (bool [m], or None for
     all) is False left out: every counter becomes max(cur, mn + min(c,
     cmax - mn)), mn the frame's minimum. It is incrementMin for c = 1 and
     the closed form of c repeats of a frame (the freeze at cmax included).
-    One call of ``kernel`` (conservative_step or its plain version)."""
+    One call of ``kernel`` (conservative_step or its plain version), on
+    narrow positions, or on wide ones (``wide``: a filter of 2**32
+    counters)."""
     shift = _SUB_SHIFT[per]
 
     def step(p: torch.Tensor, c: torch.Tensor, live=None) -> None:
-        pos = p.to(torch.int32)          # low 32 bits: the uint32 bits
+        # narrow: the low 32 bits, the uint32 bits (-1 becomes 0xFFFFFFFF)
+        pos = p.to(torch.int64 if wide else torch.int32, copy=True)
         if live is not None:             # slot 0 the sentinel: no write
             pos[0].masked_fill_(~live, -1)
         kernel(words, pos, c, shift, counter_max)
@@ -315,8 +332,8 @@ def _u64_step(plane: torch.Tensor):
 
     def step(p: torch.Tensor, c: torch.Tensor, live=None) -> None:
         if live is not None:
-            p = torch.where(live, p, SENTINEL)
-        slot = p != SENTINEL
+            p = torch.where(live, p, -1)
+        slot = p >= 0
         p = torch.where(slot, p, 0)
         cur = plane[p]
         mn = u64.amin(cur, dim=0)
@@ -383,16 +400,17 @@ def _decompose(pos: torch.Tensor, group: bool):
         run_len = torch.ones(n, dtype=torch.int64, device=dev)
 
     # --- 2. entanglement + stream-first flags per position run -----------
-    # pairs sort by (position, stream) packed into one int64 key
-    # (position < 2**32, stream < 2**31): a run's stream-first user is its
-    # first pair
+    # pairs sort by (position, stream) packed into one int64 key (a
+    # position below 2**32 or the sentinel -1, a stream index below 2**31:
+    # the key fits, and the sentinel's pairs sort first): a run's
+    # stream-first user is its first pair
     pair_key = (ks.reshape(-1) << STREAM_BITS) | frame_of.repeat(h)
     key_s, pi_s = torch.sort(pair_key)
     pp_s = key_s >> STREAM_BITS
     pg_s = gid.repeat(h)[pi_s] if group else key_s & STREAM_MASK
     same = pp_s[1:] == pp_s[:-1]
     shared_prev = torch.zeros(n * h, dtype=torch.bool, device=dev)
-    shared_prev[1:] = same & (pg_s[1:] != pg_s[:-1]) & (pp_s[1:] != SENTINEL)
+    shared_prev[1:] = same & (pg_s[1:] != pg_s[:-1]) & (pp_s[1:] >= 0)
     shared = shared_prev.clone()
     shared[:-1] |= shared_prev[1:]
     first = torch.ones(n * h, dtype=torch.bool, device=dev)
@@ -412,7 +430,7 @@ def _decompose(pos: torch.Tensor, group: bool):
             0, gid, frame_shared.to(torch.int64))[gid] > 0
     else:
         entangled = frame_shared
-    live = ks[0] != SENTINEL
+    live = ks[0] >= 0
     entangled &= live
     rep = new_grp & live & ~entangled
     depth1 = entangled & frame_first     # stream-first at every slot
@@ -451,7 +469,7 @@ def _insert_frames(step, pos: torch.Tensor, size: int, max_entangled,
     if ent_frames.numel() > _entangled_cap(n, h, size, max_entangled):
         # too many frames for the replay buffer: replay the whole batch in
         # rounds from the state before it (the closed form is not applied)
-        _replay(step, pos[:, pos[0] != SENTINEL])
+        _replay(step, pos[:, pos[0] >= 0])
         return
     step(ks, closed_c, closed)
     _replay(step, pos[:, ent_frames])
@@ -459,12 +477,12 @@ def _insert_frames(step, pos: torch.Tensor, size: int, max_entangled,
 
 def _as_positions(pos, v) -> torch.Tensor:
     """Frame-major positions [n, h] (int64 indices, or int32 uint32 bits)
-    and valid mask [n] -> int64 [h, n] with invalid frames all sentinel."""
+    and valid mask [n] -> int64 [h, n] with invalid frames all -1."""
     pos = torch.as_tensor(pos)
     pos = (u64.from_u32_bits(pos) if pos.dtype == torch.int32
            else pos.to(torch.int64))
     v = torch.as_tensor(v, device=pos.device).reshape(-1, 1)
-    return torch.where(v, pos, SENTINEL).T.contiguous()
+    return torch.where(v, pos, -1).T.contiguous()
 
 
 def insert_positions(words: torch.Tensor, pos, v, counter_max: int,
@@ -482,8 +500,9 @@ def insert_positions(words: torch.Tensor, pos, v, counter_max: int,
     version (``conservative_step_plain``) runs the plain path on any
     device, which is how the kernel path is held against it on the card."""
     p = _as_positions(pos, v).to(words.device)
-    _insert_frames(_packed_step(words, per_word, counter_max, step), p,
-                   size, max_entangled, group)
+    wide = size >= nthash_scan.WIDE_SIZE
+    _insert_frames(_packed_step(words, per_word, counter_max, step, wide),
+                   p, size, max_entangled, group)
     return words
 
 
@@ -500,20 +519,19 @@ def insert_positions_u64(plane: torch.Tensor, pos, v, size: int,
 def _step_for(cbf: CountingBloomFilter):
     if cbf.is_u64:
         return _u64_step(cbf.counters)
-    return _packed_step(cbf.counters, cbf.counters_per_word, cbf.counter_max)
+    return _packed_step(cbf.counters, cbf.counters_per_word, cbf.counter_max,
+                        wide=cbf.size >= nthash_scan.WIDE_SIZE)
 
 
 def insert_sentinel_positions(cbf: CountingBloomFilter, pos: torch.Tensor,
                               max_entangled=None,
                               group_duplicates: bool = True
                               ) -> CountingBloomFilter:
-    """Conservative update with position planes pos int32 [h, ...]
-    (uint32 bits, counter indices < size; an invalid window holds the
-    sentinel in every slot), frames in row-major stream order: the array
-    the ntHash kernel's positions mode writes. Updates ``cbf.counters`` in
-    place."""
-    _require_u32_size(cbf)
-    p = u64.from_u32_bits(_as_u32_planes(pos).to(cbf.device))
+    """Conservative update with position planes pos [h, ...] in either
+    form (counter indices < size; an invalid window holds the sentinel in
+    every slot), frames in row-major stream order: the array the ntHash
+    kernel's positions mode writes. Updates ``cbf.counters`` in place."""
+    p = u64.positions64(_planes(cbf, pos))
     _insert_frames(_step_for(cbf), p.reshape(p.shape[0], -1), cbf.size,
                    max_entangled, group_duplicates)
     return cbf
@@ -547,7 +565,7 @@ def insert_sequential(cbf: CountingBloomFilter, hashes: torch.Tensor,
     pos = _frames(cbf, hashes, valid)
     one = torch.ones(1, dtype=torch.int64, device=cbf.device)
     for f in range(pos.shape[1]):
-        if int(pos[0, f]) != SENTINEL:
+        if int(pos[0, f]) >= 0:
             step(pos[:, f:f + 1], one)
     return cbf
 
@@ -576,8 +594,8 @@ def insert_all(cbf: CountingBloomFilter, hashes: torch.Tensor,
                                 _SUB_SHIFT[cbf.counters_per_word],
                                 cbf.counter_max)
         return cbf
-    p = u64.from_u32_bits(pos.reshape(-1))
-    p = p[p != SENTINEL]
+    p = u64.positions64(pos.reshape(-1))
+    p = p[p >= 0]
     uniq, occ = torch.unique(p, return_counts=True)
     cbf.counters[uniq] = u64.add_sat(cbf.counters[uniq], occ)
     return cbf
@@ -590,7 +608,7 @@ def insert_all(cbf: CountingBloomFilter, hashes: torch.Tensor,
 def _positions_seq(cbf: CountingBloomFilter, codes):
     """Position planes [h, B, W] and valid [B, W] of codes [..., L]
     flattened to [B, L], through the ntHash kernel's positions mode."""
-    _require_u32_size(cbf)
+    _check_size(cbf)
     codes = torch.as_tensor(codes).to(cbf.device)
     pos, _strand, valid = nthash_scan.positions_planes(
         codes.reshape(-1, codes.shape[-1]), cbf.kmer_size, cbf.hash_num,

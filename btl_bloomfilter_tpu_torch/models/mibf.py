@@ -23,7 +23,10 @@ changes after it.
 Rank and ID lookups go through the CUDA kernel ``kernels/mibf_rank`` when
 the filter lies on a GPU, through its plain version on the CPU; that one
 routine serves the reference's ``rank_of_positions``,
-``rank_of_positions_auto`` and both of its ``*_kernel`` chains.
+``rank_of_positions_auto`` and both of its ``*_kernel`` chains. Bit vectors
+go up to 2**32 bits, as the JAX package's: a lookup's position is uint32
+(int32 bits) at every size, exact at 2**32 too, since a lookup takes no
+sentinel (the frames' validity travels as a mask of its own).
 
 Unlike the reference, ``saturate`` and ``set_data`` update ``m.data`` in
 place and return ``m``.
@@ -40,6 +43,9 @@ import torch
 
 from ..kernels import mibf_rank
 from ..ops import u64
+
+# the longest bit vector, in bits, as in the JAX package
+MAX_SIZE = 1 << 32
 
 STORAGE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _NP = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
@@ -135,6 +141,10 @@ def calc_prob_single_frame(occupancy: float, hash_num: int, freq: float,
 # construction from a frozen bit vector
 # ---------------------------------------------------------------------------
 
+# words ``freeze`` counts at a time
+_FREEZE_CHUNK = 1 << 24
+
+
 def freeze(bv_words: torch.Tensor, size: int, hash_num: int, kmer_size: int,
            data_width: int = 2, sseeds: Sequence[str] = ()) -> MIBloomFilter:
     """Rank structure and an empty ID array over a populated bit vector
@@ -143,13 +153,17 @@ def freeze(bv_words: torch.Tensor, size: int, hash_num: int, kmer_size: int,
     (MIBloomFilter.hpp:122-147), plus the rank directory the lookups read
     on the card."""
     check_width(data_width)
-    pops = u64.popcount32(bv_words)
-    cum = torch.cumsum(pops, 0) - pops
-    d_size = int(pops.sum())
-    if d_size >= (1 << 31):
-        raise NotImplementedError("MIBF of 2**31 set bits or more is not "
-                                  "supported (ranks are int32)")
-    cum = cum.to(torch.int32)
+    cum = torch.empty_like(bv_words)
+    d_size = 0
+    # a chunk at a time: int64 popcounts of a whole 2**32-bit vector would
+    # take several GiB
+    for i in range(0, bv_words.numel(), _FREEZE_CHUNK):
+        pops = u64.popcount32(bv_words[i:i + _FREEZE_CHUNK])
+        cum[i:i + pops.numel()] = torch.cumsum(pops, 0) - pops + d_size
+        d_size += int(pops.sum())
+        if d_size >= (1 << 31):
+            raise NotImplementedError("MIBF of 2**31 set bits or more is "
+                                      "not supported (ranks are int32)")
     return MIBloomFilter(
         bv_words=bv_words, cum_ranks=cum,
         rank_dir=mibf_rank.rank_directory(bv_words, cum),
@@ -210,9 +224,8 @@ def to_numpy(m: MIBloomFilter):
 
 def positions(m: MIBloomFilter, hashes: torch.Tensor) -> torch.Tensor:
     """hash % size of hashes int64 (uint64 bits) as int32 uint32 bits."""
-    if m.size >= (1 << 32):
-        raise NotImplementedError("MIBF of 2**32 bits or more is not "
-                                  "supported (positions are uint32)")
+    if m.size > MAX_SIZE:
+        raise ValueError(f"MIBF of {m.size} bits: at most 2**32")
     return u64.to_u32_bits(u64.mod_const(hashes.to(m.device), m.size))
 
 

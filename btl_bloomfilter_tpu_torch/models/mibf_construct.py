@@ -56,7 +56,6 @@ import numpy as np
 import torch
 
 from ..kernels import mibf_random_insert, scatter_or
-from ..kernels._build import SENTINEL
 from ..ops import u64
 from ..ops.replay import replay_depth
 from ..utils import stdcpp
@@ -107,23 +106,26 @@ def _valid_mask(valid, shape, device) -> torch.Tensor:
     return torch.as_tensor(valid).to(device).broadcast_to(shape)
 
 
-def _require_u32(state: BitVectorState) -> None:
-    if state.filter_size >= (1 << 32):
-        raise NotImplementedError("bit vectors of 2**32 bits or more are "
-                                  "not supported (positions are uint32)")
+def _check_size(state: BitVectorState) -> None:
+    if state.filter_size > mibf_mod.MAX_SIZE:
+        raise ValueError(f"bit vector of {state.filter_size} bits: at most "
+                         "2**32")
 
 
 def insert_bv(state: BitVectorState, hashes: torch.Tensor,
               valid=None) -> BitVectorState:
     """Phase 1: set the bit of every frame position (insertBV,
     MIBFConstructSupport.hpp:75-87). hashes int64 [..., h]; ``valid`` masks
-    frames. Updates ``state.bv_words`` in place."""
+    frames. Positions take the Bloom filter's form
+    (``bloom.position_dtype``): at exactly 2**32 bits the wide one, whose
+    sentinel -1 leaves 0xFFFFFFFF a real position (the JAX package's phase
+    1 drops bit 2**32 - 1 as its sentinel). Updates ``state.bv_words`` in
+    place."""
     dev = state.bv_words.device
-    _require_u32(state)
-    pos = u64.mod_const(hashes.to(dev), state.filter_size)
+    _check_size(state)
+    pos = bloom_mod.hash_positions(hashes.to(dev), state.filter_size)
     v = _valid_mask(valid, hashes.shape[:-1], dev)[..., None]
-    scatter_or.scatter_or(state.bv_words,
-                          u64.to_u32_bits(torch.where(v, pos, SENTINEL)))
+    scatter_or.scatter_or(state.bv_words, torch.where(v, pos, -1))
     return state
 
 
@@ -136,7 +138,7 @@ def insert_bv_colli(state: BitVectorState, hashes: torch.Tensor,
     form is ``bloom.insert_and_check_sequential``'s (the first frame to
     write each position, over a sort of the positions). Updates
     ``state.bv_words`` in place; returns (state, count)."""
-    _require_u32(state)
+    _check_size(state)
     bf = bloom_mod.BloomFilter(words=state.bv_words, size=state.filter_size,
                                hash_num=state.hash_num,
                                kmer_size=state.kmer_size)
@@ -149,7 +151,7 @@ def insert_bv_colli_sequential(state: BitVectorState, hashes: torch.Tensor,
     """insertBVColli one frame at a time on the host: the transparent
     mirror :func:`insert_bv_colli` is held against. Updates
     ``state.bv_words`` in place; returns (state, count)."""
-    _require_u32(state)
+    _check_size(state)
     h = hashes.shape[-1]
     pos = u64.to_numpy(u64.mod_const(hashes, state.filter_size)).reshape(
         -1, h)

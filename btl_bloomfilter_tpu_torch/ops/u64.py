@@ -135,7 +135,14 @@ def unsigned(x: torch.Tensor) -> torch.Tensor:
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of the low 32 bits of each element (int32 bit patterns or
-    int64 values), as int64. torch has no popcount: a SWAR bit count."""
+    int64 values), as int64. torch has no popcount: a SWAR bit count, in
+    int32 for int32 input (wrapping arithmetic gives the same bits, at a
+    third of the memory traffic)."""
+    if x.dtype == torch.int32:
+        y = x - ((x >> 1) & 0x55555555)
+        y = (y & 0x33333333) + ((y >> 2) & 0x33333333)
+        y = (y + (y >> 4)) & 0x0F0F0F0F
+        return ((y * 0x01010101) >> 24).to(torch.int64)
     x = x.to(torch.int64) & _MASK32
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)

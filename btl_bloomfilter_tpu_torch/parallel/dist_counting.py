@@ -38,7 +38,6 @@ import dataclasses
 import torch
 
 from ..kernels import scatter_add
-from ..kernels._build import SENTINEL
 from ..models import counting
 from ..ops import u64
 from . import collectives
@@ -59,8 +58,8 @@ def dp_insert_all_seq(mesh: Mesh, cbf: counting.CountingBloomFilter,
     code batch into the replicated filter; exact. Updates
     ``cbf.counters`` in place."""
     pos, _valid, _shape = counting._positions_seq(cbf, codes)
-    p = u64.from_u32_bits(pos.reshape(-1))
-    p = p[p != SENTINEL]
+    p = u64.positions64(pos.reshape(-1))
+    p = p[p >= 0]
     # a counter's total is at most the batch's positions, P times this
     # block's: below 2**31 (every real batch) the histogram and its sum
     # are int32, the same choice on every rank

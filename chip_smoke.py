@@ -185,7 +185,40 @@ counters, batches of 3072 reads x 2048 bases):
         launch counts of this path;
      b. two ranks on this card through tools/dist_run.py (gloo, the
         collectives staging through the host) at bench.py's Bloom and MIBF
-        configs, bitwise against 12a.
+        configs, bitwise against 12a;
+ 13. the blocked Bloom filter (models/blocked.py, csrc/blocked_bloom.cu)
+     at bench.py's config (2**30 bits, k=31, h=4, 512 x 2048 reads):
+     a. its insert and contains kernels against their plain versions,
+        bitwise, on a 2%-N and an ACGT batch;
+     b. the main path through blocked.insert_seq / contains_seq: 4
+        batches inserted (every valid window of them hits), 4 fresh ones
+        queried (hit fraction under 3 x the block-local fpr + 1e-5), the
+        launch counts, rows and fresh hits equal to the same path on the
+        plain versions, a .bbf round trip;
+     c. the kernels' times beside their plain versions and torch's
+        rows[block] gather (a yardstick, not the same function), and the
+        blocked and classic insert and query steps at one ACGT batch;
+ 14. filters of exactly 2**32 counters or bits on the card:
+     a. a counting filter of 2**32 u8 counters at bench.py's counting
+        batch (3072 x 2048, group_duplicates=False): conservative insert,
+        min count, contains and incrementAll through the wide (int64
+        position) kernels, the launch counts (no narrow counting kernel),
+        the filters and min counts against the plain path, then each wide
+        kernel against its plain version at the path's shapes, timed;
+     b. counter 2**32 - 1 through compat.CountingBloomFilter and crafted
+        precomputed hashes, against a numpy incrementMin / incrementAll
+        walk;
+     c. an MIBF of exactly 2**32 bits from 7c's references: build and 256
+        reads through api.MIBFConstructPipeline and query_many, launch
+        counts (phase 1 on the wide scatter), correct_frac >= 0.95, the
+        whole path against the plain path; a frame on bit 2**32 - 1 set,
+        ranked and found;
+     d. a blocked filter of 2**32 bits: 1000 k-mers kernel == plain, a
+        crafted k-mer's bit 2**32 - 1 set and found;
+ 15. the Perl binding on the port: swig_torch/bridge_server.py on the card
+     over its pipe protocol, replies and .bf bytes equal to the same
+     session on the plain path (BTL_BRIDGE_DEVICE=cpu), and perl
+     swig_torch/test.pl (the card by default) where perl is present.
 
 Exits nonzero, printing no result, when CUDA is absent or any phase fails.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -206,6 +239,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -264,6 +298,8 @@ RI_ID = 7
 # the reference's API facade (phase 11)
 F_ID0 = (37 << 40) | 12345   # phase 11b's ID of reference 0: the high plane
 F_SAMPLE = 256               # one-frame facade calls held to the model's
+# the blocked filter (phase 13): its fresh-read hit fraction's sanity bound
+FRESH_BLOCKED_BOUND = 1e-3
 
 
 def log(msg: str) -> None:
@@ -516,7 +552,7 @@ def counting_phases(dev: torch.device, card_line: str):
         """The conservative steps of one batch's decomposition (positions
         int32 [h, B, W]): the closed-form rows (pos int32 [h, n], c int64
         [n]; every other row the sentinel) and the first replay round."""
-        p = u64.from_u32_bits(pos).reshape(pos.shape[0], -1)
+        p = u64.positions64(pos).reshape(pos.shape[0], -1)
         ks, closed, closed_c, ent = counting._decompose(p, group)
         rest = p[:, ent]
         rows = rest[:, replay_depth(rest) == 1] if rest.shape[1] else rest
@@ -901,7 +937,7 @@ def counting_phases(dev: torch.device, card_line: str):
         st["pos"], _s, _v = nthash_scan.positions_planes(codes, K, H, size)
 
     def decompose_stage():
-        p = u64.from_u32_bits(st["pos"]).reshape(H, -1)
+        p = u64.positions64(st["pos"]).reshape(H, -1)
         st["p"] = p
         st["d"] = counting._decompose(p, False)
         if st["d"][3].numel() > counting._entangled_cap(p.shape[1], H, size,
@@ -3196,6 +3232,566 @@ def dist_phases(dev: torch.device, card_line: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the blocked filter, exactly 2**32, the Perl bridge
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def swapped(mod, name: str, fn):
+    """mod.name replaced by fn inside the block."""
+    saved = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
+def distinct_rows(canon: torch.Tensor, nblocks: int) -> int:
+    """Distinct blocks (64-byte rows) of a blocked filter that canonical
+    hashes address."""
+    from btl_bloomfilter_tpu_torch.ops import u64
+
+    return int(torch.unique(u64.mod_const(canon.reshape(-1),
+                                          nblocks)).numel())
+
+
+def blocked_phases(dev: torch.device, card_line: str):
+    """Phase 13: the blocked Bloom filter at bench.py's config (2**30
+    bits, k=31, h=4, 512 x 2048 reads). Returns (err, ms, launches, bounds,
+    library) for blocked_insert and blocked_contains."""
+    from btl_bloomfilter_tpu_torch import kernels
+    from btl_bloomfilter_tpu_torch.kernels import (_build, blocked_bloom,
+                                                   nthash_scan)
+    from btl_bloomfilter_tpu_torch.models import blocked, bloom, kmer_bloom
+
+    err = {"blocked_insert": 0, "blocked_contains": 0}
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    acgt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, size=(B, L), dtype=np.uint8)).to(dev)
+    nbatch = torch.from_numpy(make_codes(rng)).to(dev)
+    nblocks = MAIN_SIZE // blocked.BLOCK_BITS
+
+    # ---- 13a. the kernels against their plain versions ------------------
+    for label, codes in (("2% N", nbatch), ("ACGT", acgt)):
+        planes, _s, valid = nthash_scan.hash_frames_planes(codes, K, 1)
+        canon = planes[0]
+        rows_k = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
+        rows_p = rows_k.clone()
+        half = canon[: B // 2]
+        blocked_bloom.insert(rows_k, half, K, H, valid[: B // 2])
+        blocked_bloom.insert_plain(rows_p, half, K, H, valid[: B // 2])
+        err["blocked_insert"] = max(err["blocked_insert"], require_equal(
+            f"[13a] {label} blocked insert rows", rows_k, rows_p))
+        for v in (valid, None):
+            hit = blocked_bloom.contains(rows_k, canon, K, H, v)
+            err["blocked_contains"] = max(
+                err["blocked_contains"], require_equal(
+                    f"[13a] {label} blocked contains (valid "
+                    f"{'given' if v is not None else 'none'})", hit,
+                    blocked_bloom.contains_plain(rows_k, canon, K, H, v)))
+        if not bool(hit[: B // 2][valid[: B // 2]].all()):
+            raise AssertionError("[13a] an inserted k-mer missed")
+        log(f"[13a] {label} batch: blocked insert and contains kernel == "
+            f"plain (bitwise), {int(valid.sum())} valid windows, hits "
+            f"{int(hit.sum())}")
+        del rows_k, rows_p, hit
+
+    # ---- 13b. the main path -----------------------------------------------
+    batches = [make_codes(rng) for _ in range(N_INSERT // 4)]
+    fresh = [make_codes(rng) for _ in range(N_FRESH)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    bf = blocked.create(MAIN_SIZE, H, K, device=dev)
+    for c in batches:
+        blocked.insert_seq(bf, c)
+    n_valid = 0
+    for c in batches:
+        hit, valid = blocked.contains_seq(bf, c)
+        if not torch.equal(hit, valid):
+            raise AssertionError("[13b] a valid window of an inserted read "
+                                 "missed")
+        n_valid += int(valid.sum())
+    f_hit = f_valid = 0
+    for c in fresh:
+        hit, valid = blocked.contains_seq(bf, c)
+        f_hit += int(hit.sum())
+        f_valid += int(valid.sum())
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"[13b] launches on the blocked main path: {launches}")
+    for name in ("nthash_scan", "blocked_insert", "blocked_contains"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the blocked "
+                                 f"main path: {launches}")
+    est = blocked.fpr(bf, n_valid)
+    frac = f_hit / f_valid
+    log(f"[13b] {len(batches)} batches of {B}x{L} (2% N) into 2**30 bits: "
+        f"every valid window of an inserted read hits; fresh-read hit "
+        f"fraction {frac} ({f_hit}/{f_valid}), block-local fpr estimate "
+        f"{est}; a classic filter of the same size: "
+        f"{(1 - (1 - 1 / MAIN_SIZE) ** (H * n_valid)) ** H}")
+    # The JAX design's in-block bits (multiply-shift slots of the block's
+    # own canonical hash) are not independent of the block, so the fresh
+    # hits run far above the Poisson estimate; the plain path gives the
+    # same hits. The bound only tells a working filter from a saturated one.
+    if not frac < FRESH_BLOCKED_BOUND:
+        raise AssertionError(f"[13b] fresh-read hit fraction {frac} not "
+                             f"under {FRESH_BLOCKED_BOUND}")
+    # the same path on the plain versions
+    ref = blocked.create(MAIN_SIZE, H, K, device=dev)
+    with swapped(nthash_scan, "hash_frames_planes",
+                 nthash_scan.hash_frames_planes_plain), \
+            swapped(blocked_bloom, "insert", blocked_bloom.insert_plain), \
+            swapped(blocked_bloom, "contains", blocked_bloom.contains_plain):
+        for c in batches:
+            blocked.insert_seq(ref, c)
+        ref_hits = [blocked.contains_seq(ref, c)[0] for c in fresh]
+    err["blocked_insert"] = max(err["blocked_insert"], require_equal(
+        "[13b] main path rows", bf.rows, ref.rows))
+    for c, h_ref in zip(fresh, ref_hits):
+        err["blocked_contains"] = max(err["blocked_contains"], require_equal(
+            "[13b] main path fresh hits", blocked.contains_seq(bf, c)[0],
+            h_ref))
+    del ref, ref_hits
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "main.bbf")
+        blocked.store(bf, path)
+        back = blocked.load(path, device=dev)
+        if not (torch.equal(back.rows, bf.rows) and (
+                back.size, back.hash_num, back.kmer_size) == (
+                    bf.size, bf.hash_num, bf.kmer_size)):
+            raise AssertionError("[13b] .bbf round trip changed the filter")
+        log(f"[13b] .bbf round trip: {os.path.getsize(path)} bytes, rows "
+            f"equal; main path == plain path (rows, fresh hits)")
+        del back
+    del bf
+
+    # ---- 13c. times beside the classic filter's --------------------------
+    planes, _s, _v = nthash_scan.hash_frames_planes(acgt, K, 1)
+    canon = planes[0].contiguous()
+    rows = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
+    rows_p = rows.clone()
+    t_ins = kernel_times(lambda: blocked_bloom.insert(rows, canon, K, H),
+                         setup=rows.zero_)
+    p_ins = median_ms(lambda: blocked_bloom.insert_plain(rows_p, canon, K,
+                                                         H))
+    blocked_bloom.insert(rows, canon, K, H)
+    t_q = kernel_times(lambda: blocked_bloom.contains(rows, canon, K, H))
+    p_q = median_ms(lambda: blocked_bloom.contains_plain(rows, canon, K, H))
+    # yardstick: torch's row gather rows[block] (not the same function)
+    block = blocked_bloom.block_and_bits(canon, nblocks, K, H)[0]
+    t_idx = kernel_times(lambda: rows[block])
+    bf = blocked.BlockedBloomFilter(rows=rows, size=MAIN_SIZE, hash_num=H,
+                                    kmer_size=K)
+    cbf = bloom.create(MAIN_SIZE, H, K, device=dev)
+    steps = {
+        "blocked insert": median_ms(lambda: blocked.insert_seq(bf, acgt)),
+        "blocked query": median_ms(lambda: blocked.contains_seq(bf, acgt)),
+        "classic insert": median_ms(lambda: kmer_bloom.insert_seq(cbf,
+                                                                  acgt)),
+        "classic query": median_ms(lambda: kmer_bloom.contains_seq(cbf,
+                                                                   acgt))}
+    n = canon.numel()
+    nrows = distinct_rows(canon, nblocks)
+    bounds = {
+        # canonical hashes in; each distinct row read and written once
+        "blocked_insert": bound_ms(8 * n + 128 * nrows),
+        # canonical hashes in, hits out; each distinct row read once
+        "blocked_contains": bound_ms(9 * n + 64 * nrows)}
+    log(f"[13c] blocked insert kernel {t_ins:.4f} ms, plain {p_ins:.4f}; "
+        f"contains kernel {t_q:.4f} ms, plain {p_q:.4f}; yardstick "
+        f"rows[block] {t_idx:.4f} ms; bounds insert "
+        f"{bounds['blocked_insert']:.4f}, contains "
+        f"{bounds['blocked_contains']:.4f} ms ({n} k-mers, {nrows} distinct "
+        f"rows of {nblocks}; {card_line})")
+    log("[13c] steps (hash + kernel) at one 512x2048 ACGT batch, 2**30 "
+        "bits: " + ", ".join(f"{k} {v:.4f} ms ({B * W / (v / 1e3):.6e} "
+                             f"k-mers/s)" for k, v in steps.items())
+        + f" ({card_line})")
+    log(f"[13] {time.perf_counter() - t_phase:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ms = {"blocked_insert": (t_ins, p_ins), "blocked_contains": (t_q, p_q)}
+    del rows, rows_p, bf, cbf, block
+    torch.cuda.empty_cache()
+    return err, ms, launches, bounds
+
+
+def exact_2_32_phases(dev: torch.device, card_line: str):
+    """Phase 14: filters of exactly 2**32 counters or bits on the card.
+    Returns (err, ms, bounds) for the wide counting kernels, and the launch
+    counts of the counting main path and of the MIBF one."""
+    from btl_bloomfilter_tpu_torch import api, compat, kernels
+    from btl_bloomfilter_tpu_torch.kernels import (blocked_bloom,
+                                                   conservative_step,
+                                                   gather_counters,
+                                                   nthash_scan, scatter_add)
+    from btl_bloomfilter_tpu_torch.models import (blocked, counting, mibf,
+                                                  mibf_construct, mibf_query)
+    from btl_bloomfilter_tpu_torch.ops import u64
+    from btl_bloomfilter_tpu_torch.tools import profile_mibf as mb
+
+    S = 1 << 32
+    err = {"gather_counters_wide": 0, "conservative_step_wide": 0,
+           "scatter_add_wide": 0}
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    codes = torch.from_numpy(np.random.default_rng(SEED + 14).integers(
+        0, 4, size=(CB, L), dtype=np.uint8)).to(dev)
+
+    # ---- 14a. the counting main path at 2**32 u8 counters ----------------
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cbf = counting.create(S, H, K, 1, 1, device=dev)
+    counting.insert_seq(cbf, codes, group_duplicates=False)
+    mc, valid = counting.min_count_seq(cbf, codes)
+    hit, _ = counting.contains_seq(cbf, codes)
+    planes, _s, hvalid = nthash_scan.hash_frames_planes(codes, K, H)
+    hashes = planes.movedim(0, -1)
+    cbf_all = counting.create(S, H, K, 1, 1, device=dev)
+    counting.insert_all(cbf_all, hashes, hvalid)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"[14a] launches on the 2**32-counter main path: {launches}")
+    for name in ("nthash_scan_wide", "gather_counters_wide",
+                 "conservative_step_wide", "scatter_add_wide"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the 2**32 "
+                                 f"counting main path: {launches}")
+    for name in ("gather_counters", "conservative_step", "scatter_add",
+                 "scatter_add_tiled"):
+        if launches[name]:
+            raise AssertionError(f"the narrow {name} ran at 2**32 counters")
+    if not (bool((mc[valid] >= 1).all()) and torch.equal(hit, valid)):
+        raise AssertionError("[14a] a valid window put in reads 0")
+    log(f"[14a] conservative insert (ungrouped), min count and contains of "
+        f"{CB}x{L} ACGT reads and incrementAll of the same into 2**32 u8 "
+        f"counters: {secs:.3f} s with the first calls; every valid window "
+        f"reads >= 1 and hits")
+    # the same path on the plain versions
+    pos_p, _s, v_p = nthash_scan.positions_planes_plain(codes, K, H, S)
+    ref = counting.create(S, H, K, 1, 1, device=dev)
+    counting.insert_positions(ref.counters, pos_p.reshape(H, -1).T,
+                              v_p.reshape(-1), 255, S, 4, group=False,
+                              step=conservative_step.conservative_step_plain)
+    err["conservative_step_wide"] = require_equal(
+        "[14a] conservative insert", cbf.counters, ref.counters)
+    err["gather_counters_wide"] = require_equal(
+        "[14a] min count", mc, gather_counters.gather_counters_plain(
+            ref.counters, pos_p, 2, "min").reshape(mc.shape))
+    ref.counters.zero_()
+    with swapped(scatter_add, "scatter_add", scatter_add.scatter_add_plain):
+        counting.insert_all(ref, hashes, hvalid)
+    err["scatter_add_wide"] = require_equal(
+        "[14a] incrementAll", cbf_all.counters, ref.counters)
+    log("[14a] main path == plain path (conservative counters, min counts, "
+        "incrementAll counters)")
+    del ref, cbf_all, mc, hit, planes, hashes, pos_p
+    torch.cuda.empty_cache()
+
+    # each wide kernel against its plain version at the path's shapes, and
+    # its times
+    pos, _s, _v = nthash_scan.positions_planes(codes, K, H, S)
+    words = cbf.counters
+    ms, bounds = {}, {}
+    for out, thr in (("min", 0), ("hit", 1), ("hit", 2)):
+        err["gather_counters_wide"] = max(
+            err["gather_counters_wide"], require_equal(
+                f"[14a] gather_counters_wide {out} {thr}",
+                gather_counters.gather_counters(words, pos, 2, out, thr),
+                gather_counters.gather_counters_plain(words, pos, 2, out,
+                                                      thr)))
+    ms["gather_counters_wide"] = (
+        kernel_times(lambda: gather_counters.gather_counters(
+            words, pos, 2, "hit", 1)),
+        median_ms(lambda: gather_counters.gather_counters_plain(
+            words, pos, 2, "hit", 1)))
+    nw = distinct_words(pos, 2)
+    bounds["gather_counters_wide"] = bound_ms(8 * pos.numel()
+                                              + pos[0].numel() + 4 * nw)
+    # the closed-form rows of the batch's decomposition
+    p = u64.positions64(pos).reshape(H, -1)
+    ks, closed, closed_c, _ent = counting._decompose(p, False)
+    rows = torch.where(closed, ks, -1)
+    start = words.clone()
+    got = conservative_step.conservative_step(start.clone(), rows, closed_c,
+                                              2, 255)
+    err["conservative_step_wide"] = max(
+        err["conservative_step_wide"], require_equal(
+            "[14a] conservative_step_wide closed form", got,
+            conservative_step.conservative_step_plain(start.clone(), rows,
+                                                      closed_c, 2, 255)))
+    del got
+    work = start.clone()
+    ms["conservative_step_wide"] = (
+        kernel_times(lambda: conservative_step.conservative_step(
+            work, rows, closed_c, 2, 255), setup=lambda: work.copy_(start)),
+        median_ms(lambda: conservative_step.conservative_step_plain(
+            work, rows, closed_c, 2, 255), setup=lambda: work.copy_(start)))
+    bounds["conservative_step_wide"] = bound_ms(
+        8 * rows.numel() + 8 * rows.shape[1] + 8 * distinct_words(rows, 2))
+    del work
+    flat = pos.reshape(-1)
+    inc = torch.randint(0, 1 << 8, flat.shape, dtype=torch.int32, device=dev)
+    for c in (None, inc):
+        err["scatter_add_wide"] = max(err["scatter_add_wide"], require_equal(
+            f"[14a] scatter_add_wide {'unit' if c is None else 'weighted'}",
+            scatter_add.scatter_add(start.clone(), flat, 2, 255, c),
+            scatter_add.scatter_add_plain(start.clone(), flat, 2, 255, c)))
+    work = start.clone()
+    ms["scatter_add_wide"] = (
+        kernel_times(lambda: scatter_add.scatter_add(work, flat, 2, 255),
+                     setup=work.zero_),
+        median_ms(lambda: scatter_add.scatter_add_plain(work, flat, 2, 255),
+                  setup=work.zero_))
+    bounds["scatter_add_wide"] = bound_ms(8 * flat.numel() + 8 * nw)
+    # a 32-byte sector holds 32 u8 counters: p >> 5
+    n_sect = distinct_words(pos, 5)
+    sector_floors({
+        "gather_counters_wide": 8 * pos.numel() + pos[0].numel()
+        + 32 * n_sect,
+        "conservative_step_wide": 8 * rows.numel() + 8 * rows.shape[1]
+        + 64 * distinct_words(rows, 5),
+        "scatter_add_wide": 8 * flat.numel() + 64 * n_sect}, "14a",
+        card_line)
+    for name, (tk, tp) in ms.items():
+        log(f"[14a] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
+            f"{bounds[name]:.4f} ms ({CB}x{L} ACGT, 2**32 u8 counters; "
+            f"{card_line})")
+    del work, start, cbf, words, pos, p, ks, rows, flat, inc
+    torch.cuda.empty_cache()
+
+    # ---- 14b. counter 2**32 - 1 through the facade -----------------------
+    frames = np.array([[S - 1, S - 2, 7], [S - 1, 9, 7], [2 * S - 1, S - 1, 11],
+                       [S - 2, 12, 13], [S - 1, S - 2, 7], [5, 6, 7]],
+                      np.uint64)
+    cc = compat.CountingBloomFilter(S, 3, K, 1, device=dev)
+    for f in frames:
+        cc.insert(f)
+    fpos = (frames % np.uint64(S)).astype(np.int64)
+    oracle = {}
+    for row in fpos:                          # incrementMin, stream order
+        cur = {int(q): oracle.get(int(q), 0) for q in row}
+        low = min(cur.values())
+        for q, v in cur.items():
+            if v == low:
+                oracle[q] = v + 1
+    got = {q: cc[q] for q in oracle}
+    if got != oracle or any(cc.minCount(f) != min(oracle[int(q)]
+                                                  for q in r)
+                            for f, r in zip(frames, fpos)):
+        raise AssertionError(f"[14b] counters {got} != numpy incrementMin "
+                             f"{oracle}")
+    cc.incrementAll(frames)
+    for row in fpos:
+        for q in row.tolist():
+            oracle[q] += 1
+    got = {q: cc[q] for q in oracle}
+    if got != oracle or oracle[S - 1] < 5:
+        raise AssertionError(f"[14b] after incrementAll {got} != {oracle}")
+    log(f"[14b] compat.CountingBloomFilter of 2**32 u8 counters: counter "
+        f"2**32 - 1 reads {got[S - 1]}, counter 2**32 - 2 {got[S - 2]}, "
+        f"equal to a numpy incrementMin / incrementAll walk")
+    del cc
+    torch.cuda.empty_cache()
+
+    # ---- 14c. an MIBF of exactly 2**32 bits from 7c's references ---------
+    rng = np.random.default_rng(SEED + 7)
+    refs = rng.integers(0, 4, size=(U_REFS, U_REF_L), dtype=np.uint8)
+    reads, srcs = mb.reads_from(refs, mb.R, mb.L, rng)
+    pfp = [0.0] + [0.1] * U_REFS
+    mc_vec = np.full(U_REFS + 1, 2, np.int32)
+
+    def build():
+        pipe = api.MIBFConstructPipeline(mibf_construct.BitVectorState(
+            bv_words=torch.zeros(S // 32, dtype=torch.int32, device=dev),
+            filter_size=S, kmer_size=K, hash_num=H, occupancy=0.5,
+            sseeds=()))
+        for c in refs:
+            pipe.insert_bv_seq(c)
+        pipe.freeze(2)
+        pipe.insert_mibf_batch(list(refs), range(1, U_REFS + 1))
+        pipe.insert_saturation_batch(list(refs), range(1, U_REFS + 1))
+        fr = pipe.hash.frames_batch(list(reads))
+        qs = mibf_query.MIBFQuerySupport(
+            m=pipe.m, per_frame_prob=pfp, extra_count=2.0,
+            extra_frame_limit=10**6, max_miss=0, min_count=1,
+            best_hit_agree=False)
+        return pipe, qs, qs.query_many(fr.hashes, fr.valid, mc_vec)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe, qs, res = build()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    m_launches = kernels.launch_counts()
+    log(f"[14c] launches on the 2**32-bit MIBF main path: {m_launches}")
+    for name in ("nthash_scan", "scatter_or_wide", "mibf_rank",
+                 "mibf_frame_scan"):
+        if m_launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the 2**32-bit "
+                                 f"MIBF main path: {m_launches}")
+    if m_launches["scatter_or"] or m_launches["scatter_or_tiled"]:
+        raise AssertionError("[14c] phase 1 took the narrow scatter")
+    correct = sum(1 for r, s in zip(res, srcs) if r and r[0].id == s + 1)
+    m = pipe.m
+    log(f"[14c] {U_REFS} x {U_REF_L} bases into 2**32 bits: d_size "
+        f"{m.d_size} (occupancy {m.d_size / m.size:.6f}), built and "
+        f"{mb.R} reads classified in {secs:.3f} s (first calls); "
+        f"correct_frac {correct / mb.R} (sat_count {qs.sat_count}, "
+        f"eval_count {qs.eval_count})")
+    if correct / mb.R < 0.95:
+        raise AssertionError("[14c] fewer than 95% of the reads classify to "
+                             "their source")
+    with plain_kernels():
+        ppipe, pqs, pres = build()
+    for what, a, b in (("bit vector", m.bv_words, ppipe.m.bv_words),
+                       ("IDs", m.data, ppipe.m.data),
+                       ("counts", pipe.counts, ppipe.counts)):
+        require_equal(f"[14c] {what}", a, b)
+    if [[dataclasses.astuple(r) for r in rs] for rs in res] != \
+            [[dataclasses.astuple(r) for r in rs] for rs in pres] or \
+            (qs.sat_count, qs.eval_count) != (pqs.sat_count, pqs.eval_count):
+        raise AssertionError("[14c] result lists: kernel path != plain path")
+    log("[14c] kernel path == plain path (bit vector, IDs, counts, result "
+        "lists, sat / eval counts)")
+    del pipe, ppipe, qs, pqs, m
+    torch.cuda.empty_cache()
+    # a frame on bit 2**32 - 1: set, ranked last, found
+    st = mibf_construct.BitVectorState(
+        bv_words=torch.zeros(S // 32, dtype=torch.int32, device=dev),
+        filter_size=S, kmer_size=K, hash_num=H, occupancy=0.5, sseeds=())
+    crafted = u64.from_numpy(np.array([[S - 1, 2 * S - 2, 77, 5 * S + 3]],
+                                      np.uint64)).to(dev)
+    mibf_construct.insert_bv(st, crafted)
+    m1, counts1 = mibf_construct.get_empty_mibf(st, 2)
+    mibf_construct.insert_mibf(m1, counts1, crafted, 9)
+    rank, hit, raw = mibf.at_rank_data(m1, crafted)
+    if not (int(st.bv_words[-1]) < 0 and m1.d_size == 4
+            and rank.tolist() == [[3, 2, 1, 0]] and bool(hit.all())
+            and raw.tolist() == [[9, 9, 9, 9]]):
+        raise AssertionError("[14c] bit 2**32 - 1: not set, ranked or "
+                             "named")
+    log("[14c] a frame on bit 2**32 - 1: set by phase 1, ranked last, ID "
+        "found")
+    del st, m1, counts1
+
+    # ---- 14d. the blocked filter at 2**32 bits: its last bit --------------
+    bf = blocked.create(S, H, K, device=dev)
+    ref_rows = torch.zeros_like(bf.rows)
+    r = np.random.default_rng(SEED + 15)
+    while True:
+        c = int(r.integers(0, 1 << 41)) << 23 | ((1 << 23) - 1)
+        _b, bits = blocked_bloom.block_and_bits(
+            u64.from_numpy(np.array([c], np.uint64)), S // 512, K, H)
+        if 511 in bits[0].tolist():
+            break
+    canon = u64.from_numpy(np.concatenate([
+        np.array([c], np.uint64),
+        r.integers(0, 1 << 64, size=999, dtype=np.uint64)])).to(dev)
+    blocked.insert(bf, canon)
+    blocked_bloom.insert_plain(ref_rows, canon, K, H)
+    require_equal("[14d] 2**32-bit blocked rows", bf.rows, ref_rows)
+    if not (int(bf.rows[-1, 15]) < 0
+            and bool(blocked.contains(bf, canon).all())):
+        raise AssertionError("[14d] blocked bit 2**32 - 1 not set or found")
+    log("[14d] blocked filter of 2**32 bits: 1000 k-mers kernel == plain, "
+        "the crafted k-mer's bit 2**32 - 1 set and found")
+    del bf, ref_rows
+    torch.cuda.empty_cache()
+    log(f"[14] {time.perf_counter() - t_phase:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return err, ms, bounds, launches, m_launches
+
+
+def bridge_session(worker: str, device: str, tmp: str, tag: str):
+    """One fixed session of the Perl binding's JSON protocol with the
+    port's worker on ``device``: replies (ids left out) and the .bf files
+    it wrote."""
+    proc = subprocess.Popen(
+        [sys.executable, worker], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "BTL_BRIDGE_DEVICE": device})
+    calls = [0]
+
+    def call(op, *args):
+        calls[0] += 1
+        proc.stdin.write(json.dumps({"id": calls[0], "op": op,
+                                     "args": list(args)}) + "\n")
+        proc.stdin.flush()
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"bridge worker ({device}) died: "
+                                 f"{proc.stderr.read()[-2000:]}")
+        reply = json.loads(line)
+        reply.pop("id")
+        return reply
+
+    kmers = ["ATCGGGTCATCAACCAATAT", "ATCGGGTCATCAACCAATAC",
+             "GGCATTACGATTAGCATTAG", "TTTTTTTTTTAAAAAAAAAA"]
+    probes = kmers + ["ATCGGGTCATCAACCAATTA", "CCCCCGGGGGAAAAATTTTT"]
+    out = [call("ping")]
+    f1 = call("new", 1 << 30, 5, 20)["result"]
+    out += [call("insert", f1, km) for km in kmers]
+    out.append(call("insertSeq", f1, golden_long_seq(3000), 5, 20))
+    out += [call("contains", f1, p) for p in probes]
+    f2 = call("new", 10000, 4, 5)["result"]
+    out.append(call("insertSeq", f2, "TAGAATCACCCAAAGA", 4, 5))
+    out += [call(op, fid) for fid in (f1, f2) for op in (
+        "getPop", "getFPR", "getHashNum", "getKmerSize", "getFilterSize",
+        "sizeInBytes")]
+    paths = [os.path.join(tmp, f"{tag}{i}.bf") for i in (1, 2)]
+    out += [call("storeFilter", fid, p) for fid, p in zip((f1, f2), paths)]
+    f3 = call("new", paths[0])["result"]
+    out += [call("contains", f3, p) for p in probes]
+    proc.stdin.close()
+    if proc.wait(timeout=300) != 0:
+        raise AssertionError(f"bridge worker ({device}) exited "
+                             f"{proc.returncode}: {proc.stderr.read()}")
+    return out, paths
+
+
+def bridge_phases(card_line: str) -> None:
+    """Phase 15: the Perl binding's worker on the port, on the card and on
+    the plain path, and perl swig_torch/test.pl where perl is present."""
+    from btl_bloomfilter_tpu_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    worker = os.path.join(ROOT, "swig_torch", "bridge_server.py")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        got, got_files = bridge_session(worker, "cuda", tmp, "cuda")
+        want, want_files = bridge_session(worker, "cpu", tmp, "cpu")
+        if got != want:
+            raise AssertionError(f"[15] bridge replies on cuda != cpu: "
+                                 f"{got} vs {want}")
+        for a, b in zip(got_files, want_files):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"[15] {a} != {b}")
+        log(f"[15] swig_torch/bridge_server.py on cuda: {len(got)} replies "
+            f"and the two .bf files ({os.path.getsize(got_files[0])} and "
+            f"{os.path.getsize(got_files[1])} bytes) equal the plain "
+            f"path's (BTL_BRIDGE_DEVICE=cpu)")
+    if shutil.which("perl") is None:
+        log("[15] perl not found: swig_torch/test.pl not run")
+    else:
+        run = subprocess.run(["perl", os.path.join(ROOT, "swig_torch",
+                                                   "test.pl")],
+                             capture_output=True, text=True, timeout=600)
+        if run.returncode != 0 or "Done!" not in run.stdout \
+                or "FAIL" in run.stdout:
+            raise AssertionError(f"[15] perl swig_torch/test.pl failed:\n"
+                                 f"{run.stdout}\n{run.stderr[-2000:]}")
+        log("[15] perl swig_torch/test.pl on the card: Done!")
+    log(f"[15] {time.perf_counter() - t_phase:.1f} s ({card_line})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3647,6 +4243,33 @@ def main() -> None:
         if name in launches:
             launches[name] += n
 
+    # ---- 13. the blocked Bloom filter ---------------------------------------
+    b_err, b_ms, b_launches, b_bounds = blocked_phases(dev, card_line)
+    err.update(b_err)
+    ms.update(b_ms)
+    bounds.update(b_bounds)
+    for name in b_err:
+        launches[name] = b_launches[name]
+    launches["nthash_scan"] += b_launches["nthash_scan"]
+
+    # ---- 14. exactly 2**32 counters or bits ----------------------------------
+    x_err, x_ms, x_bounds, x_launches, xm_launches = exact_2_32_phases(
+        dev, card_line)
+    err.update(x_err)
+    ms.update(x_ms)
+    bounds.update(x_bounds)
+    for name in x_err:
+        launches[name] = x_launches[name]
+    for name in ("nthash_scan", "nthash_scan_wide"):
+        launches[name] += x_launches[name]
+    # its MIBF path runs the MIBF kernels and the wide scatter once more
+    for name in ("nthash_scan", "scatter_or_wide", "mibf_rank",
+                 "mibf_frame_scan"):
+        launches[name] += xm_launches[name]
+
+    # ---- 15. the Perl binding's worker ------------------------------------
+    bridge_phases(card_line)
+
     src = "btl_bloomfilter_tpu_torch/csrc/"
     record = {"kernels": [
         {"name": "nthash_scan", "route": "cuda",
@@ -3743,6 +4366,30 @@ def main() -> None:
                      "(the MIBF ID-plane gather; at width 8 the JAX package "
                      "gathers its two planes with XLA, "
                      "btl_bloomfilter_tpu/models/mibf.py:288-296)"},
+        # the blocked Bloom filter: no Pallas kernel, the JAX insert rides
+        # the classic path's sort and sorted-delta scatter, its query an
+        # XLA row gather
+        {"name": "blocked_insert", "route": "cuda",
+         "source": src + "blocked_bloom.cu",
+         "replaces": "btl_bloomfilter_tpu/models/blocked.py:78 (insert: "
+                     "a sort and bloom.sorted_delta_words, no pallas_call)"},
+        {"name": "blocked_contains", "route": "cuda",
+         "source": src + "blocked_bloom.cu",
+         "replaces": "btl_bloomfilter_tpu/models/blocked.py:98 (contains: "
+                     "an XLA row gather, no pallas_call)"},
+        # the wide forms of the counting kernels: filters of exactly 2**32
+        # counters
+        {"name": "gather_counters_wide", "route": "cuda",
+         "source": src + "gather_counters.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297"},
+        {"name": "scatter_add_wide", "route": "cuda",
+         "source": src + "scatter_add.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
+        {"name": "conservative_step_wide", "route": "cuda",
+         "source": src + "conservative_step.cu",
+         "replaces": "btl_bloomfilter_tpu/models/counting.py:699 and "
+                     "btl_bloomfilter_tpu/models/counting.py:389, on the "
+                     "path of btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
     ]}
     idle = [r["name"] for r in record["kernels"] if launches[r["name"]] < 1]
     if idle:

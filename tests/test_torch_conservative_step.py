@@ -139,8 +139,11 @@ def test_conservative_step_checks_inputs():
     before = cs.KERNEL.launches
     cs.conservative_step(words, pos, c, 2, 255)       # CPU: plain version
     assert cs.KERNEL.launches == before
+    wide_before = cs.WIDE_KERNEL.launches
+    cs.conservative_step(words, pos.long(), c, 2, 255)  # wide positions
+    assert cs.WIDE_KERNEL.launches == wide_before
     with pytest.raises(TypeError):
-        cs.conservative_step(words, pos.long(), c, 2, 255)
+        cs.conservative_step(words, pos.short(), c, 2, 255)
     with pytest.raises(TypeError):
         cs.conservative_step(words, pos, c.int(), 2, 255)
     with pytest.raises(TypeError):

@@ -10,6 +10,7 @@ compared outputs are integers, bools or bytes, so the tolerance is zero,
 except the float FPR, which the JAX package computes in float32.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -529,13 +530,17 @@ def test_size_rules():
                            device="cpu").size == 126
     with pytest.raises(ValueError):
         counting.create(64, 2, 5, 1, counter_width=3, device="cpu")
+    # past 2**32 counters the port refuses, as the JAX package does; at
+    # exactly 2**32 the positions take the wide form
     big = counting.CountingBloomFilter(
-        counters=torch.zeros(1, dtype=torch.int32), size=1 << 32,
+        counters=torch.zeros(1, dtype=torch.int32), size=(1 << 32) + 4,
         hash_num=1, kmer_size=5, count_threshold=1, counter_width=4)
     one = u64.from_numpy(np.zeros((1, 1), np.uint64))
     for fn in (counting.insert, counting.insert_all, counting.contains):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             fn(big, one)
+    exact = dataclasses.replace(big, size=1 << 32)
+    assert counting._positions(exact, one).dtype == torch.int64
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,13 @@ import pytest
 import torch
 
 from btl_bloomfilter_tpu_torch import kernels
-from btl_bloomfilter_tpu_torch.kernels import (conservative_step,
+from btl_bloomfilter_tpu_torch.kernels import (blocked_bloom,
+                                               conservative_step,
                                                gather_counters, gather_words,
                                                nthash_scan, scatter_add,
                                                scatter_or, tile_partition)
-from btl_bloomfilter_tpu_torch.models import bloom, counting, kmer_bloom
+from btl_bloomfilter_tpu_torch.models import (blocked, bloom, counting,
+                                              kmer_bloom)
 from btl_bloomfilter_tpu_torch.ops import u64
 from btl_bloomfilter_tpu_torch.probes import partition_probe
 
@@ -399,6 +401,188 @@ def test_scatter_add_saturates_without_touching_neighbours(dev, shift):
     scatter_add.scatter_add(words, pos, shift, cmax, inc)
     lanes[1] = cmax
     assert torch.equal(words, packed(lanes))
+
+
+# ---------------------------------------------------------------------------
+# the wide (int64-position) instantiations of the counting kernels: a
+# filter of exactly 2**32 counters; each held against its narrow twin on
+# the same positions and against the plain version
+# ---------------------------------------------------------------------------
+
+def widen(pos: torch.Tensor) -> torch.Tensor:
+    """Narrow positions (int32, 0xFFFFFFFF) in the wide form (int64, -1)."""
+    return u64.positions64(pos)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("h", [1, 4, 9])
+def test_gather_counters_wide_matches_narrow_and_plain(dev, shift, h):
+    rng = np.random.default_rng(100 + h + shift)
+    nwords = 4099
+    words = random_words(nwords, h).to(dev)
+    pos = rng.integers(0, (nwords << shift) + 50, size=(h, 3, 3001),
+                       dtype=np.uint64)
+    pos[:, rng.random((3, 3001)) < 0.1] = 0xFFFFFFFF
+    pos[rng.random((h, 3, 3001)) < 0.02] = 0xFFFFFFFF
+    narrow = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    wide = widen(narrow)
+    for out, thr in (("vals", 0), ("min", 0), ("hit", 60), ("hit", 200)):
+        before = gather_counters.WIDE_KERNEL.launches
+        got = gather_counters.gather_counters(words, wide, shift, out, thr)
+        assert gather_counters.WIDE_KERNEL.launches == before + 1
+        assert torch.equal(got, gather_counters.gather_counters(
+            words, narrow, shift, out, thr))
+        assert torch.equal(got, gather_counters.gather_counters_plain(
+            words, wide, shift, out, thr))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("h", [4, 11])
+def test_conservative_step_wide_matches_narrow_and_plain(dev, shift, h):
+    rng = np.random.default_rng(200 + h + shift)
+    cmax = (1 << (32 >> shift)) - 1
+    nwords = 1 << 16
+    ncount = nwords << shift
+    pos, live = disjoint_frames(rng, ncount, h, 20_000)
+    words = random_words(nwords, h + shift).to(dev)
+    c = torch.from_numpy(rng.choice(np.array([1, 2, 300, 1 << 20], np.int64),
+                                    size=pos.shape[1])).to(dev)
+    narrow = torch.from_numpy(pos.view(np.int32)).to(dev)
+    wide = widen(narrow)
+    before = conservative_step.WIDE_KERNEL.launches
+    got = conservative_step.conservative_step(words.clone(), wide, c, shift,
+                                              cmax)
+    assert conservative_step.WIDE_KERNEL.launches == before + 1
+    assert torch.equal(got, conservative_step.conservative_step(
+        words.clone(), narrow, c, shift, cmax))
+    assert torch.equal(got, conservative_step.conservative_step_plain(
+        words.clone(), wide, c, shift, cmax))
+    assert not torch.equal(got, words)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2])
+def test_scatter_add_wide_matches_narrow_and_plain(dev, shift):
+    rng = np.random.default_rng(300 + shift)
+    cmax = (1 << (32 >> shift)) - 1
+    nwords = (1 << 18) + 5
+    start = random_words(nwords, shift).to(dev)
+    n = 60_000
+    pos = rng.integers(0, (nwords << shift) + 64, size=n, dtype=np.uint64)
+    pos[:2000] = pos[0]
+    pos[rng.random(n) < 0.05] = 0xFFFFFFFF
+    narrow = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+    wide = widen(narrow)
+    inc = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+    inc[rng.random(n) < 0.3] = 1
+    inc = torch.from_numpy(inc.astype(np.uint32).view(np.int32)).to(dev)
+    for c in (None, inc):
+        before = scatter_add.WIDE_KERNEL.launches
+        got = scatter_add.scatter_add(start.clone(), wide, shift, cmax, c)
+        assert scatter_add.WIDE_KERNEL.launches == before + 1
+        assert torch.equal(got, scatter_add.scatter_add(
+            start.clone(), narrow, shift, cmax, c))
+        assert torch.equal(got, scatter_add.scatter_add_plain(
+            start.clone(), wide, shift, cmax, c))
+    with pytest.raises(TypeError):
+        scatter_add.scatter_add_tiled(start.clone(), wide, shift, cmax)
+
+
+def test_counting_at_exactly_2_32_counters_counts_the_last(dev):
+    """A 2**32-counter u8 filter (4 GiB) on the card: frames on counters
+    2**32 - 1 and 2**32 - 2, conservative update and incrementAll through
+    the wide kernels, against a numpy stream-order oracle."""
+    size = 1 << 32
+    last, prev = size - 1, size - 2
+    hashes = np.array([[last, prev, 7], [last, 9, 7], [last, last, 11],
+                       [prev, 12, 13], [size + last, 5, 6]], np.uint64)
+    cbf = counting.create(size, 3, 5, 1, device=dev)
+    for name in ("conservative_step", "gather_counters", "scatter_add"):
+        getattr(globals()[name], "WIDE_KERNEL").launches = 0
+    counting.insert(cbf, u64.from_numpy(hashes))
+    pos = (hashes % np.uint64(size)).astype(np.int64)
+    uniq = np.unique(pos)
+    ref = dict.fromkeys(uniq.tolist(), 0)
+    for row in pos:                          # incrementMin, stream order
+        m = min(ref[p] for p in row)
+        for p in set(row.tolist()):
+            if ref[p] == m:
+                ref[p] += 1
+    mc = counting.min_count(cbf, u64.from_numpy(hashes))
+    assert mc.tolist() == [min(ref[p] for p in row) for row in pos]
+    counting.insert_all(cbf, u64.from_numpy(hashes))
+    for row in pos:                          # incrementAll
+        for p in row.tolist():
+            ref[p] += 1
+    w = cbf.counters[torch.from_numpy(uniq >> 2).to(dev)].cpu().numpy()
+    got = (w.view(np.uint32) >> ((uniq & 3) * 8).astype(np.uint32)) & 0xFF
+    assert got.tolist() == [ref[p] for p in uniq.tolist()]
+    assert ref[last] > 0
+    assert conservative_step.WIDE_KERNEL.launches > 0
+    assert gather_counters.WIDE_KERNEL.launches > 0
+    assert scatter_add.WIDE_KERNEL.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# the blocked Bloom filter's kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nblocks", [1, 3, 1 << 10, (1 << 16) + 7])
+@pytest.mark.parametrize("h", [1, 4, 7, 16, 17])
+def test_blocked_kernels_match_plain(dev, nblocks, h):
+    """Random canonical hashes, a valid mask, duplicates, both kernels
+    against their plain versions; every inserted valid k-mer hits."""
+    rng = np.random.default_rng(nblocks * 31 + h)
+    n = 20_000
+    canon = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    canon[: n // 10] = canon[n // 10: n // 5]           # duplicates
+    c = u64.from_numpy(canon).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    rows = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
+    ref = rows.clone()
+    before = (blocked_bloom.INSERT_KERNEL.launches,
+              blocked_bloom.CONTAINS_KERNEL.launches)
+    blocked_bloom.insert(rows, c[: n // 2], 21, h, valid[: n // 2])
+    blocked_bloom.insert_plain(ref, c[: n // 2], 21, h, valid[: n // 2])
+    assert torch.equal(rows, ref)
+    for v in (None, valid):
+        hit = blocked_bloom.contains(rows, c, 21, h, v)
+        assert torch.equal(hit, blocked_bloom.contains_plain(rows, c, 21, h,
+                                                             v))
+    assert hit[: n // 2][valid[: n // 2]].all()
+    assert (blocked_bloom.INSERT_KERNEL.launches,
+            blocked_bloom.CONTAINS_KERNEL.launches) == (before[0] + 1,
+                                                        before[1] + 2)
+
+
+def test_blocked_filter_on_cuda_matches_cpu(dev):
+    """The sequence entry points on the card and on the CPU: rows, hits,
+    the .bbf bytes."""
+    codes = random_codes(7, 500, 0.02, 5)
+    gpu = blocked.insert_seq(blocked.create((1 << 20) + 512, 4, 31,
+                                            device=dev), codes)
+    cpu = blocked.insert_seq(blocked.create((1 << 20) + 512, 4, 31,
+                                            device="cpu"), codes)
+    assert torch.equal(gpu.rows.cpu(), cpu.rows)
+    for a, b in zip(blocked.contains_seq(gpu, codes),
+                    blocked.contains_seq(cpu, codes)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_blocked_bit_2_32_minus_1(dev):
+    """At exactly 2**32 bits the last row's last bit is set and found."""
+    bf = blocked.create(1 << 32, 4, 31, device=dev)
+    rng = np.random.default_rng(7)
+    while True:
+        c = np.array([int(rng.integers(0, 1 << 41)) << 23
+                      | ((1 << 23) - 1)], np.uint64)
+        block, bits = blocked_bloom.block_and_bits(u64.from_numpy(c),
+                                                   1 << 23, 31, 4)
+        if 511 in bits[0].tolist():
+            break
+    blocked.insert(bf, u64.from_numpy(c))
+    assert int(bf.rows[-1, 15]) < 0                      # bit 31 set
+    assert bool(blocked.contains(bf, u64.from_numpy(c))[0])
+    assert int((bf.rows != 0).sum()) <= 4
 
 
 # ---------------------------------------------------------------------------

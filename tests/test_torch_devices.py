@@ -13,8 +13,8 @@ import torch.distributed as dist
 
 from btl_bloomfilter_tpu_torch import api, compat
 from btl_bloomfilter_tpu_torch.io import bf_format, mibf_format
-from btl_bloomfilter_tpu_torch.models import (bloom, counting, mibf,
-                                              mibf_construct)
+from btl_bloomfilter_tpu_torch.models import (blocked, bloom, counting,
+                                              mibf, mibf_construct)
 from btl_bloomfilter_tpu_torch.parallel import (dist_bloom, dist_counting,
                                                 dist_mibf, multihost)
 from btl_bloomfilter_tpu_torch.parallel import mesh as mesh_lib
@@ -31,7 +31,8 @@ ENTRY_POINTS = [
     partition_probe.make_keys, partition_probe.dma_sweep,
     kernel_lab.make_inputs, compat.BloomFilter, compat.KmerBloomFilter,
     compat.CountingBloomFilter, compat.MIBloomFilter,
-    compat.MIBFConstructSupport, multihost.init,
+    compat.MIBFConstructSupport, multihost.init, blocked.create,
+    blocked.from_numpy_rows, blocked.load,
 ]
 
 
@@ -52,12 +53,15 @@ def test_entry_point_defaults_to_cuda(fn):
     lambda: compat.CountingBloomFilter(64, 2, 5, 1)._cbf,
     lambda: compat.MIBFConstructSupport(100, 5, 2)._state,
     lambda: compat.MIBloomFilter(2, 5, np.zeros(2, np.uint32))._m,
+    lambda: blocked.create(1024, 3, 5),
+    lambda: blocked.from_numpy_rows(np.zeros((2, 16), np.uint32), 1024, 3,
+                                    5),
 ])
 def test_default_device_is_the_card(make):
     """With a card the state lands on it; without one the call raises."""
     if torch.cuda.is_available():
         state = make()
-        for name in ("words", "counters", "bv_words"):
+        for name in ("words", "counters", "bv_words", "rows"):
             if hasattr(state, name):
                 assert getattr(state, name).device.type == "cuda"
     else:
@@ -128,3 +132,16 @@ def test_parallel_defaults_to_the_card(tmp_path):
             torch.device("cpu")
     finally:
         multihost.shutdown()
+
+
+def test_blocked_load_defaults_to_the_card(tmp_path):
+    """A stored blocked filter loads onto the card unless the caller asks
+    for the CPU; without a card the load raises."""
+    path = str(tmp_path / "b.bbf")
+    blocked.store(blocked.create(1024, 3, 5, device="cpu"), path)
+    assert blocked.load(path, device="cpu").rows.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert blocked.load(path).rows.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            blocked.load(path)

@@ -407,7 +407,7 @@ def test_stats_saturate_set_data_match_jax(width):
 def test_width8_and_huge_filters_raise():
     """Width 8 (an int64 ID plane) freezes, but its random-order insert on
     the device raises, as the reference's does; widths outside {1, 2, 4,
-    8} and bit vectors of 2**32 bits raise."""
+    8} and bit vectors past 2**32 bits raise (as the JAX package's do)."""
     words = torch.zeros(2, dtype=torch.int32)
     m8 = mibf.freeze(words, 64, 2, 5, data_width=8)
     assert m8.data.dtype == torch.int64 and m8.data_width == 8
@@ -417,8 +417,8 @@ def test_width8_and_huge_filters_raise():
     with pytest.raises(ValueError):
         mibf.freeze(words, 64, 2, 5, data_width=3)
     m = mibf.freeze(words, 64, 2, 5)
-    m.size = 1 << 32
-    with pytest.raises(NotImplementedError):
+    m.size = (1 << 32) + 64
+    with pytest.raises(ValueError):
         mibf.positions(m, torch.zeros(3, dtype=torch.int64))
 
 

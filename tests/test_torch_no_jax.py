@@ -1,6 +1,6 @@
 """The port must run where JAX is not installed: importing it, its API,
-its CLIs, its distribution layer and the rank launcher pulls in neither
-jax nor the JAX package."""
+its CLIs, its distribution layer, the rank launcher, the blocked filter
+and the Perl bridge's worker pulls in neither jax nor the JAX package."""
 
 import os
 import subprocess
@@ -52,7 +52,13 @@ def test_port_imports_no_jax():
             "btl_bloomfilter_tpu_torch.parallel.dist_bloom, "
             "btl_bloomfilter_tpu_torch.parallel.dist_counting, "
             "btl_bloomfilter_tpu_torch.parallel.dist_mibf, "
-            "btl_bloomfilter_tpu_torch.tools.dist_run; "
+            "btl_bloomfilter_tpu_torch.tools.dist_run, "
+            "btl_bloomfilter_tpu_torch.models.blocked, "
+            "btl_bloomfilter_tpu_torch.kernels.blocked_bloom; "
+            "import importlib.util; "
+            "spec = importlib.util.spec_from_file_location("
+            "'bridge_server', 'swig_torch/bridge_server.py'); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'btl_bloomfilter_tpu' or "
             "m.startswith('btl_bloomfilter_tpu.')]; "
