@@ -73,45 +73,40 @@ def _rank_samples(block_ranks: np.ndarray) -> np.ndarray:
 
 def _bits_u32_from_words64(words64: np.ndarray, size_bits: int) -> np.ndarray:
     n32 = (size_bits + 31) // 32
-    u32 = words64.astype("<u8").view("<u4")
-    out = np.zeros(n32, dtype=np.uint32)
-    out[:] = u32[:n32]
-    return out
+    u32 = np.ascontiguousarray(words64, dtype="<u8").view("<u4")
+    return np.array(u32[:n32], dtype=np.uint32)
 
 
-# superblocks a popcount pass takes at a time (16 MiB of words)
+# superblocks the writer interleaves at a time (16 MiB of words)
 _POP_BLOCKS = 1 << 18
-
-
-def _interleave(bits_u32: np.ndarray, size_bits: int):
-    """(interleaved uint64 [nblocks, 9], rank samples): per superblock its
-    cumulative rank word, then its eight data words (zero past the
-    vector)."""
-    bits_u32 = np.asarray(bits_u32, np.uint32)
-    n64 = (size_bits + 63) // 64
-    nblocks = (n64 + _WORDS_PER_BLOCK - 1) // _WORDS_PER_BLOCK
-    flat = np.zeros(2 * _WORDS_PER_BLOCK * nblocks, dtype="<u4")
-    flat[: bits_u32.shape[0]] = bits_u32[: 2 * n64]
-    interleaved = np.empty((nblocks, _WORDS_PER_BLOCK + 1), dtype="<u8")
-    interleaved[:, 1:] = flat.view("<u8").reshape(nblocks, _WORDS_PER_BLOCK)
-    del flat
-    sums = np.empty(nblocks, dtype=np.uint64)
-    for b in range(0, nblocks, _POP_BLOCKS):
-        sums[b:b + _POP_BLOCKS] = _popcount64(
-            interleaved[b:b + _POP_BLOCKS, 1:]).sum(axis=1)
-    interleaved[:1, 0] = 0
-    np.cumsum(sums[:-1], out=interleaved[1:, 0])
-    return interleaved, _rank_samples(interleaved[:, 0])
 
 
 def write_bit_vector_il(f, bits_u32: np.ndarray, size_bits: int) -> None:
     """Write a plain bit vector (uint32 words) as bit_vector_il<512> to the
-    binary file ``f``, piece by piece (no copy of the whole file's
-    bytes)."""
-    interleaved, samples = _interleave(bits_u32, size_bits)
+    binary file ``f``, _POP_BLOCKS superblocks at a time: per superblock
+    its cumulative rank word, then its eight data words (zero past the
+    vector); then the rank samples. No copy of the whole vector is made."""
+    bits_u32 = np.asarray(bits_u32, np.uint32)
+    n64 = (size_bits + 63) // 64
+    nblocks = (n64 + _WORDS_PER_BLOCK - 1) // _WORDS_PER_BLOCK
+    words = bits_u32[: 2 * n64]
+    ranks = np.empty(nblocks, dtype=np.uint64)
+    total = np.uint64(0)
     f.write(struct.pack("<Q", size_bits))                    # m_size
-    f.write(struct.pack("<Q", 64 * interleaved.size))        # m_data bit-size
-    f.write(interleaved)
+    f.write(struct.pack("<Q", 64 * (_WORDS_PER_BLOCK + 1) * nblocks))
+    for b in range(0, nblocks, _POP_BLOCKS):
+        e = min(b + _POP_BLOCKS, nblocks)
+        flat = np.zeros(2 * _WORDS_PER_BLOCK * (e - b), dtype="<u4")
+        part = words[2 * _WORDS_PER_BLOCK * b: 2 * _WORDS_PER_BLOCK * e]
+        flat[: part.shape[0]] = part
+        chunk = np.empty((e - b, _WORDS_PER_BLOCK + 1), dtype="<u8")
+        chunk[:, 1:] = flat.view("<u8").reshape(e - b, _WORDS_PER_BLOCK)
+        sums = _popcount64(chunk[:, 1:]).sum(axis=1)
+        chunk[:, 0] = np.cumsum(sums) - sums + total
+        total += sums.sum()
+        ranks[b:e] = chunk[:, 0]
+        f.write(chunk)
+    samples = _rank_samples(ranks)
     f.write(struct.pack("<Q", 64 * samples.shape[0]))        # samples bitsize
     f.write(samples)
 

@@ -135,16 +135,21 @@ def unsigned(x: torch.Tensor) -> torch.Tensor:
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of the low 32 bits of each element (int32 bit patterns or
-    int64 values), as int64. torch has no popcount: a SWAR bit count, in
-    int32 for int32 input (wrapping arithmetic gives the same bits, at a
-    third of the memory traffic)."""
-    if x.dtype == torch.int32:
-        y = x - ((x >> 1) & 0x55555555)
-        y = (y & 0x33333333) + ((y >> 2) & 0x33333333)
-        y = (y + (y >> 4)) & 0x0F0F0F0F
-        return ((y * 0x01010101) >> 24).to(torch.int64)
-    x = x.to(torch.int64) & _MASK32
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & _MASK32) >> 24
+    int64 values), as int64. torch has no popcount: a SWAR bit count in
+    int32, whose wrapping arithmetic gives the same bits (the cast keeps
+    the low 32 bits; the top byte of the last product is at most 32), on
+    two temporaries updated in place."""
+    x = x.to(torch.int32)
+    y = x >> 1
+    y &= 0x55555555
+    y = torch.sub(x, y, out=y)
+    t = y >> 2
+    t &= 0x33333333
+    y &= 0x33333333
+    y += t
+    torch.bitwise_right_shift(y, 4, out=t)
+    y += t
+    y &= 0x0F0F0F0F
+    y *= 0x01010101
+    y >>= 24
+    return y.to(torch.int64)

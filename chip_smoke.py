@@ -192,8 +192,10 @@ counters, batches of 3072 reads x 2048 bases):
         bitwise, on a 2%-N and an ACGT batch;
      b. the main path through blocked.insert_seq / contains_seq: 4
         batches inserted (every valid window of them hits), 4 fresh ones
-        queried (hit fraction under 3 x the block-local fpr + 1e-5), the
-        launch counts, rows and fresh hits equal to the same path on the
+        queried (hit fraction under FRESH_BLOCKED_BOUND, 1e-3: a sanity
+        bound, not a band round blocked.fpr, which the JAX design's hits
+        exceed ~600x on the card; the plain path and, in the CPU tests,
+        the JAX package give the same hits), the launch counts, rows and fresh hits equal to the same path on the
         plain versions, a .bbf round trip;
      c. the kernels' times beside their plain versions and torch's
         rows[block] gather (a yardstick, not the same function), and the
@@ -969,10 +971,11 @@ def counting_phases(dev: torch.device, card_line: str):
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(*extra):
     """Route the kernel wrappers of the MIBF paths (plain k-mers and spaced
     seeds) and of the Bloom insert_and_check pair to their plain versions
-    (on the card too): the path every kernel is held against."""
+    (on the card too): the path every kernel is held against. Each extra
+    (module, name, fn) swaps one more wrapper the same way."""
     from btl_bloomfilter_tpu_torch.kernels import (gather_words,
                                                    mibf_frame_scan,
                                                    mibf_random_insert,
@@ -988,7 +991,7 @@ def plain_kernels():
              (spaced_scan, "spaced_frames_planes",
               spaced_scan.spaced_frames_planes_plain),
              (mibf_random_insert, "random_insert",
-              mibf_random_insert.random_insert_plain)]
+              mibf_random_insert.random_insert_plain), *extra]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -3236,17 +3239,6 @@ def dist_phases(dev: torch.device, card_line: str) -> dict:
 # phases 13-15: the blocked filter, exactly 2**32, the Perl bridge
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def swapped(mod, name: str, fn):
-    """mod.name replaced by fn inside the block."""
-    saved = getattr(mod, name)
-    setattr(mod, name, fn)
-    try:
-        yield
-    finally:
-        setattr(mod, name, saved)
-
-
 def distinct_rows(canon: torch.Tensor, nblocks: int) -> int:
     """Distinct blocks (64-byte rows) of a blocked filter that canonical
     hashes address."""
@@ -3333,19 +3325,17 @@ def blocked_phases(dev: torch.device, card_line: str):
         f"fraction {frac} ({f_hit}/{f_valid}), block-local fpr estimate "
         f"{est}; a classic filter of the same size: "
         f"{(1 - (1 - 1 / MAIN_SIZE) ** (H * n_valid)) ** H}")
-    # The JAX design's in-block bits (multiply-shift slots of the block's
-    # own canonical hash) are not independent of the block, so the fresh
-    # hits run far above the Poisson estimate; the plain path gives the
-    # same hits. The bound only tells a working filter from a saturated one.
+    # The fresh hits run far above the Poisson estimate, in the JAX package
+    # too (its hits equal the port's bit for bit); why is not identified.
+    # The bound only tells a working filter from a saturated one.
     if not frac < FRESH_BLOCKED_BOUND:
         raise AssertionError(f"[13b] fresh-read hit fraction {frac} not "
                              f"under {FRESH_BLOCKED_BOUND}")
     # the same path on the plain versions
     ref = blocked.create(MAIN_SIZE, H, K, device=dev)
-    with swapped(nthash_scan, "hash_frames_planes",
-                 nthash_scan.hash_frames_planes_plain), \
-            swapped(blocked_bloom, "insert", blocked_bloom.insert_plain), \
-            swapped(blocked_bloom, "contains", blocked_bloom.contains_plain):
+    with plain_kernels(
+            (blocked_bloom, "insert", blocked_bloom.insert_plain),
+            (blocked_bloom, "contains", blocked_bloom.contains_plain)):
         for c in batches:
             blocked.insert_seq(ref, c)
         ref_hits = [blocked.contains_seq(ref, c)[0] for c in fresh]
@@ -3485,7 +3475,8 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
         "[14a] min count", mc, gather_counters.gather_counters_plain(
             ref.counters, pos_p, 2, "min").reshape(mc.shape))
     ref.counters.zero_()
-    with swapped(scatter_add, "scatter_add", scatter_add.scatter_add_plain):
+    with plain_kernels(
+            (scatter_add, "scatter_add", scatter_add.scatter_add_plain)):
         counting.insert_all(ref, hashes, hvalid)
     err["scatter_add_wide"] = require_equal(
         "[14a] incrementAll", cbf_all.counters, ref.counters)

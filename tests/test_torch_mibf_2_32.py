@@ -116,6 +116,19 @@ def test_sdsl_writer_matches_jax(size_bits):
         jax_sdsl.serialize_bit_vector_il(bits, size_bits)
 
 
+@pytest.mark.parametrize("size_bits", [512, 1536, 1537, 4096 + 32,
+                                       (1 << 16) + 96])
+def test_sdsl_writer_in_chunks_matches_jax(size_bits, monkeypatch):
+    """The writer's chunk boundaries (three superblocks a chunk here, 2**18
+    by default) leave the JAX package's bytes unchanged."""
+    monkeypatch.setattr(sdsl, "_POP_BLOCKS", 3)
+    bits = np.random.default_rng(size_bits + 1).integers(
+        0, 1 << 32, (size_bits + 31) // 32, dtype=np.uint32)
+    bits[-1] &= np.uint32((1 << (size_bits % 32 or 32)) - 1)
+    assert sdsl.serialize_bit_vector_il(bits, size_bits) == \
+        jax_sdsl.serialize_bit_vector_il(bits, size_bits)
+
+
 def build(side, refs, reads, path, words=None, monkeypatch=None):
     """Phases 1-4 at 2**32 bits on one side, then query_many of the reads;
     returns small arrays only. The JAX package's phase 1 refuses 2**32
