@@ -5,9 +5,9 @@
 // and a word index past the array are no-ops. With no increment array
 // every pair adds 1 (incrementAll). A filter of exactly 2**32 counters
 // (0xFFFFFFFF a real counter) takes wide positions, int64 with -1 the
-// sentinel, on the direct route (an instantiation of its own); the tiled
-// route cannot take such a filter: its 2**30 words or more make 65,536
-// tiles, past the partition's 32,768.
+// sentinel (entry points of their own), on the direct or the sparse
+// route; the tiled route cannot take such a filter: its 2**30 words or
+// more make 65,536 tiles, past the partition's 32,768.
 //
 // Replaces: btl_bloomfilter_tpu/kernels/scatter_add.py:_kernel (built by
 // _make_weighted_kernel, behind scatter_add_weighted_sorted and its unit
@@ -38,7 +38,21 @@
 //     sweep of the array in address order. The other design measured (the
 //     direct body over the grouped positions, blocks dispatched in order
 //     so the lines in flight stay in L2) was slower at the counting batch
-//     (PERF.md).
+//     (PERF.md);
+//   sparse, unit increments of wide positions only, past the
+//     partition's BTL_MAX_TILES tiles (a filter of 2**32 u8 counters has
+//     65,536): the partition groups the positions by coarse tile
+//     (tile_partition.cuh), then one block a coarse tile sorts its
+//     positions in shared memory and makes one clamped CAS a distinct
+//     word, every lane's run of equal counters added at once (saturating
+//     adds compose), in address order. No tile
+//     copy: at a few hundred pairs a 64 KiB tile, the tiled route's sweep
+//     (8 GiB at 2**32 counters) would cost more than the direct route.
+//     Both routes are bound by the DRAM sectors a CAS reads and writes
+//     back; in address order, with the blocks in flight inside a few
+//     hundred MB of the array, the card moves them faster, enough to pay
+//     for the partition from a pair a 128 words (PERF.md: bench.py's
+//     counting batch into 2**32 counters a quarter faster).
 
 #include "tile_partition.cuh"
 
@@ -123,6 +137,74 @@ scatter_add_tile_kernel(const uint32_t* __restrict__ pos,
     btl_tile_copy<false>(tile, words + w0, len);
 }
 
+// Each lane l of the word at addr with cnt[l] > 0 (l < 1 << shift) set to
+// min(lane + cnt[l], counter_max), lanes at counter_max or above left
+// alone, in one CAS (retried while another thread changes the word).
+__device__ __forceinline__ void sat_add_lanes(unsigned int* addr,
+                                              const uint32_t (&cnt)[4],
+                                              int shift,
+                                              uint32_t counter_max) {
+    const unsigned bits = 32u >> shift;
+    const unsigned lane_mask = bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
+    unsigned int old = *((volatile unsigned int*)addr);
+    while (true) {
+        unsigned int upd = old;
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+            if (l >= (1 << shift) || cnt[l] == 0) continue;
+            const unsigned sh = l * bits;
+            const uint32_t lane = (old >> sh) & lane_mask;
+            if (lane >= counter_max) continue;
+            unsigned long long nl = (unsigned long long)lane + cnt[l];
+            if (nl > counter_max) nl = counter_max;
+            upd = (upd & ~(lane_mask << sh)) | ((uint32_t)nl << sh);
+        }
+        if (upd == old) break;
+        const unsigned int seen = atomicCAS(addr, old, upd);
+        if (seen == old) break;
+        old = seen;
+    }
+}
+
+// The sparse route's apply: block t takes coarse tile t's grouped
+// positions (tile t spans 2**tile_shift words from word t << tile_shift;
+// each entry holds a position's low 32 bits), BTL_SPARSE_KEYS at a time,
+// sorts them, and adds each distinct word's lane counts in one clamped
+// CAS, in address order. Words past the array are dropped here (the
+// partition only drops past the last coarse word).
+__global__ void __launch_bounds__(BTL_SPARSE_THREADS)
+scatter_add_sparse_kernel(const uint32_t* __restrict__ grouped,
+                          const uint32_t* __restrict__ offsets,
+                          unsigned int* __restrict__ words, long long nwords,
+                          int shift, int tile_shift, uint32_t counter_max) {
+    __shared__ uint32_t s[BTL_SPARSE_KEYS];
+    const long long t = blockIdx.x;
+    const uint32_t lo = offsets[t], hi = offsets[t + 1];
+    const long long w0 = t << tile_shift;
+    const uint32_t sub_mask = (1u << shift) - 1u;
+    for (uint32_t c = lo; c < hi; c += BTL_SPARSE_KEYS) {
+        const int n = hi - c < BTL_SPARSE_KEYS ? (int)(hi - c)
+                                               : BTL_SPARSE_KEYS;
+        btl_sparse_sort(grouped, c, n, tile_shift + shift, s);
+        for (int i = threadIdx.x; i < n; i += blockDim.x) {
+            const uint32_t w = s[i] >> shift;
+            if (i > 0 && (s[i - 1] >> shift) == w) continue;  // not its head
+            uint32_t cnt[4] = {0, 0, 0, 0};
+            for (int j = i; j < n && (s[j] >> shift) == w;) {
+                const int e = btl_run_end(s, j, n);
+                const uint32_t lane = s[j] & sub_mask;
+#pragma unroll
+                for (int l = 0; l < 4; ++l)
+                    if (l == (int)lane) cnt[l] += (uint32_t)(e - j);
+                j = e;
+            }
+            if (w0 + w < nwords)
+                sat_add_lanes(&words[w0 + w], cnt, shift, counter_max);
+        }
+        __syncthreads();        // the next chunk overwrites s
+    }
+}
+
 // pos uint32 [n] (any order, duplicates allowed); inc uint32 [n] or null
 // (every increment 1); words uint32 [nwords], updated in place.
 extern "C" int btl_scatter_add(const void* pos, const void* inc, long long n,
@@ -178,5 +260,34 @@ extern "C" int btl_scatter_add_tiled(const void* pos, long long n,
                               BTL_TILE_WORDS * sizeof(uint32_t), st>>>(
         s.pos, s.offsets, (unsigned int*)words, nwords, shift,
         counter_max);
+    return (int)cudaGetLastError();
+}
+
+// The sparse route of unit increments, for wide positions (pos int64 [n],
+// -1 the sentinel): the partition on coarse tiles (2**extra words a
+// coarse word), then the apply, on the given stream. Other arguments as
+// btl_scatter_add_wide's with inc null; extra the coarse tile's words as a
+// shift past BTL_TILE_SHIFT; scratch as btl_tile_partition_run takes it
+// for n positions into btl_coarse_words(nwords, extra) words.
+extern "C" int btl_scatter_add_sparse_wide(const void* pos, long long n,
+                                           void* words, long long nwords,
+                                           int shift,
+                                           unsigned int counter_max,
+                                           int extra, void* scratch,
+                                           int device, void* stream) {
+    cudaError_t err = btl_set_device(device);
+    if (err != cudaSuccess) return (int)err;
+    if (extra < 0 || shift + BTL_TILE_SHIFT + extra > 32)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const long long coarse = btl_coarse_words(nwords, extra);
+    err = btl_tile_partition_run_wide((const long long*)pos, n, coarse,
+                                      shift + extra, (uint32_t*)scratch, st);
+    if (err != cudaSuccess || n == 0) return (int)err;
+    const BtlTileScratch s = btl_tile_scratch((uint32_t*)scratch, n, coarse);
+    scatter_add_sparse_kernel<<<(unsigned)btl_ntiles(coarse),
+                                BTL_SPARSE_THREADS, 0, st>>>(
+        s.pos, s.offsets, (unsigned int*)words, nwords, shift,
+        BTL_TILE_SHIFT + extra, counter_max);
     return (int)cudaGetLastError();
 }

@@ -119,3 +119,66 @@ static inline cudaError_t btl_allow_smem(K kernel, int bytes, int device,
     if (err == cudaSuccess) *done |= bit;
     return err;
 }
+
+// The sparse route of incrementAll (scatter_add.cu), for arrays past
+// BTL_MAX_TILES tiles. The partition above runs unchanged on
+// coarse tiles of 2**(BTL_TILE_SHIFT + extra) words: it is called with
+// word_shift + extra and the coarse word count btl_coarse_words(nwords,
+// extra), extra the least that brings the coarse tiles down to
+// BTL_MAX_TILES (kernels/tile_partition.py coarse_shift). A coarse word
+// holds 2**extra words, so positions of the last coarse word that lie past
+// the array pass the partition; the apply drops them. Then one block a
+// coarse tile sorts the tile's positions in shared memory,
+// BTL_SPARSE_KEYS at a time, and updates each distinct word once, in
+// address order: no tile-sized buffer, whatever the tile's size.
+#define BTL_SPARSE_THREADS 256
+#define BTL_SPARSE_KEYS 2048
+
+static inline long long btl_coarse_words(long long nwords, int extra) {
+    return (nwords + (1LL << extra) - 1) >> extra;
+}
+
+// Load chunk [c, c + n) of a coarse tile's grouped positions into s as
+// keys, each position's bits below key_bits (its place in the tile; a
+// coarse tile spans a power of two positions that divides 2**32), padded
+// with 0xFFFFFFFF to m, the least power of two >= n; then sort s[0, m)
+// ascending with a bitonic network, one barrier a stage. Every thread of
+// the block calls it; s is sorted and visible to all when it returns.
+__device__ __forceinline__ void btl_sparse_sort(const uint32_t* grouped,
+                                                uint32_t c, int n,
+                                                int key_bits, uint32_t* s) {
+    const uint32_t key_mask =
+        key_bits >= 32 ? 0xFFFFFFFFu : (1u << key_bits) - 1u;
+    int m = 1;
+    while (m < n) m <<= 1;
+    for (int i = threadIdx.x; i < m; i += blockDim.x)
+        s[i] = i < n ? (grouped[c + i] & key_mask) : 0xFFFFFFFFu;
+    __syncthreads();
+    for (int k = 2; k <= m; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            for (int i = threadIdx.x; i < (m >> 1); i += blockDim.x) {
+                const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+                const uint32_t x = s[a], y = s[a + j];
+                if ((x > y) == ((a & k) == 0)) {
+                    s[a] = y;
+                    s[a + j] = x;
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// The end of the run of keys equal to s[j] in the sorted s[0, n): one
+// look for a run of one, a binary search for a longer run.
+__device__ __forceinline__ int btl_run_end(const uint32_t* s, int j, int n) {
+    const uint32_t key = s[j];
+    if (j + 1 >= n || s[j + 1] != key) return j + 1;
+    int lo = j + 1, hi = n;      // s[lo] == key; hi == n or s[hi] > key
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s[mid] == key) lo = mid;
+        else hi = mid;
+    }
+    return hi;
+}

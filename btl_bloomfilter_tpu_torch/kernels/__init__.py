@@ -10,7 +10,8 @@
   * ``gather_counters`` - counting-filter read (packed lanes, min over h;
     all of a window's loads issued together)
   * ``scatter_add``  - counting-filter saturating add (atomicCAS per lane),
-    direct or tiled: incrementAll
+    direct, tiled or, for wide positions past the partition's tiles, sparse
+    (one CAS a distinct word): incrementAll
   * ``tile_partition`` - positions grouped by tile of the array they write,
     the first stage of the tiled scatters
   * ``conservative_step`` - counting-filter conservative step (gather, min,
@@ -36,7 +37,7 @@ build/query paths.
 The Bloom kernels (``nthash_scan``'s positions mode, ``scatter_or``'s two
 routes, ``tile_partition``, ``gather_words``) also take wide int64
 positions, for filters from 2**32 bits, and the counting kernels
-(``gather_counters``, ``scatter_add``'s direct route,
+(``gather_counters``, ``scatter_add``'s direct and sparse routes,
 ``conservative_step``) for filters of exactly 2**32 counters, each through
 an instantiation counted on its own (the ``*_wide`` names below).
 Every wrapper counts the launches of its kernel; ``launch_counts`` and
@@ -82,6 +83,8 @@ KERNELS = {
     "gather_counters_wide": gather_counters.WIDE_KERNEL,
     "scatter_add_wide": scatter_add.WIDE_KERNEL,
     "conservative_step_wide": conservative_step.WIDE_KERNEL,
+    # incrementAll's sparse route: 2**32 counters, past the partition's tiles
+    "scatter_add_sparse_wide": scatter_add.SPARSE_WIDE_KERNEL,
     # the blocked Bloom filter
     "blocked_insert": blocked_bloom.INSERT_KERNEL,
     "blocked_contains": blocked_bloom.CONTAINS_KERNEL,

@@ -12,14 +12,19 @@ kernel's wide instantiation, counted as ``WIDE_KERNEL``). The sentinel, a
 zero increment and a word index past the array are no-ops;
 no lane carries into its neighbour. It updates ``words`` (int32 [nwords])
 in place and returns it. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises, by one of two routes chosen by
-``route(nwords, npos, weighted)``: ``scatter_add_direct`` (one CAS per
-pair) or, for unit increments only, ``scatter_add_tiled`` (the tile
+tensor launches the kernel or raises, by one of three routes chosen by
+``route(nwords, npos, weighted, wide)``: ``scatter_add_direct`` (one CAS
+per pair) or, for unit increments only, ``scatter_add_tiled`` (the tile
 partition of ``kernels/tile_partition.py``, then the positions applied tile
-by tile, all in one call of the library). No path of the repo adds weighted
-increments on the card, so only the direct route takes them. Wide
-positions take the direct route too: an array of 2**32 counters has 2**30
-words or more, past the tiles a partition takes.
+by tile, all in one call of the library) up to the partition's
+``MAX_TILES`` tiles, and for wide positions ``scatter_add_sparse`` (the
+partition on coarse tiles, then each coarse tile's positions sorted and one
+clamped CAS a distinct word, in address order; one call too, counted as
+``SPARSE_WIDE_KERNEL``). No path of the repo adds weighted increments on
+the card, so only the direct route takes them. An array of 2**32 counters
+has 2**30 words or more, past the tiles a partition takes: the direct or
+the sparse route. Narrow positions past the partition's tiles (u8 filters
+of 2**31 to 2**32 - 1 counters) take the direct route.
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ TILED_KERNEL = _build.CudaKernel("btl_scatter_add_tiled", [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_uint, ctypes.c_void_p],
     also=(tile_partition.KERNEL,))
+SPARSE_WIDE_KERNEL = _build.CudaKernel("btl_scatter_add_sparse_wide", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p],
+    also=(tile_partition.WIDE_KERNEL,))
 
 # The route rule's constants, from H100 runs of tools/time_kernels.py's
 # grid (uniform positions; PERF.md section 6): the sweep reads and writes
@@ -49,14 +58,25 @@ TILED_KERNEL = _build.CudaKernel("btl_scatter_add_tiled", [
 # direct CAS is the faster.
 TILED_MIN_POS = 2 << 20
 TILED_WORDS_PER_POS = 16
+# Wide positions (2**32 counters, past the partition's tiles) take the
+# sparse route where there is a pair for every SPARSE_WORDS_PER_POS words
+# or fewer (tools/time_kernels.py's wide grid, PERF.md section 6): into
+# 2**32 u8 counters 8M pairs (128 words a pair) tie, 12M win by 9%,
+# bench.py's counting batch (24.8M) by 26%, 6M lose by 6%.
+SPARSE_WORDS_PER_POS = 128
 
 
-def route(nwords: int, npos: int, weighted: bool = False) -> str:
-    """"tiled" or "direct": the route a CUDA add of npos pairs into an
-    array of nwords words takes (weighted: the increments are given)."""
-    if (not weighted and TILED_MIN_POS <= npos < 1 << 31
-            and nwords <= TILED_WORDS_PER_POS * npos
-            and tile_partition.ntiles(nwords) <= tile_partition.MAX_TILES):
+def route(nwords: int, npos: int, weighted: bool = False,
+          wide: bool = False) -> str:
+    """"tiled", "sparse" or "direct": the route a CUDA add of npos pairs
+    into an array of nwords words takes (weighted: the increments are
+    given; wide: the positions are int64)."""
+    if weighted or npos >= 1 << 31:
+        return "direct"
+    if tile_partition.ntiles(nwords) > tile_partition.MAX_TILES:
+        return ("sparse" if wide and nwords <= SPARSE_WORDS_PER_POS * npos
+                else "direct")
+    if TILED_MIN_POS <= npos and nwords <= TILED_WORDS_PER_POS * npos:
         return "tiled"
     return "direct"
 
@@ -110,9 +130,12 @@ def scatter_add(words: torch.Tensor, pos: torch.Tensor, shift: int,
     _check(words, pos, shift, counter_max, inc)
     if _build.on_cpu(words, pos, *([] if inc is None else [inc])):
         return scatter_add_plain(words, pos, shift, counter_max, inc)
-    if pos.dtype == torch.int32 and route(words.numel(), pos.numel(),
-                                          inc is not None) == "tiled":
+    way = route(words.numel(), pos.numel(), inc is not None,
+                pos.dtype == torch.int64)
+    if way == "tiled" and pos.dtype == torch.int32:
         return scatter_add_tiled(words, pos, shift, counter_max)
+    if way == "sparse":
+        return scatter_add_sparse(words, pos, shift, counter_max)
     return scatter_add_direct(words, pos, shift, counter_max, inc)
 
 
@@ -153,4 +176,27 @@ def scatter_add_tiled(words: torch.Tensor, pos: torch.Tensor, shift: int,
         TILED_KERNEL.launch(words.device, _build.ptr(pos), pos.numel(),
                             _build.ptr(words), words.numel(), shift,
                             counter_max, _build.ptr(buf))
+    return words
+
+
+def scatter_add_sparse(words: torch.Tensor, pos: torch.Tensor, shift: int,
+                       counter_max: int) -> torch.Tensor:
+    """The sparse route of unit increments on a CUDA tensor, whatever the
+    rule says (any array size: below MAX_TILES tiles its coarse tiles are
+    the tiles)."""
+    _check(words, pos, shift, counter_max, None)
+    if _build.on_cpu(words, pos):
+        return scatter_add_plain(words, pos, shift, counter_max)
+    if pos.dtype != torch.int64:
+        raise TypeError("the sparse route takes wide positions (int64): "
+                        "narrow ones fit the tiled or the direct route")
+    pos = pos.reshape(-1).contiguous()
+    if pos.numel() >= 1 << 31:
+        raise ValueError("the sparse route takes fewer than 2**31 positions")
+    if pos.numel():
+        extra, buf = tile_partition.coarse_scratch(
+            pos.numel(), words.numel(), words.device)
+        SPARSE_WIDE_KERNEL.launch(words.device, _build.ptr(pos), pos.numel(),
+                                  _build.ptr(words), words.numel(), shift,
+                                  counter_max, extra, _build.ptr(buf))
     return words

@@ -61,6 +61,31 @@ def ntiles(nwords: int, tile_shift: int = TILE_SHIFT) -> int:
     return -(-nwords >> tile_shift)
 
 
+def coarse_shift(nwords: int, tile_shift: int = TILE_SHIFT,
+                 max_tiles: int = MAX_TILES) -> int:
+    """The least ``extra`` >= 0 that brings an array of nwords words to at
+    most max_tiles tiles of 2**(tile_shift + extra) words: the coarse tiles
+    incrementAll's sparse route partitions by (0 up to max_tiles tiles)."""
+    extra = 0
+    while ntiles(nwords, tile_shift + extra) > max_tiles:
+        extra += 1
+    return extra
+
+
+def coarse_words(nwords: int, extra: int) -> int:
+    """Coarse words of 2**extra words each: the array the sparse route
+    hands the partition (``btl_coarse_words`` in csrc/tile_partition.cuh)."""
+    return -(-nwords >> extra)
+
+
+def coarse_scratch(n: int, nwords: int, device):
+    """``(extra, scratch)`` of a sparse route call: the coarse shift of
+    an array of nwords words and the partition's scratch for n positions
+    into its coarse words."""
+    extra = coarse_shift(nwords)
+    return extra, scratch(n, coarse_words(nwords, extra), device)
+
+
 def padded_tiles(nwords: int) -> int:
     """The tile count rounded up to a power of two: the length, less one,
     of the offsets at the head of the scratch."""

@@ -83,7 +83,20 @@ queued``), and for a call that needs no setup the host's time to issue it
     bits, 4 slots), and ``copy_`` of the 128 MiB filter;
   * ``scatter_or_grid``, ``scatter_add_grid``: each route of the two
     scatters over a grid of array words and uniform random positions, the
-    data the route rules' constants come from.
+    data the route rules' constants come from;
+  * ``scatter_or_wide_grid``, ``scatter_add_wide_grid``: the same past
+    2**32 with wide (int64) uniform positions: the Bloom insert at 2**32,
+    2**34, 2**35 and 59,427,361,984 bits (a human genome at write_bloom's
+    -p 0.0001) with 1M to 26,863,616 positions (one and two h = 13
+    batches), and unit adds into 2**32 u8 counters with 1M to 24,797,184
+    pairs (bench.py's counting batch); each route the size allows (tiled
+    up to the partition's MAX_TILES tiles, incrementAll's sparse route
+    where the tree has it), and the route the rule takes;
+  * ``access_rates``: the card's random 4-byte loads (``gather_words`` of
+    one position a query) and atomicOrs (``scatter_or``'s direct route) of
+    13,431,808 uniform int64 positions into arrays of 512 KiB (in L2), 128
+    MiB, 2 GiB and 7.4 GB, in random and in address order (the positions
+    sorted).
 
 Every scatter is timed from a fixed start: its array is zeroed before each
 repetition, outside the events (``timing.median_ms``'s ``setup``). With
@@ -560,6 +573,76 @@ def window_scatter_calls(dev) -> dict:
             "copy_ 2**30 bits": lambda: dst.copy_(words)}
 
 
+def wide_uniform(dev, n: int, limit: int, seed: int = 1) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, limit, size=n, dtype=np.int64)).to(dev)
+
+
+GENOME_BITS = 59_427_361_984
+WIDE_GRID_BITS = (1 << 32, 1 << 34, 1 << 35, GENOME_BITS)
+WIDE_GRID_POS = (1 << 20, 2 << 20, 4 << 20, 6 << 20, 8 << 20, 13_431_808,
+                 2 * 13_431_808)
+WIDE_ADD_POS = (1 << 20, 2 << 20, 4 << 20, 6 << 20, 8 << 20, 12 << 20,
+                16 << 20, 24_797_184)
+
+
+def wide_grid_calls(dev, kind: str) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import (scatter_add, scatter_or,
+                                                   tile_partition)
+
+    out = {}
+    if kind == "or":
+        shapes = [(-(-bits // 32), npos, f"{bits}b {npos}p")
+                  for bits in WIDE_GRID_BITS for npos in WIDE_GRID_POS]
+        mod, name, args, per = scatter_or, "scatter_or", (), 32
+    else:
+        shapes = [(1 << 30, npos, f"2**32 u8 {npos}p")
+                  for npos in WIDE_ADD_POS]
+        mod, name, args, per = scatter_add, "scatter_add", (2, 255), 4
+    arrays = {}
+    for nwords, npos, label in shapes:
+        if nwords not in arrays:
+            arrays[nwords] = torch.zeros(nwords, dtype=torch.int32,
+                                         device=dev)
+        words = arrays[nwords]
+        pos = wide_uniform(dev, npos, nwords * per, seed=npos)
+        routes = ["direct"]
+        if kind == "or" and tile_partition.ntiles(nwords) <= \
+                tile_partition.MAX_TILES:
+            routes.append("tiled")
+        if hasattr(mod, f"{name}_sparse"):
+            routes.append("sparse")
+        for r in routes:
+            out[f"{name} {label} {r}"] = (
+                lambda f=getattr(mod, f"{name}_{r}"), w=words, p=pos:
+                f(w, p, *args), words.zero_)
+        out[f"{name} {label} route"] = (
+            mod.route(nwords, npos) if kind == "or"
+            else mod.route(nwords, npos, wide=True))
+    return out
+
+
+RATE_BYTES = (512 << 10, 128 << 20, 2 << 30, GENOME_BITS // 8)
+RATE_POS = 13_431_808
+
+
+def rate_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import gather_words, scatter_or
+
+    out = {}
+    for nbytes in RATE_BYTES:
+        words = torch.zeros(nbytes // 4, dtype=torch.int32, device=dev)
+        pos = wide_uniform(dev, RATE_POS, nbytes * 8, seed=nbytes % 997)
+        for order, p in (("random", pos), ("sorted", torch.sort(pos)[0])):
+            label = f"{nbytes}B {RATE_POS}p {order}"
+            out[f"load {label}"] = (
+                lambda w=words, q=p[None]: gather_words.gather_words(w, q))
+            out[f"atomicOr {label}"] = (
+                lambda w=words, q=p: scatter_or.scatter_or_direct(w, q),
+                words.zero_)
+    return out
+
+
 GRID_WORDS = [1 << e for e in range(20, 29)]
 GRID_POS = [1 << 16, 1 << 18, 1 << 20, 3 << 19, 2 << 20, 3 << 20, 1 << 22,
             1 << 24]
@@ -593,7 +676,10 @@ CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
          "block_sort": block_sort_calls,
          "window_scatter": window_scatter_calls,
          "scatter_or_grid": lambda dev: grid_calls(dev, "or"),
-         "scatter_add_grid": lambda dev: grid_calls(dev, "add")}
+         "scatter_add_grid": lambda dev: grid_calls(dev, "add"),
+         "scatter_or_wide_grid": lambda dev: wide_grid_calls(dev, "or"),
+         "scatter_add_wide_grid": lambda dev: wide_grid_calls(dev, "add"),
+         "access_rates": rate_calls}
 
 
 def main(argv=None) -> None:
@@ -602,7 +688,8 @@ def main(argv=None) -> None:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default=",".join(
-        k for k in CALLS if not k.endswith("_grid")),
+        k for k in CALLS if not k.endswith("_grid")
+        and k != "access_rates"),
                     help="comma-separated, of: " + ", ".join(CALLS))
     ap.add_argument("--profile", action="store_true",
                     help="add each call's device time by kernel")

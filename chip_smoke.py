@@ -204,9 +204,12 @@ counters, batches of 3072 reads x 2048 bases):
      a. a counting filter of 2**32 u8 counters at bench.py's counting
         batch (3072 x 2048, group_duplicates=False): conservative insert,
         min count, contains and incrementAll through the wide (int64
-        position) kernels, the launch counts (no narrow counting kernel),
-        the filters and min counts against the plain path, then each wide
-        kernel against its plain version at the path's shapes, timed;
+        position) kernels, incrementAll of the whole batch (the sparse
+        route) and of 128 reads (the direct route), the launch counts (the
+        routes the rule names, no narrow counting kernel), the filters and
+        min counts against the plain path, then each wide kernel against
+        its plain version at the path's shapes, timed (both incrementAll
+        routes in turns);
      b. counter 2**32 - 1 through compat.CountingBloomFilter and crafted
         precomputed hashes, against a numpy incrementMin / incrementAll
         walk;
@@ -3426,7 +3429,7 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
 
     S = 1 << 32
     err = {"gather_counters_wide": 0, "conservative_step_wide": 0,
-           "scatter_add_wide": 0}
+           "scatter_add_wide": 0, "scatter_add_sparse_wide": 0}
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     codes = torch.from_numpy(np.random.default_rng(SEED + 14).integers(
@@ -3443,13 +3446,17 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
     planes, _s, hvalid = nthash_scan.hash_frames_planes(codes, K, H)
     hashes = planes.movedim(0, -1)
     cbf_all = counting.create(S, H, K, 1, 1, device=dev)
-    counting.insert_all(cbf_all, hashes, hvalid)
+    # incrementAll of the batch, then of a few reads of it
+    small = (hashes[:C_SMALL_ROWS], hvalid[:C_SMALL_ROWS])
+    for hs, hv in ((hashes, hvalid), small):
+        counting.insert_all(cbf_all, hs, hv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
     log(f"[14a] launches on the 2**32-counter main path: {launches}")
     for name in ("nthash_scan_wide", "gather_counters_wide",
-                 "conservative_step_wide", "scatter_add_wide"):
+                 "conservative_step_wide", "scatter_add_wide",
+                 "scatter_add_sparse_wide"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the 2**32 "
                                  f"counting main path: {launches}")
@@ -3457,12 +3464,23 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
                  "scatter_add_tiled"):
         if launches[name]:
             raise AssertionError(f"the narrow {name} ran at 2**32 counters")
+    routes = [scatter_add.route(cbf_all.counters.numel(), hs.numel(),
+                                wide=True)
+              for hs, _ in ((hashes, hvalid), small)]
+    for route, name in (("direct", "scatter_add_wide"),
+                        ("sparse", "scatter_add_sparse_wide")):
+        if launches[name] != routes.count(route):
+            raise AssertionError(f"[14a] incrementAll: {name} launched "
+                                 f"{launches[name]} times, the route rule "
+                                 f"names it for {routes.count(route)} of "
+                                 f"{routes}")
     if not (bool((mc[valid] >= 1).all()) and torch.equal(hit, valid)):
         raise AssertionError("[14a] a valid window put in reads 0")
     log(f"[14a] conservative insert (ungrouped), min count and contains of "
-        f"{CB}x{L} ACGT reads and incrementAll of the same into 2**32 u8 "
-        f"counters: {secs:.3f} s with the first calls; every valid window "
-        f"reads >= 1 and hits")
+        f"{CB}x{L} ACGT reads and incrementAll of the same ({routes[0]} "
+        f"route) and of {C_SMALL_ROWS} of them ({routes[1]} route) into "
+        f"2**32 u8 counters: {secs:.3f} s with the first calls; every valid "
+        f"window reads >= 1 and hits")
     # the same path on the plain versions
     pos_p, _s, v_p = nthash_scan.positions_planes_plain(codes, K, H, S)
     ref = counting.create(S, H, K, 1, 1, device=dev)
@@ -3477,12 +3495,13 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
     ref.counters.zero_()
     with plain_kernels(
             (scatter_add, "scatter_add", scatter_add.scatter_add_plain)):
-        counting.insert_all(ref, hashes, hvalid)
-    err["scatter_add_wide"] = require_equal(
+        for hs, hv in ((hashes, hvalid), small):
+            counting.insert_all(ref, hs, hv)
+    err["scatter_add_wide"] = err["scatter_add_sparse_wide"] = require_equal(
         "[14a] incrementAll", cbf_all.counters, ref.counters)
     log("[14a] main path == plain path (conservative counters, min counts, "
         "incrementAll counters)")
-    del ref, cbf_all, mc, hit, planes, hashes, pos_p
+    del ref, cbf_all, mc, hit, planes, hashes, pos_p, small
     torch.cuda.empty_cache()
 
     # each wide kernel against its plain version at the path's shapes, and
@@ -3529,18 +3548,32 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
     del work
     flat = pos.reshape(-1)
     inc = torch.randint(0, 1 << 8, flat.shape, dtype=torch.int32, device=dev)
-    for c in (None, inc):
-        err["scatter_add_wide"] = max(err["scatter_add_wide"], require_equal(
-            f"[14a] scatter_add_wide {'unit' if c is None else 'weighted'}",
-            scatter_add.scatter_add(start.clone(), flat, 2, 255, c),
+    for name, fn, c in (
+            ("scatter_add_wide", scatter_add.scatter_add_direct, None),
+            ("scatter_add_wide", scatter_add.scatter_add_direct, inc),
+            ("scatter_add_sparse_wide", scatter_add.scatter_add_sparse,
+             None)):
+        err[name] = max(err[name], require_equal(
+            f"[14a] {name} {'unit' if c is None else 'weighted'}",
+            fn(start.clone(), flat, 2, 255, *([] if c is None else [c])),
             scatter_add.scatter_add_plain(start.clone(), flat, 2, 255, c)))
     work = start.clone()
-    ms["scatter_add_wide"] = (
-        kernel_times(lambda: scatter_add.scatter_add(work, flat, 2, 255),
-                     setup=work.zero_),
-        median_ms(lambda: scatter_add.scatter_add_plain(work, flat, 2, 255),
-                  setup=work.zero_))
-    bounds["scatter_add_wide"] = bound_ms(8 * flat.numel() + 8 * nw)
+    plain_t = median_ms(lambda: scatter_add.scatter_add_plain(
+        work, flat, 2, 255), setup=work.zero_)
+    # the sparse route (the rule's) and the direct one in turns
+    turns = {"scatter_add_sparse_wide": [], "scatter_add_wide": []}
+    for name in (*turns, *reversed(turns)):
+        fn = (scatter_add.scatter_add_sparse
+              if name == "scatter_add_sparse_wide"
+              else scatter_add.scatter_add_direct)
+        turns[name].append(kernel_times(lambda fn=fn: fn(work, flat, 2, 255),
+                                        setup=work.zero_))
+    for name, (t1, t2) in turns.items():
+        ms[name] = (t1, plain_t)
+        bounds[name] = bound_ms(8 * flat.numel() + 8 * nw)
+        log(f"[14a] {name} incrementAll of the batch, in turns: card "
+            f"{t1.card:.4f} / {t2.card:.4f} ms, issued {t1.issued:.4f} / "
+            f"{t2.issued:.4f} ms ({card_line})")
     # a 32-byte sector holds 32 u8 counters: p >> 5
     n_sect = distinct_words(pos, 5)
     sector_floors({
@@ -3548,7 +3581,8 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
         + 32 * n_sect,
         "conservative_step_wide": 8 * rows.numel() + 8 * rows.shape[1]
         + 64 * distinct_words(rows, 5),
-        "scatter_add_wide": 8 * flat.numel() + 64 * n_sect}, "14a",
+        "scatter_add_wide": 8 * flat.numel() + 64 * n_sect,
+        "scatter_add_sparse_wide": 8 * flat.numel() + 64 * n_sect}, "14a",
         card_line)
     for name, (tk, tp) in ms.items():
         log(f"[14a] {name}: kernel {tk:.4f} ms, plain {tp:.4f} ms, bound "
@@ -4374,6 +4408,9 @@ def main() -> None:
          "source": src + "gather_counters.cu",
          "replaces": "btl_bloomfilter_tpu/kernels/gather_words.py:297"},
         {"name": "scatter_add_wide", "route": "cuda",
+         "source": src + "scatter_add.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
+        {"name": "scatter_add_sparse_wide", "route": "cuda",
          "source": src + "scatter_add.cu",
          "replaces": "btl_bloomfilter_tpu/kernels/scatter_add.py:194"},
         {"name": "conservative_step_wide", "route": "cuda",

@@ -487,6 +487,60 @@ def test_scatter_add_wide_matches_narrow_and_plain(dev, shift):
         scatter_add.scatter_add_tiled(start.clone(), wide, shift, cmax)
 
 
+def dense_and_sparse(nwords, word_shift, seed, n, hot=300_000):
+    """int64 positions into an array of nwords words: n uniform ones (a few
+    hundred a coarse tile), hot of them in one coarse tile near the end
+    (many chunks of the sparse apply), a run of one repeated position,
+    sentinels, positions past the array and the last position of the
+    array."""
+    rng = np.random.default_rng(seed)
+    limit = nwords << word_shift
+    pos = rng.integers(0, limit + 4000, size=n, dtype=np.int64)
+    span = (tile_partition.TILE_SHIFT
+            + tile_partition.coarse_shift(nwords) + word_shift)
+    first = ((limit - 1) >> span << span) - (1 << span)
+    pos[:hot] = rng.integers(first, first + (1 << span), size=hot)
+    drop = rng.random(n) < 0.03
+    drop[hot:hot + 50_000] = False
+    pos[drop] = -1
+    pos[hot:hot + 50_000] = rng.integers(0, limit)    # pos[hot]
+    pos[-1000:] = limit - 1
+    return torch.from_numpy(pos)
+
+
+def test_scatter_add_sparse_at_2_32_counters(dev):
+    """incrementAll into exactly 2**32 u8 counters (counter 0xFFFFFFFF
+    live) by the rule's route, the sparse one: sparse coarse tiles and a
+    dense one in one call, a counter saturated by 50,000 duplicates, counters
+    already at counter_max, sentinels; equal to the plain version."""
+    nwords = 1 << 30
+    pos = dense_and_sparse(nwords, 2, 23, 4 * 3072 * 2018).to(dev)
+    start = torch.randint(-(1 << 31), 1 << 31, (nwords,), dtype=torch.int32,
+                          device=dev) & 0x3F3F3F3F
+    start[-1] = -1                  # the last four counters at 255
+    start[:1 << 20] |= 0x00FF0000   # lane 2 at 255 in the first 2**20 words
+    assert scatter_add.route(nwords, pos.numel(), wide=True) == "sparse"
+    kernels.reset_launch_counts()
+    got = scatter_add.scatter_add(start.clone(), pos, 2, 255)
+    counts = kernels.launch_counts()
+    assert counts["scatter_add_sparse_wide"] == 1
+    assert counts["tile_partition_wide"] == 1
+    assert counts["scatter_add_wide"] == 0
+    ref = scatter_add.scatter_add_plain(start.clone(), pos, 2, 255)
+    assert torch.equal(got, ref)
+    hot = int(pos[300_000])
+    assert (int(got[hot >> 2]) >> ((hot & 3) * 8)) & 0xFF == 255
+    # the last word from zero: counter 2**32 - 1 takes its 1000 adds
+    start[-1] = 0
+    got = scatter_add.scatter_add_sparse(start.clone(), pos, 2, 255)
+    ref = scatter_add.scatter_add_plain(start.clone(), pos, 2, 255)
+    assert torch.equal(got, ref) and int(got[-1]) != 0
+    # the sparse route takes wide positions only
+    with pytest.raises(TypeError):
+        scatter_add.scatter_add_sparse(start[:1000].clone(), torch.zeros(
+            10, dtype=torch.int32, device=dev), 2, 255)
+
+
 def test_counting_at_exactly_2_32_counters_counts_the_last(dev):
     """A 2**32-counter u8 filter (4 GiB) on the card: frames on counters
     2**32 - 1 and 2**32 - 2, conservative update and incrementAll through
