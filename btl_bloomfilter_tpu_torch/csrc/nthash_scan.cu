@@ -51,32 +51,6 @@ __device__ __forceinline__ uint32_t mod_size(uint64_t v, uint64_t size,
     return (uint32_t)btl_mod_size64(v, size, magic, shift);
 }
 
-// Base codes in order from a byte address, read four to an aligned 32-bit
-// load; the next word is loaded only when the bytes are needed, so no load
-// reaches past the word that holds the last code read.
-struct CodeReader {
-    const uint32_t* w;
-    uint32_t cur;
-    int sh;
-
-    __device__ __forceinline__ explicit CodeReader(const uint8_t* p) {
-        const uintptr_t a = (uintptr_t)p;
-        w = (const uint32_t*)(a & ~(uintptr_t)3);
-        sh = (int)(a & 3) * 8;
-        cur = __ldg(w);
-    }
-
-    __device__ __forceinline__ int next() {
-        if (sh == 32) {
-            cur = __ldg(++w);
-            sh = 0;
-        }
-        const uint32_t c = (cur >> sh) & 0xFFu;
-        sh += 8;
-        return c < 4 ? (int)c : CODE_N;
-    }
-};
-
 // Windows a block: one tile of TILE windows of a read, in TILE / R runs.
 #define TILE 2048
 
@@ -111,33 +85,11 @@ nthash_scan_kernel(const uint8_t* __restrict__ codes, long long B,
     const long long p = p0 + (long long)threadIdx.x * R;
     const uint8_t* row = codes + b * L;
 
-    uint64_t flags = 0;
-    if (threadIdx.x < NT && p < W) {
-        // roll in from the all-N window: k steps whose out-base is N
-        CodeReader in(row + p);
-        uint64_t fh = 0, rh = 0;
-        int n_count = 0;
-        for (int j = 0; j < k; ++j) {
-            const int c = in.next();
-            fh = srol1(fh) ^ s_f[CODE_N * 5 + c];
-            rh = sror1(rh) ^ s_r[CODE_N * 5 + c];
-            n_count += c == CODE_N;
-        }
-        CodeReader outr(row + p);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            if (p + r >= W) break;
-            const bool st = rh < fh;       // canonical tie-break: rh < fh
-            s_canon[r * STRIDE + threadIdx.x] = st ? rh : fh;
-            flags |= (uint64_t)(st | (n_count == 0) << 1) << (2 * r);
-            if (r + 1 < R && p + r + 1 < W) {
-                const int o = outr.next(), i = in.next();
-                fh = srol1(fh) ^ s_f[o * 5 + i];
-                rh = sror1(rh) ^ s_r[o * 5 + i];
-                n_count += (i == CODE_N) - (o == CODE_N);
-            }
-        }
-    }
+    const uint64_t flags =
+        threadIdx.x < NT && p < W
+            ? btl_roll_run<R>(row, p, W, k, s_f, s_r,
+                              s_canon + threadIdx.x, STRIDE)
+            : 0;
     if (threadIdx.x < NT) s_flags[threadIdx.x] = flags;
     __syncthreads();
 

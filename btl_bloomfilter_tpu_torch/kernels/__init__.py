@@ -27,7 +27,8 @@
     (MIBloomFilter::insert): parallel rounds of frames that share no ID
     entry, then an in-order tail on one thread
   * ``blocked_bloom`` - blocked Bloom filter insert and query (all h
-    bits of a k-mer in one 64-byte row)
+    bits of a k-mer in one 64-byte row), and the insert fused with ntHash
+    (``blocked_insert_seq``)
   * ``vmem_sort``    - block-local bitonic sorts (2048- and 1024-key blocks)
   * ``window_scatter`` - static-window Bloom scatter in shared memory
   * ``dma_sweep``    - chunked copy sweep
@@ -88,6 +89,7 @@ KERNELS = {
     # the blocked Bloom filter
     "blocked_insert": blocked_bloom.INSERT_KERNEL,
     "blocked_contains": blocked_bloom.CONTAINS_KERNEL,
+    "blocked_insert_seq": blocked_bloom.SEQ_KERNEL,
 }
 
 

@@ -54,7 +54,8 @@ def run_length(k: int) -> int:
     return 16 if k < 64 else 32
 
 
-def _check(codes: torch.Tensor, k: int, h: int) -> None:
+def check_codes(codes: torch.Tensor, k: int, h: int) -> None:
+    """Raise unless codes is a [B, L] batch with L >= k, k >= 1, h >= 1."""
     if codes.dim() != 2:
         raise ValueError(f"codes must be [B, L], got shape {tuple(codes.shape)}")
     if k < 1 or h < 1:
@@ -98,13 +99,13 @@ def roll_tables(k: int):
 # ---------------------------------------------------------------------------
 
 def hash_frames_planes_plain(codes: torch.Tensor, k: int, h: int):
-    _check(codes, k, h)
+    check_codes(codes, k, h)
     f = nthash.hash_frames(codes, k, h)
     return f.hashes.movedim(-1, 0).contiguous(), f.strand, f.valid
 
 
 def positions_planes_plain(codes: torch.Tensor, k: int, h: int, size: int):
-    _check(codes, k, h)
+    check_codes(codes, k, h)
     check_size(size)
     f = nthash.hash_frames(codes, k, h)
     pos = torch.where(f.valid[..., None], u64.mod_const(f.hashes, size), -1)
@@ -117,10 +118,16 @@ def positions_planes_plain(codes: torch.Tensor, k: int, h: int, size: int):
 # dispatching wrappers
 # ---------------------------------------------------------------------------
 
-def _launch(codes: torch.Tensor, k: int, h: int, size):
+def as_codes(codes: torch.Tensor) -> torch.Tensor:
+    """codes as the kernels read them: contiguous uint8, any code past N
+    clamped to N."""
     if codes.dtype != torch.uint8:
         codes = codes.clamp(0, T.CODE_N).to(torch.uint8)
-    codes = codes.contiguous()
+    return codes.contiguous()
+
+
+def _launch(codes: torch.Tensor, k: int, h: int, size):
+    codes = as_codes(codes)
     B, L = codes.shape
     W = L - k + 1
     if B * -(-W // TILE) >= (1 << 31):
@@ -149,7 +156,7 @@ def _launch(codes: torch.Tensor, k: int, h: int, size):
 
 def hash_frames_planes(codes: torch.Tensor, k: int, h: int):
     """(hashes int64 [h, B, W], strand bool [B, W], valid bool [B, W])."""
-    _check(codes, k, h)
+    check_codes(codes, k, h)
     if _build.on_cpu(codes):
         return hash_frames_planes_plain(codes, k, h)
     return _launch(codes, k, h, None)
@@ -160,7 +167,7 @@ def positions_planes(codes: torch.Tensor, k: int, h: int, size: int):
     are hash % size, or the sentinel in every slot of a window that holds
     an N; int32 with 0xFFFFFFFF (-1) below 2**32 bits, int64 with -1 from
     2**32 to 2**36 bits."""
-    _check(codes, k, h)
+    check_codes(codes, k, h)
     check_size(size)
     if _build.on_cpu(codes):
         return positions_planes_plain(codes, k, h, size)

@@ -12,8 +12,9 @@ C++ reference; its bytes equal the JAX package's.
 State: rows int32 [nblocks, 16] holding uint32 bits, on the filter's
 device. Unlike the JAX package, whose functions return a new filter,
 ``insert`` and its wrappers update ``bf.rows`` in place and return ``bf``.
-Inserts and queries go through the CUDA kernel ``kernels/blocked_bloom``
-when the rows lie on a GPU, through its plain version on the CPU.
+Inserts and queries go through the CUDA kernels ``kernels/blocked_bloom``
+when the rows lie on a GPU (``insert_seq`` hashes and inserts in one
+kernel), through their plain versions on the CPU.
 
 Sizes are multiples of 512 bits up to 2**32. At exactly 2**32 the JAX
 insert forms uint32 positions and drops bit 2**32 - 1 as its sentinel;
@@ -152,9 +153,11 @@ def _canon_seq(bf: BlockedBloomFilter, codes):
 def insert_seq(bf: BlockedBloomFilter, codes) -> BlockedBloomFilter:
     """Insert every valid k-mer window of a sequence or a batch of
     equal-length sequences (codes [..., L], A=0 C=1 G=2 T=3, any code >= 4
-    an N). Updates ``bf.rows`` in place and returns ``bf``."""
-    canon, valid, _shape = _canon_seq(bf, codes)
-    blocked_bloom.insert(bf.rows, canon, bf.kmer_size, bf.hash_num, valid)
+    an N): ntHash and the insert in one kernel on a GPU. Updates
+    ``bf.rows`` in place and returns ``bf``."""
+    codes = torch.as_tensor(codes).to(bf.device)
+    blocked_bloom.insert_seq(bf.rows, codes.reshape(-1, codes.shape[-1]),
+                             bf.kmer_size, bf.hash_num)
     return bf
 
 

@@ -27,6 +27,12 @@ queued``), and for a call that needs no setup the host's time to issue it
     ``cudaLimitMaxL2FetchGranularity``;
   * ``bloom_steps``: the Bloom insert step from a zeroed filter and the
     query step of the inserted batch (``kmer_bloom``), bench.py's batch;
+  * ``blocked``: the blocked filter at 2**30 bits, k=31, h=4, on bench.py's
+    ACGT batch, the 2%-N batch and a poly-A batch (512 x 2048 each): the
+    canonical-hash insert and ``blocked.insert_seq`` from zeroed rows (one
+    call a repetition, 21 repetitions) and into rows already holding the
+    batch, and ``contains`` of the inserted batch; the canonical-hash
+    insert of the ACGT batch from zero also at h = 1, 2, 8 and 16;
   * ``counting_steps``: the counting insert step (ungrouped conservative
     update) from zeroed counters and the query step, bench.py's counting
     batch;
@@ -141,13 +147,18 @@ def acgt_codes(dev, rows: int = 512, seed: int = 0) -> torch.Tensor:
         0, 4, size=(rows, 2048), dtype=np.uint8)).to(dev)
 
 
-def hash_calls(dev) -> dict:
-    from btl_bloomfilter_tpu_torch.kernels import nthash_scan
-
+def n_codes(dev) -> torch.Tensor:
+    """512 x 2048 reads with 2% N (chip_smoke.py phase 2's, seed 0)."""
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 4, size=(512, 2048), dtype=np.uint8)
     codes[rng.random(codes.shape) < 0.02] = 4
-    codes = torch.from_numpy(codes).to(dev)
+    return torch.from_numpy(codes).to(dev)
+
+
+def hash_calls(dev) -> dict:
+    from btl_bloomfilter_tpu_torch.kernels import nthash_scan
+
+    codes = n_codes(dev)
     acgt = acgt_codes(dev)
     return {"nthash_scan": lambda: nthash_scan.positions_planes(
                 codes, 31, 4, 1 << 30),
@@ -230,6 +241,80 @@ def bloom_step_calls(dev) -> dict:
                                   bf.words.zero_),
             "bloom query step": lambda: kmer_bloom.contains_seq(query,
                                                                 codes)}
+
+
+def blocked_calls(dev) -> dict:
+    """The blocked filter at bench.py's config (2**30 bits, k=31, h=4) on
+    three 512 x 2048 batches: bench.py's ACGT reads, ``nthash_scan``'s reads
+    with 2% N and poly-A reads (every window one canonical hash). For each,
+    the canonical-hash insert (``blocked_bloom.insert``, the hashes made
+    once beforehand) and the sequence insert (``blocked.insert_seq``: hash
+    and insert) from zeroed rows, one call a repetition (before each,
+    outside the events, the rows are zeroed and then 96 MiB of other memory,
+    so that no row is left in the 50 MB L2), and into rows that already
+    hold the batch (warm: the batch's rows stay partly in L2 from call to
+    call); and ``blocked_bloom.contains`` of the inserted batch. The
+    canonical-hash insert of the ACGT batch from zero also at h = 1, 2, 8
+    and 16 (the same rows, more bits a row)."""
+    from btl_bloomfilter_tpu_torch.kernels import (blocked_bloom,
+                                                   nthash_scan,
+                                                   tile_partition)
+    from btl_bloomfilter_tpu_torch.models import blocked
+
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    bf = blocked.create(1 << 30, 4, 31, device=dev)
+
+    def cold():
+        bf.rows.zero_()
+        flush.zero_()
+
+    out = {}
+    for label, codes in (
+            ("acgt", acgt_codes(dev)),
+            ("2% N", n_codes(dev)),
+            ("poly-A", torch.zeros((512, 2048), dtype=torch.uint8,
+                                   device=dev))):
+        planes, _s, valid = nthash_scan.hash_frames_planes(codes, 31, 1)
+        canon = planes[0].contiguous()
+        full = blocked.create(1 << 30, 4, 31, device=dev)
+        blocked.insert_seq(full, codes)
+        out.update({
+            f"blocked insert {label} from zero": (
+                lambda c=canon, v=valid: blocked_bloom.insert(
+                    bf.rows, c, 31, 4, v), cold, 1, 21),
+            f"blocked insert {label} holding it": (
+                lambda c=canon, v=valid, r=full.rows: blocked_bloom.insert(
+                    r, c, 31, 4, v)),
+            f"blocked insert_seq {label} from zero": (
+                lambda c=codes: blocked.insert_seq(bf, c), cold, 1, 21),
+            f"blocked insert_seq {label} holding it": (
+                lambda f=full, c=codes: blocked.insert_seq(f, c)),
+            f"blocked contains {label}": (
+                lambda c=canon, v=valid, r=full.rows: blocked_bloom.contains(
+                    r, c, 31, 4, v))})
+        if label == "acgt":
+            # the reductions a k-mer grow with h, its row does not
+            out.update({f"blocked insert acgt h={h} from zero": (
+                lambda c=canon, h=h: blocked_bloom.insert(bf.rows, c, 31,
+                                                          h), cold, 1, 21)
+                for h in (1, 2, 8, 16)})
+            # address order: the hashes sorted by block, and the tile
+            # partition of the k-mers by 64 KiB tile of rows (tile << 21 |
+            # k-mer index, 2048 tiles)
+            block = canon.reshape(-1).remainder(1 << 21)
+            by_block = canon.reshape(-1)[torch.argsort(block)]
+            keys = (block >> 10) << 21 | torch.arange(block.numel(),
+                                                      device=dev)
+            keys = torch.where(keys >= 1 << 31, keys - (1 << 32),
+                               keys).to(torch.int32)     # uint32 bits
+            out.update({
+                "blocked insert acgt by block from zero": (
+                    lambda: blocked_bloom.insert(bf.rows, by_block, 31, 4),
+                    cold, 1, 21),
+                "tile_partition acgt k-mers by row tile": (
+                    lambda: tile_partition.tile_partition(keys, 2048 << 14,
+                                                          7), None)})
+    return out
 
 
 def frame_scan_calls(dev) -> dict:
@@ -315,13 +400,10 @@ def spaced_calls(dev) -> dict:
         from btl_bloomfilter_tpu_torch.kernels import spaced_scan
     except ImportError:
         return {"spaced_scan": "not in this tree"}
-    rng = np.random.default_rng(0)
-    n_codes = rng.integers(0, 4, size=(512, 2048), dtype=np.uint8)
-    n_codes[rng.random(n_codes.shape) < 0.02] = 4
-    n_codes = torch.from_numpy(n_codes).to(dev)
+    nbatch = n_codes(dev)
     codes = acgt_codes(dev, 512)
     return {"spaced_scan": lambda: spaced_scan.spaced_frames_planes(
-                n_codes, SPACED_SEEDS, 2),
+                nbatch, SPACED_SEEDS, 2),
             "spaced_scan acgt": lambda: spaced_scan.spaced_frames_planes(
                 codes, SPACED_SEEDS, 2)}
 
@@ -662,10 +744,12 @@ def grid_calls(dev, kind: str) -> dict:
     return out
 
 
-# kernel name -> the calls that time it, {label: call or (call, setup)};
+# kernel name -> the calls that time it, {label: call or (call, setup[,
+# inner[, reps]])};
 # a str value is recorded as it is
 CALLS = {"nthash_scan": hash_calls, "nthash_scan_runs": hash_run_calls,
          "gather_words": gather_calls, "bloom_steps": bloom_step_calls,
+         "blocked": blocked_calls,
          "counting_steps": counting_step_calls,
          "mibf_frame_scan": frame_scan_calls, "mibf_rank": rank_calls,
          "spaced_scan": spaced_calls,
@@ -716,11 +800,10 @@ def main(argv=None) -> None:
             if isinstance(call, str):
                 out[label] = call
                 continue
-            fn, setup, *inner = call if isinstance(call, tuple) \
+            fn, setup, *more = call if isinstance(call, tuple) \
                 else (call, None)
-            t = timing.kernel_times(fn, setup=setup,
-                                    inner=inner[0] if inner else
-                                    timing.INNER)
+            inner, reps = (more + [timing.INNER, timing.REPS][len(more):])
+            t = timing.kernel_times(fn, reps, inner, setup=setup)
             out[label], out[label + " queued"] = t.issued, t.card
             if setup is None:
                 out[label + " host"] = timing.host_ms(fn)

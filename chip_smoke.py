@@ -188,18 +188,26 @@ counters, batches of 3072 reads x 2048 bases):
         configs, bitwise against 12a;
  13. the blocked Bloom filter (models/blocked.py, csrc/blocked_bloom.cu)
      at bench.py's config (2**30 bits, k=31, h=4, 512 x 2048 reads):
-     a. its insert and contains kernels against their plain versions,
-        bitwise, on a 2%-N and an ACGT batch;
-     b. the main path through blocked.insert_seq / contains_seq: 4
-        batches inserted (every valid window of them hits), 4 fresh ones
+     a. its insert kernels (the canonical-hash form and insert_seq's
+        fused one, which hashes the reads too), each into empty rows and
+        again (every bit set), and contains against their plain versions,
+        bitwise, on a 2%-N, an ACGT and a poly-A batch, into 2**30 - 512
+        bits (a block count not a power of two), at h = 1 and 17;
+     b. the main path through blocked.insert_seq (the fused kernel alone) /
+        contains_seq: 4 batches inserted and a fifth hashed by
+        api.HashPipeline and put by insert_frames (the canonical-hash
+        form), every valid window of them hits, 4 fresh ones
         queried (hit fraction under FRESH_BLOCKED_BOUND, 1e-3: a sanity
         bound, not a band round blocked.fpr, which the JAX design's hits
         exceed ~600x on the card; the plain path and, in the CPU tests,
         the JAX package give the same hits), the launch counts, rows and fresh hits equal to the same path on the
         plain versions, a .bbf round trip;
      c. the kernels' times beside their plain versions and torch's
-        rows[block] gather (a yardstick, not the same function), and the
-        blocked and classic insert and query steps at one ACGT batch;
+        rows[block] gather (a yardstick, not the same function): both
+        insert forms from zeroed rows, one call a repetition, the rows out
+        of L2, on the ACGT and a poly-A batch, the canonical-hash form also
+        into rows already holding the batch; and the blocked and classic
+        insert and query steps at one ACGT batch;
  14. filters of exactly 2**32 counters or bits on the card:
      a. a counting filter of 2**32 u8 counters at bench.py's counting
         batch (3072 x 2048, group_duplicates=False): conservative insert,
@@ -219,7 +227,9 @@ counters, batches of 3072 reads x 2048 bases):
         whole path against the plain path; a frame on bit 2**32 - 1 set,
         ranked and found;
      d. a blocked filter of 2**32 bits: 1000 k-mers kernel == plain, a
-        crafted k-mer's bit 2**32 - 1 set and found;
+        crafted k-mer's bit 2**32 - 1 set and found; 64 reads, one holding
+        a crafted 31-mer, through insert_seq == plain, the 31-mer's bit
+        2**32 - 1 set and found;
  15. the Perl binding on the port: swig_torch/bridge_server.py on the card
      over its pipe protocol, replies and .bf bytes equal to the same
      session on the plain path (BTL_BRIDGE_DEVICE=cpu), and perl
@@ -305,6 +315,9 @@ F_ID0 = (37 << 40) | 12345   # phase 11b's ID of reference 0: the high plane
 F_SAMPLE = 256               # one-frame facade calls held to the model's
 # the blocked filter (phase 13): its fresh-read hit fraction's sanity bound
 FRESH_BLOCKED_BOUND = 1e-3
+# a 31-mer whose canonical hash, 0x1ce01498dc7fffff, picks the last block of
+# a 2**32-bit blocked filter and, at h = 4, bit 511 of it (phase 14d)
+LAST_BIT_KMER = "ACAAGCTGCGTTCCTCCCCTCCTCAACACCT"
 
 
 def log(msg: str) -> None:
@@ -3253,55 +3266,80 @@ def distinct_rows(canon: torch.Tensor, nblocks: int) -> int:
 
 def blocked_phases(dev: torch.device, card_line: str):
     """Phase 13: the blocked Bloom filter at bench.py's config (2**30
-    bits, k=31, h=4, 512 x 2048 reads). Returns (err, ms, launches, bounds,
-    library) for blocked_insert and blocked_contains."""
-    from btl_bloomfilter_tpu_torch import kernels
+    bits, k=31, h=4, 512 x 2048 reads). Returns (err, ms, launches, bounds)
+    for blocked_insert, blocked_insert_seq and blocked_contains."""
+    from btl_bloomfilter_tpu_torch import api, kernels
     from btl_bloomfilter_tpu_torch.kernels import (_build, blocked_bloom,
                                                    nthash_scan)
     from btl_bloomfilter_tpu_torch.models import blocked, bloom, kmer_bloom
 
-    err = {"blocked_insert": 0, "blocked_contains": 0}
+    err = {"blocked_insert": 0, "blocked_insert_seq": 0,
+           "blocked_contains": 0}
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 13)
     acgt = torch.from_numpy(np.random.default_rng(0).integers(
         0, 4, size=(B, L), dtype=np.uint8)).to(dev)
     nbatch = torch.from_numpy(make_codes(rng)).to(dev)
+    polya = torch.zeros((B, L), dtype=torch.uint8, device=dev)
     nblocks = MAIN_SIZE // blocked.BLOCK_BITS
 
     # ---- 13a. the kernels against their plain versions ------------------
-    for label, codes in (("2% N", nbatch), ("ACGT", acgt)):
+    # both insert forms into empty rows and again (every bit already set);
+    # the plain rows from the plain hash and the plain insert
+    for label, codes, size, h in (
+            ("2% N", nbatch, MAIN_SIZE, H), ("ACGT", acgt, MAIN_SIZE, H),
+            ("poly-A", polya, MAIN_SIZE, H),
+            ("ACGT, 2**30 - 512 bits", acgt, MAIN_SIZE - 512, H),
+            ("2% N, h = 1", nbatch, MAIN_SIZE, 1),
+            ("2% N, h = 17", nbatch, MAIN_SIZE, 17)):
         planes, _s, valid = nthash_scan.hash_frames_planes(codes, K, 1)
         canon = planes[0]
-        rows_k = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
-        rows_p = rows_k.clone()
-        half = canon[: B // 2]
-        blocked_bloom.insert(rows_k, half, K, H, valid[: B // 2])
-        blocked_bloom.insert_plain(rows_p, half, K, H, valid[: B // 2])
-        err["blocked_insert"] = max(err["blocked_insert"], require_equal(
-            f"[13a] {label} blocked insert rows", rows_k, rows_p))
+        rows_k = torch.zeros((size // blocked.BLOCK_BITS, 16),
+                             dtype=torch.int32, device=dev)
+        rows_s, rows_p = rows_k.clone(), rows_k.clone()
+        for rep in ("into empty rows", "again"):
+            blocked_bloom.insert(rows_k, canon[: B // 2], K, h,
+                                 valid[: B // 2])
+            blocked_bloom.insert_seq(rows_s, codes[: B // 2], K, h)
+            blocked_bloom.insert_seq_plain(rows_p, codes[: B // 2], K, h)
+            err["blocked_insert"] = max(err["blocked_insert"], require_equal(
+                f"[13a] {label} blocked insert rows, {rep}", rows_k,
+                rows_p))
+            err["blocked_insert_seq"] = max(
+                err["blocked_insert_seq"], require_equal(
+                    f"[13a] {label} blocked insert_seq rows, {rep}", rows_s,
+                    rows_p))
         for v in (valid, None):
-            hit = blocked_bloom.contains(rows_k, canon, K, H, v)
+            hit = blocked_bloom.contains(rows_k, canon, K, h, v)
             err["blocked_contains"] = max(
                 err["blocked_contains"], require_equal(
                     f"[13a] {label} blocked contains (valid "
                     f"{'given' if v is not None else 'none'})", hit,
-                    blocked_bloom.contains_plain(rows_k, canon, K, H, v)))
+                    blocked_bloom.contains_plain(rows_k, canon, K, h, v)))
         if not bool(hit[: B // 2][valid[: B // 2]].all()):
             raise AssertionError("[13a] an inserted k-mer missed")
-        log(f"[13a] {label} batch: blocked insert and contains kernel == "
-            f"plain (bitwise), {int(valid.sum())} valid windows, hits "
-            f"{int(hit.sum())}")
-        del rows_k, rows_p, hit
+        log(f"[13a] {label} batch: blocked insert, insert_seq (each into "
+            f"empty rows and again) and contains kernel == plain (bitwise), "
+            f"{int(valid.sum())} valid windows, hits {int(hit.sum())}")
+        del rows_k, rows_s, rows_p, hit
 
     # ---- 13b. the main path -----------------------------------------------
-    batches = [make_codes(rng) for _ in range(N_INSERT // 4)]
+    # insert_seq (the fused kernel) for four batches, and a fifth hashed by
+    # api.HashPipeline and put by insert_frames (the canonical-hash form)
+    batches = [make_codes(rng) for _ in range(N_INSERT // 4 + 1)]
     fresh = [make_codes(rng) for _ in range(N_FRESH)]
+    hasher = api.HashPipeline(K, 1, device=dev)
+
+    def insert_all(bf):
+        for c in batches[:-1]:
+            blocked.insert_seq(bf, c)
+        blocked.insert_frames(bf, hasher.frames_batch(list(batches[-1])))
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     bf = blocked.create(MAIN_SIZE, H, K, device=dev)
-    for c in batches:
-        blocked.insert_seq(bf, c)
+    insert_all(bf)
     n_valid = 0
     for c in batches:
         hit, valid = blocked.contains_seq(bf, c)
@@ -3317,10 +3355,17 @@ def blocked_phases(dev: torch.device, card_line: str):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"[13b] launches on the blocked main path: {launches}")
-    for name in ("nthash_scan", "blocked_insert", "blocked_contains"):
+    for name in ("nthash_scan", "blocked_insert", "blocked_insert_seq",
+                 "blocked_contains"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the blocked "
                                  f"main path: {launches}")
+    # insert_seq: the fused kernel alone; the hash launches are the
+    # queries' and the one HashPipeline batch's
+    if (launches["blocked_insert_seq"], launches["nthash_scan"]) != (
+            len(batches) - 1, len(batches) + len(fresh) + 1):
+        raise AssertionError(f"[13b] insert_seq did not launch the fused "
+                             f"kernel alone: {launches}")
     est = blocked.fpr(bf, n_valid)
     frac = f_hit / f_valid
     log(f"[13b] {len(batches)} batches of {B}x{L} (2% N) into 2**30 bits: "
@@ -3338,11 +3383,11 @@ def blocked_phases(dev: torch.device, card_line: str):
     ref = blocked.create(MAIN_SIZE, H, K, device=dev)
     with plain_kernels(
             (blocked_bloom, "insert", blocked_bloom.insert_plain),
+            (blocked_bloom, "insert_seq", blocked_bloom.insert_seq_plain),
             (blocked_bloom, "contains", blocked_bloom.contains_plain)):
-        for c in batches:
-            blocked.insert_seq(ref, c)
+        insert_all(ref)
         ref_hits = [blocked.contains_seq(ref, c)[0] for c in fresh]
-    err["blocked_insert"] = max(err["blocked_insert"], require_equal(
+    err["blocked_insert_seq"] = max(err["blocked_insert_seq"], require_equal(
         "[13b] main path rows", bf.rows, ref.rows))
     for c, h_ref in zip(fresh, ref_hits):
         err["blocked_contains"] = max(err["blocked_contains"], require_equal(
@@ -3364,25 +3409,53 @@ def blocked_phases(dev: torch.device, card_line: str):
     del bf
 
     # ---- 13c. times beside the classic filter's --------------------------
+    # an insert from zeroed rows, one call a repetition: before each, the
+    # rows are zeroed and then 96 MiB of other memory, so no row is in L2
+    rows = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    bf = blocked.BlockedBloomFilter(rows=rows, size=MAIN_SIZE, hash_num=H,
+                                    kmer_size=K)
+
+    def cold():
+        rows.zero_()
+        flush.zero_()
+
+    def from_zero(fn):
+        return kernel_times(fn, reps=21, inner=1, setup=cold)
+
+    t = {}
+    for label, codes in (("ACGT", acgt), ("poly-A", polya)):
+        planes, _s, _v = nthash_scan.hash_frames_planes(codes, K, 1)
+        canon = planes[0].contiguous()
+        t[label] = (
+            from_zero(lambda: blocked_bloom.insert(rows, canon, K, H)),
+            from_zero(lambda: blocked.insert_seq(bf, codes)))
+        log(f"[13c] {label} batch from zeroed rows: blocked insert kernel "
+            f"{t[label][0]:.4f} ms, insert_seq (fused) {t[label][1]:.4f} ms "
+            f"({card_line})")
     planes, _s, _v = nthash_scan.hash_frames_planes(acgt, K, 1)
     canon = planes[0].contiguous()
-    rows = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
-    rows_p = rows.clone()
-    t_ins = kernel_times(lambda: blocked_bloom.insert(rows, canon, K, H),
-                         setup=rows.zero_)
+    rows_p = torch.zeros_like(rows)
     p_ins = median_ms(lambda: blocked_bloom.insert_plain(rows_p, canon, K,
                                                          H))
+    p_seq = median_ms(lambda: blocked_bloom.insert_seq_plain(rows_p, acgt,
+                                                             K, H))
+    del rows_p
     blocked_bloom.insert(rows, canon, K, H)
+    # the same batch again (every bit set), as 19 of the 20 calls a
+    # repetition of the first design's record were
+    t_again = kernel_times(lambda: blocked_bloom.insert(rows, canon, K, H))
     t_q = kernel_times(lambda: blocked_bloom.contains(rows, canon, K, H))
     p_q = median_ms(lambda: blocked_bloom.contains_plain(rows, canon, K, H))
     # yardstick: torch's row gather rows[block] (not the same function)
     block = blocked_bloom.block_and_bits(canon, nblocks, K, H)[0]
     t_idx = kernel_times(lambda: rows[block])
-    bf = blocked.BlockedBloomFilter(rows=rows, size=MAIN_SIZE, hash_num=H,
-                                    kmer_size=K)
     cbf = bloom.create(MAIN_SIZE, H, K, device=dev)
     steps = {
-        "blocked insert": median_ms(lambda: blocked.insert_seq(bf, acgt)),
+        "blocked insert from zero": from_zero(
+            lambda: blocked.insert_seq(bf, acgt)).issued,
+        "blocked insert again": median_ms(lambda: blocked.insert_seq(bf,
+                                                                     acgt)),
         "blocked query": median_ms(lambda: blocked.contains_seq(bf, acgt)),
         "classic insert": median_ms(lambda: kmer_bloom.insert_seq(cbf,
                                                                   acgt)),
@@ -3393,22 +3466,29 @@ def blocked_phases(dev: torch.device, card_line: str):
     bounds = {
         # canonical hashes in; each distinct row read and written once
         "blocked_insert": bound_ms(8 * n + 128 * nrows),
+        # codes in; each distinct row read and written once
+        "blocked_insert_seq": bound_ms(acgt.numel() + 128 * nrows),
         # canonical hashes in, hits out; each distinct row read once
         "blocked_contains": bound_ms(9 * n + 64 * nrows)}
-    log(f"[13c] blocked insert kernel {t_ins:.4f} ms, plain {p_ins:.4f}; "
-        f"contains kernel {t_q:.4f} ms, plain {p_q:.4f}; yardstick "
-        f"rows[block] {t_idx:.4f} ms; bounds insert "
-        f"{bounds['blocked_insert']:.4f}, contains "
+    log(f"[13c] ACGT batch: blocked insert kernel {t['ACGT'][0]:.4f} ms "
+        f"from zero, {t_again:.4f} ms again, plain {p_ins:.4f}; insert_seq "
+        f"{t['ACGT'][1]:.4f} ms, plain {p_seq:.4f}; contains kernel "
+        f"{t_q:.4f} ms, plain {p_q:.4f}; yardstick rows[block] {t_idx:.4f} "
+        f"ms; bounds insert {bounds['blocked_insert']:.4f}, insert_seq "
+        f"{bounds['blocked_insert_seq']:.4f}, contains "
         f"{bounds['blocked_contains']:.4f} ms ({n} k-mers, {nrows} distinct "
         f"rows of {nblocks}; {card_line})")
-    log("[13c] steps (hash + kernel) at one 512x2048 ACGT batch, 2**30 "
-        "bits: " + ", ".join(f"{k} {v:.4f} ms ({B * W / (v / 1e3):.6e} "
-                             f"k-mers/s)" for k, v in steps.items())
+    log("[13c] steps at one 512x2048 ACGT batch, 2**30 bits (blocked "
+        "insert: the fused kernel; query and classic: hash + kernel), as "
+        "issued: " + ", ".join(f"{k} {v:.4f} ms ({B * W / (v / 1e3):.6e} "
+                               f"k-mers/s)" for k, v in steps.items())
         + f" ({card_line})")
     log(f"[13] {time.perf_counter() - t_phase:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    ms = {"blocked_insert": (t_ins, p_ins), "blocked_contains": (t_q, p_q)}
-    del rows, rows_p, bf, cbf, block
+    ms = {"blocked_insert": (t["ACGT"][0], p_ins),
+          "blocked_insert_seq": (t["ACGT"][1], p_seq),
+          "blocked_contains": (t_q, p_q)}
+    del rows, flush, bf, cbf, block
     torch.cuda.empty_cache()
     return err, ms, launches, bounds
 
@@ -3728,7 +3808,26 @@ def exact_2_32_phases(dev: torch.device, card_line: str):
         raise AssertionError("[14d] blocked bit 2**32 - 1 not set or found")
     log("[14d] blocked filter of 2**32 bits: 1000 k-mers kernel == plain, "
         "the crafted k-mer's bit 2**32 - 1 set and found")
-    del bf, ref_rows
+    # the fused insert: 64 reads with 2% N, the first holding a 31-mer
+    # whose canonical hash picks the last block and, at h = 4, its bit 511
+    bf.rows.zero_()
+    ref_rows.zero_()
+    reads = make_codes(r, rows=64)
+    reads[0, 100:100 + K] = ["ACGT".index(b) for b in LAST_BIT_KMER]
+    reads = torch.from_numpy(reads).to(dev)
+    blocked.insert_seq(bf, reads)
+    blocked_bloom.insert_seq_plain(ref_rows, reads, K, H)
+    require_equal("[14d] 2**32-bit blocked rows (insert_seq)", bf.rows,
+                  ref_rows)
+    hit, valid = blocked.contains_seq(bf, reads)
+    if not (int(bf.rows[-1, 15]) < 0 and bool(hit[0, 100])
+            and torch.equal(hit, valid)):
+        raise AssertionError("[14d] insert_seq: bit 2**32 - 1 not set, or "
+                             "a window not found")
+    log("[14d] blocked insert_seq of 64 x 2048 reads into 2**32 bits == "
+        "plain, the crafted 31-mer's bit 2**32 - 1 set and found, every "
+        "valid window found")
+    del bf, ref_rows, hit, valid
     torch.cuda.empty_cache()
     log(f"[14] {time.perf_counter() - t_phase:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4402,6 +4501,12 @@ def main() -> None:
          "source": src + "blocked_bloom.cu",
          "replaces": "btl_bloomfilter_tpu/models/blocked.py:98 (contains: "
                      "an XLA row gather, no pallas_call)"},
+        {"name": "blocked_insert_seq", "route": "cuda",
+         "source": src + "blocked_bloom.cu",
+         "replaces": "btl_bloomfilter_tpu/kernels/nthash_scan.py:276 (the "
+                     "windows' hash) fused with "
+                     "btl_bloomfilter_tpu/models/blocked.py:78 (insert: "
+                     "a sort and bloom.sorted_delta_words, no pallas_call)"},
         # the wide forms of the counting kernels: filters of exactly 2**32
         # counters
         {"name": "gather_counters_wide", "route": "cuda",

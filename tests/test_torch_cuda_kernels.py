@@ -639,6 +639,109 @@ def test_blocked_bit_2_32_minus_1(dev):
     assert int((bf.rows != 0).sum()) <= 4
 
 
+def test_blocked_insert_seq_bit_2_32_minus_1(dev):
+    """The fused insert sets the last bit of a 2**32-bit filter: a 31-mer
+    whose canonical hash has its low 23 bits set (the last block) and, at
+    h = 4, bit 511 of the block."""
+    codes = torch.tensor([["ACGT".index(b)
+                           for b in "ACAAGCTGCGTTCCTCCCCTCCTCAACACCT"]],
+                         dtype=torch.uint8)
+    bf = blocked.insert_seq(blocked.create(1 << 32, 4, 31, device=dev),
+                            codes)
+    assert int(bf.rows[-1, 15]) < 0                      # bit 31 set
+    assert int((bf.rows != 0).sum()) <= 4
+    hit, valid = blocked.contains_seq(bf, codes)
+    assert bool(hit.all()) and bool(valid.all())
+
+
+def blocked_codes(kind, B, L, k, seed):
+    """Reads of one kind: random with Ns, poly-A, a tandem repeat, reads
+    shorter than k padded with N, all N, or a mix of them all."""
+    codes = random_codes(B, L, 0.02, seed).numpy()
+    if kind == "polyA":
+        codes[:] = 0
+    elif kind == "tandem":
+        codes[:] = np.tile(np.array([0, 1, 1, 3, 2], np.uint8), L)[:L]
+    elif kind == "short":
+        for b in range(0, B, 2):
+            codes[b, k - 1 - b % 3:] = 4
+    elif kind == "allN":
+        codes[:] = 4
+    elif kind == "mixed":
+        codes[0] = 0
+        codes[1] = 3
+        codes[2, k // 2:] = 4
+        codes[3] = 4
+    return torch.from_numpy(codes)
+
+
+BLOCKED_SEQ = [  # kind, B, L, k, h, nblocks
+    ("random", 6, 701, 31, 4, 1 << 12),
+    ("random", 6, 700, 31, 1, (1 << 12) + 7),
+    ("random", 5, 2100, 31, 17, 3),        # past one tile; h past 16 words
+    ("random", 4, 901, 129, 4, 1000),
+    ("mixed", 7, 513, 31, 4, 777),
+    ("mixed", 5, 2061, 129, 17, 1 << 10),
+    ("polyA", 8, 300, 31, 4, 777),
+    ("polyA", 4, 900, 129, 17, 1 << 10),
+    ("tandem", 6, 402, 31, 4, 1 << 10),
+    ("short", 5, 200, 31, 4, 1 << 10),
+    ("allN", 3, 200, 31, 4, 1 << 10),
+    ("random", 1, 31, 31, 4, 5),           # one window
+]
+
+
+@pytest.mark.parametrize("kind,B,L,k,h,nblocks", BLOCKED_SEQ)
+def test_blocked_insert_seq_matches_plain(dev, kind, B, L, k, h, nblocks):
+    """The fused insert against ntHash's plain hash mode and the plain
+    insert, into empty rows and again (the bits already set), one launch
+    a call and no separate ntHash launch."""
+    codes = blocked_codes(kind, B, L, k, B * L + k + h)
+    rows = torch.zeros((nblocks, 16), dtype=torch.int32, device=dev)
+    ref = torch.zeros((nblocks, 16), dtype=torch.int32)
+    before = (blocked_bloom.SEQ_KERNEL.launches, nthash_scan.KERNEL.launches)
+    for _ in range(2):
+        blocked_bloom.insert_seq(rows, codes.to(dev), k, h)
+        blocked_bloom.insert_seq_plain(ref, codes, k, h)
+        assert torch.equal(rows.cpu(), ref)
+    assert (blocked_bloom.SEQ_KERNEL.launches,
+            nthash_scan.KERNEL.launches) == (before[0] + 2, before[1])
+
+
+@pytest.mark.parametrize("kind", ["polyA", "twice", "runs"])
+def test_blocked_insert_repeats(dev, kind):
+    """The canonical-hash insert on repeated k-mers: one hash a million
+    times, a batch inserted twice, runs of equal hashes across warps."""
+    rng = np.random.default_rng(3)
+    n = 1 << 20 if kind == "polyA" else 50_000
+    canon = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    if kind == "polyA":
+        canon[:] = canon[0]
+    elif kind == "runs":
+        canon = np.repeat(canon[: n // 37 + 1], 37)[:n]
+    c = u64.from_numpy(canon)
+    valid = torch.from_numpy(rng.random(n) < 0.95)
+    rows = torch.zeros((1 << 12) + 3, 16, dtype=torch.int32, device=dev)
+    ref = torch.zeros((1 << 12) + 3, 16, dtype=torch.int32)
+    for _ in range(2 if kind == "twice" else 1):
+        blocked_bloom.insert(rows, c.to(dev), 31, 4, valid.to(dev))
+        blocked_bloom.insert_plain(ref, c, 31, 4, valid)
+        assert torch.equal(rows.cpu(), ref)
+
+
+def test_blocked_insert_seq_path_launches(dev):
+    """blocked.insert_seq on the card launches the fused kernel alone."""
+    codes = random_codes(4, 600, 0.02, 9)
+    before = kernels.launch_counts()
+    bf = blocked.insert_seq(blocked.create(1 << 20, 4, 31, device=dev), codes)
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"blocked_insert_seq": 1}
+    ref = blocked.insert_seq(blocked.create(1 << 20, 4, 31, device="cpu"),
+                             codes)
+    assert torch.equal(bf.rows.cpu(), ref.rows)
+
+
 # ---------------------------------------------------------------------------
 # the tile partition and the tiled routes of the two scatters
 # ---------------------------------------------------------------------------
