@@ -30,7 +30,9 @@ counters, batches of 3072 reads x 2048 bases):
      (hit fraction inside the FPR band), the .bf store/load round trip, the
      golden .bf of the reference's README example, and the launch counts of
      its kernels: the inserts took the route the rule names;
-  4. the write_bloom / test_bloom CLIs on a small multi-FASTA;
+  4. the write_bloom / test_bloom CLIs on a small multi-FASTA, their FASTA
+     parser built from the port's own source (its path and the compiler's
+     identity logged);
   5. insert and query k-mers/s, kernel path against plain path;
   6. the counting filter:
      a. gather_counters, scatter_add (unit and weighted, each route), the
@@ -4238,6 +4240,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 4. CLIs --------------------------------------------------------
+    from btl_bloomfilter_tpu_torch import native
+    log(f"[4] FASTA parser: source {os.path.relpath(native.SRC, ROOT)}, "
+        f"compiler {native.compiler_identity()}, library "
+        f"{os.path.relpath(native.library_path(), ROOT)}")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         fa = os.path.join(tmp, "reads.fa")
         rng = np.random.default_rng(SEED + 2)
