@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from ..ops import u64
+from ..utils import trace
 from . import _build
 
 ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -49,9 +50,18 @@ def gather_words_plain(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def gather_words(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The query, in a ``btl.gather`` span; counts the call under
+    ``gathers``."""
     _check(words, pos)
-    if _build.on_cpu(words, pos):
-        return gather_words_plain(words, pos)
+    trace.count("gathers")
+    with trace.span("btl.gather"):
+        if _build.on_cpu(words, pos):
+            return gather_words_plain(words, pos)
+        return _gather(words, pos)
+
+
+def _gather(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors."""
     h = pos.shape[0]
     pos = pos.contiguous()
     words = words.contiguous()

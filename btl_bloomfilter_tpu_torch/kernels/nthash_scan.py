@@ -25,6 +25,7 @@ import functools
 import torch
 
 from ..ops import nthash, nthash_tables as T, u64
+from ..utils import trace
 from . import _build
 
 ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
@@ -166,9 +167,14 @@ def positions_planes(codes: torch.Tensor, k: int, h: int, size: int):
     """(pos [h, B, W], strand bool [B, W], valid bool [B, W]): positions
     are hash % size, or the sentinel in every slot of a window that holds
     an N; int32 with 0xFFFFFFFF (-1) below 2**32 bits, int64 with -1 from
-    2**32 to 2**36 bits."""
+    2**32 to 2**36 bits. In a ``btl.hash`` span; counts B * W under
+    ``windows`` and h * B * W under ``positions``."""
     check_codes(codes, k, h)
     check_size(size)
-    if _build.on_cpu(codes):
-        return positions_planes_plain(codes, k, h, size)
-    return _launch(codes, k, h, size)
+    windows = codes.shape[0] * (codes.shape[1] - k + 1)
+    trace.count("windows", windows)
+    trace.count("positions", h * windows)
+    with trace.span("btl.hash"):
+        if _build.on_cpu(codes):
+            return positions_planes_plain(codes, k, h, size)
+        return _launch(codes, k, h, size)

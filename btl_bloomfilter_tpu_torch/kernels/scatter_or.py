@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from ..ops import u64
+from ..utils import trace
 from . import _build, tile_partition
 
 ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -111,11 +112,21 @@ def launch(kernel: _build.CudaKernel, words: torch.Tensor,
 
 
 def scatter_or(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The insert, in a ``btl.scatter.<route>`` span (``plain`` on the
+    CPU); counts the call under ``route.<route>`` and, on the tiled route,
+    the partition's tiles under ``tiles``."""
     if _build.on_cpu(words, pos):
-        return scatter_or_plain(words, pos)
+        trace.count("route.plain")
+        with trace.span("btl.scatter.plain"):
+            return scatter_or_plain(words, pos)
     if route(words.numel(), pos.numel()) == "tiled":
-        return scatter_or_tiled(words, pos)
-    return scatter_or_direct(words, pos)
+        trace.count("route.tiled")
+        trace.count("tiles", tile_partition.ntiles(words.numel()))
+        with trace.span("btl.scatter.tiled"):
+            return scatter_or_tiled(words, pos)
+    trace.count("route.direct")
+    with trace.span("btl.scatter.direct"):
+        return scatter_or_direct(words, pos)
 
 
 def scatter_or_direct(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

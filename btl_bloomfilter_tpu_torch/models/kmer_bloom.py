@@ -6,7 +6,9 @@ kernel's positions mode (hash, mod size and the invalid-window sentinel in
 one pass), then the scatter-OR or gather kernel. On the CPU the same calls
 take the kernels' plain versions. Codes may be numpy or torch, uint8
 [..., L] with A=0 C=1 G=2 T=3 and any code >= 4 an N; they are moved to
-the filter's device.
+the filter's device. Each call records its spans (``btl.insert_seq`` /
+``btl.contains_seq`` around the staging, hash, scatter or gather spans) and
+counters (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -15,11 +17,21 @@ import torch
 
 from ..kernels import nthash_scan
 from ..ops import nthash_tables
+from ..utils import trace
 from . import bloom
+
+STAGE_SPANS = {k: f"btl.stage.{k}" for k in ("pageable", "pinned", "none")}
+STAGE_BYTES = {k: f"stage_bytes.{k}" for k in STAGE_SPANS}
 
 
 def _codes_on(bf: bloom.BloomFilter, codes) -> torch.Tensor:
-    return torch.as_tensor(codes).to(bf.device)
+    """codes on the filter's device, in a ``btl.stage.*`` span named by
+    ``trace.stage_kind``; their bytes count under ``stage_bytes.*``."""
+    kind = trace.stage_kind(codes, bf.device)
+    with trace.span(STAGE_SPANS[kind]):
+        codes = torch.as_tensor(codes)
+        trace.count(STAGE_BYTES[kind], codes.numel() * codes.element_size())
+        return codes.to(bf.device)
 
 
 def _positions(bf: bloom.BloomFilter, codes: torch.Tensor):
@@ -36,18 +48,22 @@ def insert_seq(bf: bloom.BloomFilter, codes) -> bloom.BloomFilter:
     """Insert every valid k-mer window of a sequence or a batch of
     equal-length sequences (codes [..., L]). Updates ``bf.words`` in place
     and returns ``bf``."""
-    pos, _valid = _positions(bf, _codes_on(bf, codes))
-    return bloom.insert_sentinel_positions(bf, pos)
+    trace.count("calls.insert_seq")
+    with trace.span("btl.insert_seq"):
+        pos, _valid = _positions(bf, _codes_on(bf, codes))
+        return bloom.insert_sentinel_positions(bf, pos)
 
 
 def contains_seq(bf: bloom.BloomFilter, codes):
     """Membership of every window: (hit bool [..., W], valid bool [..., W]);
     invalid windows are reported False."""
-    codes = _codes_on(bf, codes)
-    pos, valid = _positions(bf, codes)
-    hit = bloom.contains_sentinel_positions(bf, pos)
-    shape = codes.shape[:-1] + valid.shape[-1:]
-    return hit.reshape(shape), valid.reshape(shape)
+    trace.count("calls.contains_seq")
+    with trace.span("btl.contains_seq"):
+        codes = _codes_on(bf, codes)
+        pos, valid = _positions(bf, codes)
+        hit = bloom.contains_sentinel_positions(bf, pos)
+        shape = codes.shape[:-1] + valid.shape[-1:]
+        return hit.reshape(shape), valid.reshape(shape)
 
 
 def _kmer_hashes(bf: bloom.BloomFilter, kmer_codes) -> torch.Tensor:

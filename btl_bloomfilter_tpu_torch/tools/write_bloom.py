@@ -6,6 +6,10 @@ a multiple of 64 and hashNum = floor(size / n) * ln 2, with n the input
 file's size in bytes.
 
     python -m btl_bloomfilter_tpu_torch.tools.write_bloom -f reads.fa -k 31 -o out.bf
+
+``--trace FILE`` writes the batch loop's ``torch.profiler`` trace (the
+port's ``btl.*`` spans beside the device's work) to FILE and prints the
+port's counters.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from .. import native
 from ..io import bf_format
 from ..models import bloom, kmer_bloom
+from ..utils import trace
 
 
 def filter_specs(n: int, fpr: float):
@@ -43,6 +48,8 @@ def main(argv=None) -> None:
     ap.add_argument("--pad", type=int, default=1024)
     ap.add_argument("--device", default="cuda",
                     help="torch device holding the filter (default cuda)")
+    ap.add_argument("--trace", metavar="FILE",
+                    help="write a Chrome trace of the batch loop to FILE")
     args = ap.parse_args(argv)
 
     n = os.path.getsize(args.fasta)
@@ -53,8 +60,9 @@ def main(argv=None) -> None:
     bf = bloom.create(size, hash_num, args.k, device=args.device)
     t0 = time.time()
     nbatches = 0
-    with native.FastaReader(args.fasta, args.batch, args.pad,
-                            args.k) as reader:
+    with (trace.profiled(args.trace, bf.device),
+          native.FastaReader(args.fasta, args.batch, args.pad,
+                             args.k) as reader):
         for codes in reader:
             kmer_bloom.insert_seq(bf, codes)
             nbatches += 1
