@@ -10,6 +10,9 @@ span name starts with ``btl.``. The Bloom path records, per call:
   * ``btl.insert_seq`` / ``btl.contains_seq``  - the batch (``kmer_bloom``)
   * ``btl.stage.pageable`` / ``.pinned`` / ``.none`` - the codes moved to
     the filter's device, named by ``stage_kind``
+  * ``btl.stage.ring`` - the host's part of one chunk staged through the
+    device's staging ring (``utils/staging.py``), which takes a pageable
+    batch's place on a CUDA device
   * ``btl.hash``     - ``nthash_scan.positions_planes``
   * ``btl.scatter.direct`` / ``.tiled`` / ``.plain`` - ``scatter_or``, named
     after the route it takes (``plain``: the CPU version)
@@ -41,6 +44,7 @@ _profiling = torch._C._autograd._profiler_enabled
 
 NAMES = ("calls.insert_seq", "calls.contains_seq",
          "stage_bytes.pageable", "stage_bytes.pinned", "stage_bytes.none",
+         "stage_bytes.ring", "stage.chunks", "stage.slot_waits",
          "windows", "positions",
          "route.direct", "route.tiled", "route.plain", "tiles", "gathers")
 COUNTS = dict.fromkeys(NAMES, 0)

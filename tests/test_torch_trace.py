@@ -4,8 +4,9 @@ On the CPU: the null span when no profiler runs, the spans' nesting under
 ``torch.profiler``, the counters' arithmetic (and the part of them taken
 under a profiler), the stage kinds, and the
 CLIs' ``--trace FILE``. Marked ``cuda`` (skipped without a card): the
-pinned stage, the route span, and that a traced Bloom call queues no more
-device work than the untraced one. This file imports neither jax nor the
+pinned stage and the staging ring's bytes, the route span, that a traced
+Bloom call queues no more device work than the untraced one, and a
+profiled call's ring spans and counts. This file imports neither jax nor the
 JAX package; on the card, from the repo root:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_trace.py
@@ -107,6 +108,17 @@ def test_counters_after_known_batches(source):
     assert c["calls.insert_seq"] == 2 and c["calls.contains_seq"] == 1
     assert c["route.plain"] == 2 and c["gathers"] == 1
     assert c["route.direct"] == c["route.tiled"] == c["tiles"] == 0
+
+
+def test_staging_counters_are_named_and_reset():
+    ring_names = ("stage_bytes.ring", "stage.chunks", "stage.slot_waits")
+    assert set(ring_names) <= set(trace.NAMES)
+    for name in ring_names:
+        trace.count(name, 3)
+    assert all(trace.counters()[n] == 3 for n in ring_names)
+    trace.reset_counters()
+    assert not any(trace.counters()[n] for n in ring_names)
+    assert not any(trace.profiled_counters()[n] for n in ring_names)
 
 
 def test_counters_hold_launch_counts_and_reset_clears_both():
@@ -220,7 +232,10 @@ def test_cuda_stage_kind_and_bytes(dev, pinned):
     kmer_bloom.insert_seq(bf, codes)
     kmer_bloom.insert_seq(bf, codes.to(dev))
     c = trace.counters()
-    assert c[f"stage_bytes.{kind}"] == c["stage_bytes.none"] == 8 * 200
+    # a pageable batch goes through the staging ring
+    staged = "pinned" if pinned else "ring"
+    assert c[f"stage_bytes.{staged}"] == c["stage_bytes.none"] == 8 * 200
+    assert c["stage_bytes.pageable"] == 0
     assert sum(v for n, v in c.items()
                if n.startswith("stage_bytes.")) == 2 * 8 * 200
 
@@ -247,9 +262,9 @@ def test_cuda_route_span_and_queued_work(dev, route, tmp_path):
                              tmp_path, cuda=True)
     spans = btl_spans(events)
     assert children(spans, "btl.insert_seq") == [
-        "btl.stage.pageable", "btl.hash", f"btl.scatter.{route}"]
+        "btl.stage.ring", "btl.hash", f"btl.scatter.{route}"]
     assert children(spans, "btl.contains_seq") == [
-        "btl.stage.pageable", "btl.hash", "btl.gather"]
+        "btl.stage.ring", "btl.hash", "btl.gather"]
     c = trace.counters()
     assert c[f"route.{route}"] == 1
     want = {"insert_seq": ("nthash_scan", "scatter_or", "tp_"),
@@ -269,3 +284,23 @@ def test_cuda_route_span_and_queued_work(dev, route, tmp_path):
         assert not memsets or (entry == "insert_seq" and route == "tiled")
         assert not any(n.startswith("cudaMalloc") for n in runtime), runtime
         assert sum("Synchronize" in n for n in runtime) <= 1, runtime
+
+
+@pytest.mark.cuda
+def test_cuda_profiled_ring_call(dev, tmp_path):
+    bf = bloom.create(SIZE, H, K, device=dev)
+    codes = random_codes(65536, 150)           # three chunks
+    kmer_bloom.contains_seq(bf, codes)
+    torch.cuda.synchronize()
+    trace.reset_counters()
+    events = profiled_events(lambda: kmer_bloom.contains_seq(bf, codes),
+                             tmp_path, cuda=True)
+    assert children(btl_spans(events), "btl.contains_seq") == 3 * [
+        "btl.stage.ring", "btl.hash", "btl.gather"]
+    p = trace.profiled_counters()
+    assert p["stage_bytes.ring"] == codes.nbytes
+    assert p["stage.chunks"] == 3
+    assert p["stage_bytes.pageable"] == 0
+    device, runtime = queued_in(events, "btl.contains_seq")
+    assert sum(n.startswith("cudaMemcpy") for n in runtime) == 3, runtime
+    assert not any(n.startswith("cudaMalloc") for n in runtime), runtime
