@@ -42,6 +42,25 @@ more frames need the replay than ``max_entangled`` allows, the whole batch
 is replayed in the same rounds from the state before the batch, where the
 reference runs a per-frame scan.
 
+The sequence entries (``insert_seq``, ``contains_seq``, ``min_count_seq``)
+move a batch to the filter's device through ``staging.codes_on``, as
+``kmer_bloom``'s do: a pageable host batch bound for a CUDA filter takes the
+device's staging ring in row chunks, each hashed by the ntHash kernel's
+positions mode, and the decomposition then works on the whole batch. Each
+call records its entry span (``btl.insert_seq`` / ``btl.contains_seq``,
+with ``calls.*``), and an insert the spans ``btl.count.decompose`` (the
+decomposition, the pair sort and flags; the multiset sort in
+``btl.count.group`` inside it), ``btl.count.closed`` (the closed-form
+step) and ``btl.count.replay`` (the rounds, the whole-batch replay
+included), and the counters
+``count.frames`` (valid frames) = ``count.closed_frames`` +
+``count.replayed_frames``, ``count.steps`` (conservative steps: the closed
+form and every round) and ``count.whole_batch_replays``
+(``utils/trace.py``). The valid frames of a batch that takes the closed
+form are a read of the device: ``count.frames`` and
+``count.closed_frames`` count such batches only while a profiler runs, so
+an insert outside one adds no read or wait for its counters.
+
 Counter positions come in the Bloom filter's two forms
 (``bloom.position_dtype``): below 2**32 counters int32 holding uint32 bits
 with the sentinel 0xFFFFFFFF; at exactly 2**32 counters, where 0xFFFFFFFF
@@ -66,6 +85,7 @@ from ..kernels import (conservative_step, gather_counters, nthash_scan,
 from ..kernels.conservative_step import earlier_dup_mask
 from ..ops import u64
 from ..ops.replay import STREAM_BITS, STREAM_MASK, replay_depth
+from ..utils import staging, trace
 from . import bloom
 
 # the most counters a filter takes, as in the JAX package
@@ -357,6 +377,7 @@ def _replay(step, p: torch.Tensor) -> None:
     for n_round in torch.bincount(depth)[1:].tolist():
         rows = order[start:start + n_round]
         step(p[:, rows], ones[:n_round])
+        trace.count("count.steps")
         start += n_round
 
 
@@ -383,16 +404,17 @@ def _decompose(pos: torch.Tensor, group: bool):
 
     # --- 1. group by identical position multiset -------------------------
     if group:
-        key = _sort_slots(pos)
-        perm = idx
-        for j in reversed(range(h)):     # least significant key first
-            perm = perm[torch.sort(key[j, perm], stable=True).indices]
-        ks, frame_of = key[:, perm], perm
-        new_grp = torch.ones(n, dtype=torch.bool, device=dev)
-        new_grp[1:] = (ks[:, 1:] != ks[:, :-1]).any(dim=0)
-        gid = torch.cumsum(new_grp, 0) - 1
-        starts = torch.nonzero(new_grp).reshape(-1)
-        run_len = torch.diff(starts, append=starts.new_tensor([n]))[gid]
+        with trace.span("btl.count.group"):
+            key = _sort_slots(pos)
+            perm = idx
+            for j in reversed(range(h)):     # least significant key first
+                perm = perm[torch.sort(key[j, perm], stable=True).indices]
+            ks, frame_of = key[:, perm], perm
+            new_grp = torch.ones(n, dtype=torch.bool, device=dev)
+            new_grp[1:] = (ks[:, 1:] != ks[:, :-1]).any(dim=0)
+            gid = torch.cumsum(new_grp, 0) - 1
+            starts = torch.nonzero(new_grp).reshape(-1)
+            run_len = torch.diff(starts, append=starts.new_tensor([n]))[gid]
     else:
         # every frame its own group; the frame order needs no sort
         ks, frame_of = pos, idx
@@ -465,14 +487,31 @@ def _insert_frames(step, pos: torch.Tensor, size: int, max_entangled,
         return
     if n >= (1 << STREAM_BITS):
         raise ValueError(f"{n} frames in one batch; at most 2**31 - 1")
-    ks, closed, closed_c, ent_frames = _decompose(pos, group)
-    if ent_frames.numel() > _entangled_cap(n, h, size, max_entangled):
+    with trace.span("btl.count.decompose"):
+        ks, closed, closed_c, ent_frames = _decompose(pos, group)
+    n_ent = ent_frames.numel()
+    if n_ent > _entangled_cap(n, h, size, max_entangled):
         # too many frames for the replay buffer: replay the whole batch in
         # rounds from the state before it (the closed form is not applied)
-        _replay(step, pos[:, pos[0] >= 0])
+        live = pos[:, pos[0] >= 0]
+        trace.count("count.whole_batch_replays")
+        trace.count("count.frames", live.shape[1])
+        trace.count("count.replayed_frames", live.shape[1])
+        with trace.span("btl.count.replay"):
+            _replay(step, live)
         return
-    step(ks, closed_c, closed)
-    _replay(step, pos[:, ent_frames])
+    if trace.profiling():
+        # the valid frames take a read of the device, so they are counted
+        # only while a profiler runs; the closed form applies the rest
+        n_live = int((pos[0] >= 0).sum())
+        trace.count("count.frames", n_live)
+        trace.count("count.closed_frames", n_live - n_ent)
+    trace.count("count.replayed_frames", n_ent)
+    with trace.span("btl.count.closed"):
+        step(ks, closed_c, closed)
+    trace.count("count.steps")
+    with trace.span("btl.count.replay"):
+        _replay(step, pos[:, ent_frames])
 
 
 def _as_positions(pos, v) -> torch.Tensor:
@@ -607,12 +646,27 @@ def insert_all(cbf: CountingBloomFilter, hashes: torch.Tensor,
 
 def _positions_seq(cbf: CountingBloomFilter, codes):
     """Position planes [h, B, W] and valid [B, W] of codes [..., L]
-    flattened to [B, L], through the ntHash kernel's positions mode."""
+    flattened to [B, L], and the shape [..., W]: the ntHash kernel's
+    positions mode on each row chunk that ``staging.codes_on`` puts on the
+    filter's device, joined in row order.
+
+    A pageable batch bound for a CUDA filter comes through the staging ring
+    in ``staging.plan``'s chunks (``split``): the ring copies a split
+    batch's pieces on one host thread, and a copy on torch's threads leaves
+    them spinning into the host work every insert here does between its
+    round trips (H100 host: 25.2-26.2 ms a 65,536 x 150 batch one thread,
+    25.0-31.4 threaded). The positions are joined so that the decomposition
+    runs once on the whole batch."""
     _check_size(cbf)
-    codes = torch.as_tensor(codes).to(cbf.device)
-    pos, _strand, valid = nthash_scan.positions_planes(
-        codes.reshape(-1, codes.shape[-1]), cbf.kmer_size, cbf.hash_num,
-        cbf.size)
+    codes = torch.as_tensor(codes)
+    pos, valid = [], []
+    for p, _strand, v in staging.codes_on(
+            cbf.device, codes, lambda c: nthash_scan.positions_planes(
+                c, cbf.kmer_size, cbf.hash_num, cbf.size), split=True):
+        pos.append(p)
+        valid.append(v)
+    pos = pos[0] if len(pos) == 1 else torch.cat(pos, dim=1)
+    valid = valid[0] if len(valid) == 1 else torch.cat(valid)
     return pos, valid, codes.shape[:-1] + valid.shape[-1:]
 
 
@@ -621,25 +675,32 @@ def insert_seq(cbf: CountingBloomFilter, codes, max_entangled=None,
     """Conservative update with every valid k-mer window of codes
     [..., L] (A=0 C=1 G=2 T=3, any code >= 4 an N), windows in row-major
     stream order. Updates in place."""
-    pos, _valid, _shape = _positions_seq(cbf, codes)
-    return insert_sentinel_positions(cbf, pos, max_entangled,
-                                     group_duplicates)
+    trace.count("calls.insert_seq")
+    with trace.span("btl.insert_seq"):
+        pos, _valid, _shape = _positions_seq(cbf, codes)
+        return insert_sentinel_positions(cbf, pos, max_entangled,
+                                         group_duplicates)
 
 
 def contains_seq(cbf: CountingBloomFilter, codes):
     """(hit bool [..., W], valid bool [..., W]) of every window of codes
     [..., L]; invalid windows are reported False."""
-    pos, valid, shape = _positions_seq(cbf, codes)
-    hit = contains_sentinel_positions(cbf, pos)
-    return hit.reshape(shape), valid.reshape(shape)
+    trace.count("calls.contains_seq")
+    with trace.span("btl.contains_seq"):
+        pos, valid, shape = _positions_seq(cbf, codes)
+        hit = contains_sentinel_positions(cbf, pos)
+        return hit.reshape(shape), valid.reshape(shape)
 
 
 def min_count_seq(cbf: CountingBloomFilter, codes):
     """(min count int64 [..., W], valid bool [..., W]) of every window of
-    codes [..., L]; invalid windows read 0."""
-    pos, valid, shape = _positions_seq(cbf, codes)
-    mc = min_count_sentinel_positions(cbf, pos)
-    return mc.reshape(shape), valid.reshape(shape)
+    codes [..., L]; invalid windows read 0. A query: it records the
+    ``btl.contains_seq`` span and ``calls.contains_seq``."""
+    trace.count("calls.contains_seq")
+    with trace.span("btl.contains_seq"):
+        pos, valid, shape = _positions_seq(cbf, codes)
+        mc = min_count_sentinel_positions(cbf, pos)
+        return mc.reshape(shape), valid.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

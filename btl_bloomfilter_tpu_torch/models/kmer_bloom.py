@@ -7,16 +7,17 @@ one pass), then the scatter-OR or gather kernel. On the CPU the same calls
 take the kernels' plain versions. Codes may be numpy or torch, uint8
 [..., L] with A=0 C=1 G=2 T=3 and any code >= 4 an N.
 
-How codes reach the filter's device (``_codes_on``): a pageable host batch
-going to a CUDA device passes through the device's staging ring
-(``utils/staging.py``): copied on the host into pinned slots, moved to the
-card on a copy stream, hashed on the current stream once its copy has
-ended. ``contains_seq`` hashes and gathers chunk by chunk, so the copy of
-one chunk runs under the kernels of the one before; ``insert_seq`` stages
-the whole batch and launches one hash and one scatter, and returns without
-waiting for the card. Pinned and CUDA codes are moved as they are (``to``),
-and a CPU filter takes its codes in place. Either way the caller's array
-is free again when the call returns. Each call records its spans
+How codes reach the filter's device (``staging.codes_on``, which the
+counting filter shares): a pageable host batch going to a CUDA device
+passes through the device's staging ring (``utils/staging.py``): copied on
+the host into pinned slots, moved to the card on a copy stream, hashed on
+the current stream once its copy has ended. ``contains_seq`` hashes and
+gathers chunk by chunk, so the copy of one chunk runs under the kernels of
+the one before; ``insert_seq`` stages the whole batch and launches one hash
+and one scatter, and returns without waiting for the card. Pinned and
+CUDA codes are moved as they are (``to``), and a CPU filter takes its
+codes in place. Either way the caller's array is free again when the call
+returns. Each call records its spans
 (``btl.insert_seq`` / ``btl.contains_seq`` around the staging, hash,
 scatter or gather spans) and counters (``utils/trace.py``).
 """
@@ -29,37 +30,6 @@ from ..kernels import nthash_scan
 from ..ops import nthash_tables
 from ..utils import staging, trace
 from . import bloom
-
-STAGE_SPANS = {k: f"btl.stage.{k}" for k in ("pageable", "pinned", "none")}
-STAGE_BYTES = {k: f"stage_bytes.{k}" for k in STAGE_SPANS}
-
-
-def _codes_on(bf: bloom.BloomFilter, codes: torch.Tensor, fn,
-              split: bool = False):
-    """Yield ``fn(chunk)`` for row chunks of ``codes`` [..., L] flattened
-    to [B, L] and put on the filter's device, in row order; ``fn`` is
-    handed device codes [n, L] and must queue every read of them.
-
-    A pageable host batch for a CUDA filter (``staging.takes``) goes
-    through the device's staging ring: copied on the host into pinned
-    slots, then to the card on the ring's copy stream, which ``fn``'s
-    stream waits for. It is staged in ``staging.plan``'s chunks when
-    ``split``, else as one chunk, and counted under ``stage_bytes.ring``.
-    Other codes are one chunk, moved with ``to`` in a ``btl.stage.*`` span
-    named by ``trace.stage_kind`` and counted under ``stage_bytes.*``. The
-    host reads ``codes`` only while the generator runs, and nothing the
-    card reads afterwards aliases them: a caller that exhausts it may
-    reuse its array once it returns."""
-    kind = trace.stage_kind(codes, bf.device)
-    flat = codes.reshape(-1, codes.shape[-1])
-    if staging.takes(flat, bf.device):
-        yield from staging.ring(bf.device).map(fn, flat, split)
-        return
-    with trace.span(STAGE_SPANS[kind]):
-        trace.count(STAGE_BYTES[kind], flat.numel() * flat.element_size())
-        flat = flat.to(bf.device)
-    yield fn(flat)
-
 
 def _positions(bf: bloom.BloomFilter, flat: torch.Tensor):
     """Positions planes [h, B, W] (in the form
@@ -76,8 +46,8 @@ def insert_seq(bf: bloom.BloomFilter, codes) -> bloom.BloomFilter:
     stream and the call does not wait for it."""
     trace.count("calls.insert_seq")
     with trace.span("btl.insert_seq"):
-        (pos, _valid), = _codes_on(bf, torch.as_tensor(codes),
-                                   lambda c: _positions(bf, c))
+        (pos, _valid), = staging.codes_on(bf.device, torch.as_tensor(codes),
+                                          lambda c: _positions(bf, c))
         return bloom.insert_sentinel_positions(bf, pos)
 
 
@@ -90,8 +60,9 @@ def contains_seq(bf: bloom.BloomFilter, codes):
     with trace.span("btl.contains_seq"):
         codes = torch.as_tensor(codes)
         hits, valids = [], []
-        for pos, valid in _codes_on(bf, codes, lambda c: _positions(bf, c),
-                                    split=True):
+        for pos, valid in staging.codes_on(bf.device, codes,
+                                           lambda c: _positions(bf, c),
+                                           split=True):
             hits.append(bloom.contains_sentinel_positions(bf, pos))
             valids.append(valid)
         hit, valid = (x[0] if len(x) == 1 else torch.cat(x)
@@ -106,8 +77,8 @@ def _kmer_hashes(bf: bloom.BloomFilter, kmer_codes) -> torch.Tensor:
     non-ACGT base hashes through seed 0, as the reference's k-mer insert
     does (no validity mask)."""
     codes = torch.as_tensor(kmer_codes)
-    (hashes, _strand, _valid), = _codes_on(
-        bf, codes, lambda c: nthash_scan.hash_frames_planes(
+    (hashes, _strand, _valid), = staging.codes_on(
+        bf.device, codes, lambda c: nthash_scan.hash_frames_planes(
             c, bf.kmer_size, bf.hash_num))
     return hashes[:, :, 0].movedim(0, -1).reshape(
         codes.shape[:-1] + (bf.hash_num,))

@@ -77,6 +77,38 @@ def takes(flat: torch.Tensor, device: torch.device) -> bool:
             and flat.shape[1] * flat.element_size() <= CHUNK_BYTES)
 
 
+STAGE_SPANS = {k: f"btl.stage.{k}" for k in ("pageable", "pinned", "none")}
+STAGE_BYTES = {k: f"stage_bytes.{k}" for k in STAGE_SPANS}
+
+
+def codes_on(device: torch.device, codes: torch.Tensor, fn,
+             split: bool = False):
+    """Yield ``fn(chunk)`` for row chunks of ``codes`` [..., L] flattened
+    to [B, L] and put on ``device`` (a filter's), in row order; ``fn`` is
+    handed device codes [n, L] and must queue every read of them. The one
+    way the filters' sequence entries (``models/kmer_bloom``,
+    ``models/counting``) move a batch to their device.
+
+    A pageable host batch for a CUDA device (``takes``) goes through the
+    device's ring: copied on the host into pinned slots, then to the card
+    on the ring's copy stream, which ``fn``'s stream waits for. It is
+    staged in ``plan``'s chunks when ``split``, else as one chunk, and
+    counted under ``stage_bytes.ring``. Other codes are one chunk, moved
+    with ``to`` in a ``btl.stage.*`` span named by ``trace.stage_kind`` and
+    counted under ``stage_bytes.*``. The host reads ``codes`` only while
+    the generator runs, and nothing the card reads afterwards aliases
+    them: a caller that exhausts it may reuse its array once it returns."""
+    kind = trace.stage_kind(codes, device)
+    flat = codes.reshape(-1, codes.shape[-1])
+    if takes(flat, device):
+        yield from ring(device).map(fn, flat, split)
+        return
+    with trace.span(STAGE_SPANS[kind]):
+        trace.count(STAGE_BYTES[kind], flat.numel() * flat.element_size())
+        flat = flat.to(device)
+    yield fn(flat)
+
+
 def ring(device: torch.device) -> "Ring":
     """The ring of CUDA ``device`` (a tensor's device: its index is set),
     made on first use."""

@@ -1,4 +1,4 @@
-"""Spans and counters inside the port's Bloom path.
+"""Spans and counters inside the port's Bloom and counting paths.
 
 ``span(name)`` marks a stretch of host time in ``torch.profiler``'s trace:
 a ``record_function`` while a profiler runs, one shared null context
@@ -18,11 +18,33 @@ span name starts with ``btl.``. The Bloom path records, per call:
     after the route it takes (``plain``: the CPU version)
   * ``btl.gather``   - ``gather_words``
 
+The counting filter's sequence entries (``models/counting.py``) record the
+same entry spans and ``calls.*`` counters and the same staging, and an
+insert records:
+
+  * ``btl.count.decompose`` - the decomposition: the (position, frame)
+    pair sort and the flags, around
+  * ``btl.count.group``     - the sort of frames by position multiset
+  * ``btl.count.closed``    - the closed-form conservative step
+  * ``btl.count.replay``    - the replay's rounds (the whole-batch replay
+    included)
+
+with the counters ``count.frames`` (valid frames), ``count.closed_frames``
+and ``count.replayed_frames`` (their sum is ``count.frames``),
+``count.steps`` (conservative steps: the closed form and every round) and
+``count.whole_batch_replays`` (batches past ``max_entangled``). A batch's
+valid frames are a device read where the closed form runs, so there
+``count.frames`` and ``count.closed_frames`` are added only while a
+profiler runs (``profiling()``): the identity holds in
+``profiled_counters()``, and in ``counters()`` where every insert ran
+under a profiler.
+
 The tiled route launches its partition and its apply in one C call, so no
 span splits them; the device trace names their kernels.
 
 Counters are host integers, always on: an add never reads the device or
-waits for it. ``counters()`` returns them with the kernels' launch counts
+waits for it (a count that needs such a read is taken only under a
+profiler, as the two counting ones above). ``counters()`` returns them with the kernels' launch counts
 (``launches.<name>``); ``profiled_counters()`` returns the part of them
 added while a profiler ran, so a profiled stretch reads its own counts
 beside its trace; ``reset_counters()`` clears all three.
@@ -46,9 +68,16 @@ NAMES = ("calls.insert_seq", "calls.contains_seq",
          "stage_bytes.pageable", "stage_bytes.pinned", "stage_bytes.none",
          "stage_bytes.ring", "stage.chunks", "stage.slot_waits",
          "windows", "positions",
-         "route.direct", "route.tiled", "route.plain", "tiles", "gathers")
+         "route.direct", "route.tiled", "route.plain", "tiles", "gathers",
+         "count.frames", "count.closed_frames", "count.replayed_frames",
+         "count.steps", "count.whole_batch_replays")
 COUNTS = dict.fromkeys(NAMES, 0)
 PROFILED = dict.fromkeys(NAMES, 0)
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is running."""
+    return _profiling()
 
 
 def span(name: str):
